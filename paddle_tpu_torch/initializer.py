@@ -1,0 +1,156 @@
+"""Parameter initializers (reference: python/paddle/fluid/initializer.py).
+
+Each initializer appends a fill op on the parameter into the startup
+program; the random fills draw from the executor's ``torch.Generator``
+(see ops/tensor_ops.py).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+class Initializer:
+    def __call__(self, var, block):
+        raise NotImplementedError
+
+
+class ConstantInitializer(Initializer):
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def __call__(self, var, block):
+        block.append_op(
+            "fill_constant",
+            outputs={"Out": var.name},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "value": float(self.value),
+            },
+        )
+
+
+class UniformInitializer(Initializer):
+    def __init__(self, low=-1.0, high=1.0, seed=0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "uniform_random",
+            outputs={"Out": var.name},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "min": float(self.low),
+                "max": float(self.high),
+                "seed": self.seed,
+            },
+        )
+
+
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random",
+            outputs={"Out": var.name},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": float(self.loc),
+                "std": float(self.scale),
+                "seed": self.seed,
+            },
+        )
+
+
+def _fan_in_out(var):
+    shape = var.shape
+    if len(shape) == 2:
+        fan_in, fan_out = shape[0], shape[1]
+    elif len(shape) >= 3:
+        receptive = math.prod(shape[2:])
+        fan_in = shape[1] * receptive
+        fan_out = shape[0] * receptive
+    else:
+        fan_in = fan_out = shape[0] if shape else 1
+    return fan_in, fan_out
+
+
+class XavierInitializer(Initializer):
+    """Glorot init (reference: initializer.py XavierInitializer)."""
+
+    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+        self.uniform = uniform
+        self.fan_in, self.fan_out = fan_in, fan_out
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, fo = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class MSRAInitializer(Initializer):
+    """He/Kaiming init (reference: initializer.py MSRAInitializer)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform = uniform
+        self.fan_in = fan_in
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fi)
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        # Stage the literal through an assign-from-constant: store it on the
+        # op so the kernel can close over it.
+        flat = [float(x) for x in self.value.reshape(-1)]
+        block.append_op(
+            "assign_value",
+            outputs={"Out": var.name},
+            attrs={
+                "shape": list(self.value.shape),
+                "dtype": var.dtype,
+                "values": flat,
+            },
+        )
+
+
+# Aliases matching the reference's public names.
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+Xavier = XavierInitializer
+MSRA = MSRAInitializer
+
+
+def _global_weight_initializer():
+    return XavierInitializer()
+
+
+def _global_bias_initializer():
+    return ConstantInitializer(0.0)

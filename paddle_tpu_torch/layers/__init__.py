@@ -1,0 +1,5 @@
+"""Layers API: the graph-building functions the served transformer uses."""
+
+from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403

@@ -1,0 +1,61 @@
+"""paddle_tpu_torch stands alone: it imports neither JAX nor any module of
+the JAX package (paddle_tpu), and neither does chip_smoke.py, which runs
+on machines that have no JAX."""
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "paddle_tpu_torch")
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "paddle_tpu"}
+
+
+def _port_sources():
+    for dirpath, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d not in ("__pycache__", "build")]
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in FORBIDDEN_ROOTS:
+                    bad.append(f"{os.path.relpath(path, ROOT)}:"
+                               f"{node.lineno}: import {n}")
+    assert not bad, "\n".join(bad)
+
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any import of jax now fails
+import paddle_tpu_torch
+for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+leaked = sorted(n for n in sys.modules
+                if n == "paddle_tpu" or n.startswith("paddle_tpu."))
+assert not leaked, leaked
+print("isolated", len([n for n in sys.modules
+                       if n.startswith("paddle_tpu_torch")]))
+"""
+
+
+def test_package_imports_without_jax_in_a_fresh_process():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("isolated")
