@@ -316,6 +316,9 @@ def main() -> int:
         ("bf16 causal", torch.bfloat16, 8, 256, 256, 8, 64, "causal", False),
         ("cross f32", torch.float32, 2, 64, 128, 8, 64, "pad", False),
         ("ragged f32", torch.float32, 2, 100, 77, 8, 64, "none", False),
+        # both head-width instantiations of the kernel (dh <= 64, <= 128)
+        ("dh128 f32", torch.float32, 2, 128, 128, 4, 128, "pad", False),
+        ("dh32 bf16", torch.bfloat16, 2, 96, 200, 4, 32, "pad", False),
     ]
     results = []
     for case in cases:

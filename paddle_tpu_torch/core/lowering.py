@@ -34,7 +34,6 @@ class LoweredBlock:
     feed_names: Tuple[str, ...]
     fetch_names: Tuple[str, ...]
     needs_rng: bool
-    has_grad_ops: bool
 
 
 def analyze_state(
@@ -103,5 +102,4 @@ def lower_block(
         feed_names=tuple(feed_names),
         fetch_names=fetch_names,
         needs_rng=any(d.needs_rng for d in op_defs),
-        has_grad_ops=any(op.type.endswith("_grad") for op in ops),
     )

@@ -12,15 +12,12 @@ tensors on ``device="meta"`` (framework.infer_op_outputs).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List
 
 # Slot-keyed values: {"X": [tensor, ...], "Y": [tensor]}
 Ins = Dict[str, List[Any]]
 Outs = Dict[str, List[Any]]
 ComputeFn = Callable[..., Outs]  # compute(ins, attrs, device, [generator])
-
-GRAD_SUFFIX = "@GRAD"
-GRAD_OP_SUFFIX = "_grad"
 
 
 @dataclasses.dataclass
@@ -29,17 +26,9 @@ class OpDef:
 
     type: str
     compute: ComputeFn
-    # Slots that hold differentiable (float) inputs. None = all float inputs.
-    diff_inputs: Optional[Sequence[str]] = None
-    # True if this op has no gradient (e.g. metrics, fill ops).
-    no_grad: bool = False
     # True if compute wants a `generator` keyword (torch.Generator).
     needs_rng: bool = False
     doc: str = ""
-
-    def __post_init__(self):
-        if self.diff_inputs is not None:
-            self.diff_inputs = tuple(self.diff_inputs)
 
 
 _OP_REGISTRY: Dict[str, OpDef] = {}
@@ -48,8 +37,6 @@ _OP_REGISTRY: Dict[str, OpDef] = {}
 def register_op(
     type: str,
     *,
-    diff_inputs: Optional[Sequence[str]] = None,
-    no_grad: bool = False,
     needs_rng: bool = False,
     doc: str = "",
 ) -> Callable[[ComputeFn], ComputeFn]:
@@ -61,8 +48,6 @@ def register_op(
         _OP_REGISTRY[type] = OpDef(
             type=type,
             compute=fn,
-            diff_inputs=diff_inputs,
-            no_grad=no_grad,
             needs_rng=needs_rng,
             doc=doc or (fn.__doc__ or ""),
         )

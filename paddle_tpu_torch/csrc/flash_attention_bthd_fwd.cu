@@ -26,10 +26,14 @@
 // kernel's whole-tk-resident programs; K and V stream through shared memory
 // in 64-key tiles (loaded once per block, reused by all 32 query rows), and
 // an online softmax keeps the running max, sum and the [32 x dh] output
-// tile in registers, so no score matrix ever reaches device memory. All
-// arithmetic is f32; bf16 inputs are widened on load. Ragged edges (rows
-// past tq, keys past tk) are masked. Tensor cores, TMA and warp
-// specialisation are left to a later version.
+// tile in registers, so no score matrix ever reaches device memory. With
+// few blocks per SM at serving shapes, global-load latency is exposed, so
+// each thread issues its tile loads in batches of kLdBatch before storing
+// any to shared memory. The head width is a template bound (64 or 128) so
+// the accumulator holds no dead columns at dh=64. All arithmetic is f32;
+// bf16 inputs are widened on load. Ragged edges (rows past tq, keys past
+// tk) are masked. Tensor cores, TMA and warp specialisation are left to a
+// later version.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,7 +46,7 @@ constexpr int kBQ = 32;        // query rows per block
 constexpr int kBK = 64;        // keys per shared-memory tile
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxDh = 128;
-constexpr int kDPerThread = kMaxDh / 4;  // output columns a thread owns
+constexpr int kLdBatch = 8;    // global loads a thread issues before storing
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -63,7 +67,33 @@ size_t smem_bytes(int dh) {
          (size_t)(kBQ * dh + kBK * (dh + 1) + kBK * dh + kBQ * (kBK + 1));
 }
 
+// Copies rows [row0, row0 + nrows) x [0, dh) of a strided [t, dh] source
+// (rows past `limit` read as zeros) into shared memory at stride `sstride`.
 template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int sstride,
+                                          const T* __restrict__ src,
+                                          long long rstride, int row0,
+                                          int nrows, int limit, int dh) {
+  const int n = nrows * dh;
+  for (int base = 0; base < n; base += kThreads * kLdBatch) {
+    float buf[kLdBatch];
+#pragma unroll
+    for (int u = 0; u < kLdBatch; ++u) {
+      int i = base + u * kThreads + threadIdx.x;
+      int r = i / dh, d = i - r * dh;
+      bool ok = i < n && row0 + r < limit;
+      buf[u] = ok ? to_f32(src[(long long)(row0 + r) * rstride + d]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLdBatch; ++u) {
+      int i = base + u * kThreads + threadIdx.x;
+      int r = i / dh, d = i - r * dh;
+      if (i < n) dst[r * sstride + d] = buf[u];
+    }
+  }
+}
+
+template <typename T, int kDhMax>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ bias,
@@ -90,17 +120,14 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bias == nullptr ? nullptr : bias + (long long)bb * sb + (long long)hh * sh;
 
   // Q tile -> shared (rows past tq read as zeros and are never stored)
-  for (int i = tid; i < kBQ * dh; i += kThreads) {
-    int r = i / dh, d = i - r * dh;
-    int qr = q0 + r;
-    Qs[i] = qr < tq ? to_f32(qb[(long long)qr * qst + d]) : 0.f;
-  }
+  load_tile(Qs, dh, qb, qst, q0, kBQ, tq, dh);
 
   // Score micro-tile: rows 4*rg .. 4*rg+3, keys 4*cg .. 4*cg+3.
   const int rg = tid / 16, cg = tid % 16;
   // Softmax / output mapping: row r, column lane c + 4*j (4 threads a row,
   // all in one warp, so a row's statistics never leave its warp).
   const int r = tid / 4, c = tid % 4;
+  constexpr int kDPerThread = kDhMax / 4;  // output columns a thread owns
   float acc[kDPerThread];
 #pragma unroll
   for (int j = 0; j < kDPerThread; ++j) acc[j] = 0.f;
@@ -108,13 +135,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < tk; k0 += kBK) {
     __syncthreads();  // previous tile's Ks/Vs/Ss reads are done
-    for (int i = tid; i < kBK * dh; i += kThreads) {
-      int kr = i / dh, d = i - kr * dh;
-      int key = k0 + kr;
-      bool ok = key < tk;
-      Ks[kr * ks + d] = ok ? to_f32(kb[(long long)key * kst + d]) : 0.f;
-      Vs[kr * dh + d] = ok ? to_f32(vb[(long long)key * vst + d]) : 0.f;
-    }
+    load_tile(Ks, ks, kb, kst, k0, kBK, tk, dh);
+    load_tile(Vs, dh, vb, vst, k0, kBK, tk, dh);
     __syncthreads();
 
     float s[4][4];
@@ -203,22 +225,36 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <typename T, int kDhMax>
+cudaError_t launch_dh(const void* q, const void* k, const void* v,
                    const float* bias, void* out, float* lse, int b, int tq,
                    int tk, int h, int dh, const long long* st, long long sb,
                    long long sh, long long sq, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(dh);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<T, kDhMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kBQ - 1) / kBQ, h, b);
-  fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, kDhMax><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), lse, tq, tk, h,
       dh, st[0], st[1], st[2], st[3], st[4], st[5], sb, sh, sq, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* bias, void* out, float* lse, int b, int tq,
+                   int tk, int h, int dh, const long long* st, long long sb,
+                   long long sh, long long sq, float scale,
+                   cudaStream_t stream) {
+  return dh <= 64 ? launch_dh<T, 64>(q, k, v, bias, out, lse, b, tq, tk, h,
+                                     dh, st, sb, sh, sq, scale, stream)
+                  : launch_dh<T, kMaxDh>(q, k, v, bias, out, lse, b, tq, tk,
+                                         h, dh, st, sb, sh, sq, scale,
+                                         stream);
 }
 
 }  // namespace

@@ -3,8 +3,8 @@
 ``Executor.run`` has the Fluid contract: feed a dict of arrays, fetch a
 list of variables, read and commit persistable state through a Scope.
 A block runs eagerly on the executor's ``torch.device`` (one PyTorch
-call per op, core/lowering.py), under ``torch.inference_mode()`` when the
-program holds no gradient ops.
+call per op, core/lowering.py), under ``torch.inference_mode()``: no
+program of this package holds gradient ops yet.
 """
 
 from __future__ import annotations
@@ -47,12 +47,6 @@ class Scope:
 
     def var_names(self) -> List[str]:
         return list(self._vars)
-
-    def has(self, name: str) -> bool:
-        return name in self._vars
-
-    def drop(self, name: str):
-        self._vars.pop(name, None)
 
     def clear(self):
         self._vars.clear()
@@ -124,15 +118,14 @@ class Executor:
         feed: Optional[Dict[str, Any]] = None,
         fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
         scope: Optional[Scope] = None,
-        return_numpy: bool = True,
         async_fetch: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
-        """Run block 0 of ``program``. Returns the fetches as numpy arrays
-        (``return_numpy``), or as the device tensors themselves when
-        ``async_fetch`` (the caller materializes them later, after it has
-        queued more work). ``generator`` overrides the executor's
-        per-seed generator for the program's random ops."""
+        """Run block 0 of ``program``. Returns the fetches as numpy arrays,
+        or as the device tensors themselves when ``async_fetch`` (the
+        caller materializes them later, after it has queued more work).
+        ``generator`` overrides the executor's per-seed generator for the
+        program's random ops."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
@@ -151,9 +144,7 @@ class Executor:
         gen = None
         if lowered.needs_rng:
             gen = generator or self._generator_for(program)
-        grad_mode = (contextlib.nullcontext() if lowered.has_grad_ops
-                     else torch.inference_mode())
-        with grad_mode:
+        with torch.inference_mode():
             fetches, new_state = lowered.fn(state, feeds, gen)
         # Commit: the scope now holds the tensors the block produced. Ops
         # are functional, so the previous state tensors are released when
@@ -161,7 +152,7 @@ class Executor:
         # package's buffer donation.
         for n, v in new_state.items():
             scope.set(n, v)
-        if not return_numpy or async_fetch:
+        if async_fetch:
             return list(fetches)
         return [to_numpy(t) for t in fetches]
 

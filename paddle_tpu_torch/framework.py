@@ -14,7 +14,6 @@ output variables' metadata. Where that cannot run, the gap is recorded
 
 from __future__ import annotations
 
-import contextlib
 import logging
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -22,12 +21,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import unique_name
-from paddle_tpu_torch.core.registry import (
-    GRAD_OP_SUFFIX,
-    GRAD_SUFFIX,
-    get_op_def,
-    has_op,
-)
+from paddle_tpu_torch.core.registry import get_op_def, has_op
 
 # Sentinel used to stand in for a symbolic (-1) batch dim during abstract
 # shape inference. Prime and unlikely to appear as a real static dim.
@@ -61,10 +55,6 @@ def dtype_name(dtype: torch.dtype) -> str:
     return _DTYPE_NAMES[dtype]
 
 
-def grad_var_name(name: str) -> str:
-    return name + GRAD_SUFFIX
-
-
 def convert_np_dtype_to_dtype_(dtype) -> str:
     """Canonicalize any dtype spec to a numpy dtype name string."""
     if isinstance(dtype, torch.dtype):
@@ -96,14 +86,6 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.is_parameter = is_parameter
         self.trainable = trainable
-
-    @property
-    def grad_name(self) -> str:
-        return grad_var_name(self.name)
-
-    @property
-    def ndim(self):
-        return len(self.shape) if self.shape is not None else None
 
     def __repr__(self):
         return (
@@ -154,12 +136,6 @@ class Operator:
         self.outputs: Dict[str, List[str]] = _normalize_slots(outputs)
         self.attrs: Dict[str, Any] = dict(attrs or {})
 
-    def input(self, slot: str) -> List[str]:
-        return self.inputs.get(slot, [])
-
-    def output(self, slot: str) -> List[str]:
-        return self.outputs.get(slot, [])
-
     @property
     def input_arg_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -167,9 +143,6 @@ class Operator:
     @property
     def output_arg_names(self) -> List[str]:
         return [n for ns in self.outputs.values() for n in ns]
-
-    def attr(self, name: str, default=None):
-        return self.attrs.get(name, default)
 
     def __repr__(self):
         ins = ", ".join(f"{s}={n}" for s, n in self.inputs.items())
@@ -220,15 +193,6 @@ class Block:
         self.vars[name] = p
         return p
 
-    def var(self, name: str) -> Variable:
-        v = self._find_var_recursive(name)
-        if v is None:
-            raise KeyError(f"variable '{name}' not found in block {self.idx}")
-        return v
-
-    def has_var(self, name: str) -> bool:
-        return self._find_var_recursive(name) is not None
-
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
         b: Optional[Block] = self
         while b is not None:
@@ -236,9 +200,6 @@ class Block:
                 return b.vars[name]
             b = b.parent_block
         return None
-
-    def all_parameters(self) -> List[Parameter]:
-        return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     # --- ops ---
 
@@ -273,9 +234,9 @@ class Block:
 
 
 # (op_type, gap kind) pairs where shape inference could not run. Kinds:
-# 'no_kernel' (op type has no registered compute), 'autodiff_grad' (a
-# '<type>_grad' op), 'missing_input_meta' (an input var lacks
-# shape/dtype), 'eval_failed:<Error>' (the meta evaluation raised).
+# 'no_kernel' (op type has no registered compute), 'missing_input_meta'
+# (an input var lacks shape/dtype), 'eval_failed:<Error>' (the meta
+# evaluation raised).
 # Bounded by the op-type vocabulary.
 _SHAPE_INFER_GAPS: set = set()
 
@@ -310,9 +271,6 @@ def infer_op_outputs(block: "Block", op: Operator):
     -> list of meta tensors (``None`` when inference could not run, with
     ``gap`` naming why)."""
     if not has_op(op.type):
-        if op.type.endswith(GRAD_OP_SUFFIX) and \
-                has_op(op.type[: -len(GRAD_OP_SUFFIX)]):
-            return None, "autodiff_grad"
         return None, "no_kernel"
     opdef = get_op_def(op.type)
     try:
@@ -388,9 +346,6 @@ class Program:
         for b in self.blocks:
             yield from b.vars.values()
 
-    def all_parameters(self) -> List[Parameter]:
-        return [v for b in self.blocks for v in b.all_parameters()]
-
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
 
@@ -439,12 +394,6 @@ class program_guard:
         if self.startup is not None:
             switch_startup_program(self.old_startup)
         return False
-
-
-@contextlib.contextmanager
-def name_scope(prefix: str):
-    """Cosmetic name scoping for debugging/profiling."""
-    yield
 
 
 # --- places: which torch.device the executor runs on ---

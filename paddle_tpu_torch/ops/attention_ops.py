@@ -21,14 +21,14 @@ def _x(ins, slot="X", i=0):
     return v[i] if v else None
 
 
-@register_op("position_ids", no_grad=True)
+@register_op("position_ids")
 def _position_ids(ins, attrs, device):
     x = _x(ins)  # [b, t] any int dtype
     b, t = x.shape[0], x.shape[1]
     return {"Out": [torch.arange(t, device=x.device).expand(b, t)]}
 
 
-@register_op("attn_bias", no_grad=True)
+@register_op("attn_bias")
 def _attn_bias(ins, attrs, device):
     """PadMask [b, t_k] (1=real token) -> additive bias.
 
@@ -46,53 +46,26 @@ def _attn_bias(ins, attrs, device):
     return {"Out": [pad_bias[:, None, None, :]]}
 
 
-@register_op("scaled_dot_product_attention", diff_inputs=("Q", "K", "V"),
-             needs_rng=True)
-def _sdpa(ins, attrs, device, generator=None):
+@register_op("scaled_dot_product_attention")
+def _sdpa(ins, attrs, device):
     """Attention over Q, K, V [b, t, h, dh] (``layout="bthd"``) with an
     optional additive Bias; emits Out (Q's dtype) and the real f32
     logsumexp rows Lse [b, tq, h, 1].
 
     Training-time attention dropout (``dropout_prob > 0`` and not
-    ``is_test``) runs only in the plain version on the CPU, drawing its
-    keep mask from ``generator``; on a CUDA tensor it raises until the
-    kernel carries in-kernel dropout."""
+    ``is_test``) raises: it comes with the kernel's in-kernel dropout in
+    the training slice."""
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
-    bias = _x(ins, "Bias")
     if attrs.get("layout", "bhtd") != "bthd":
         raise NotImplementedError(
             "scaled_dot_product_attention: only layout='bthd' is ported")
+    if attrs.get("dropout_prob", 0.0) > 0.0 and not attrs.get("is_test", False):
+        raise NotImplementedError(
+            "scaled_dot_product_attention: training-time attention dropout "
+            "is not ported (needs the kernel's in-kernel dropout)")
     scale = attrs.get("scale", None)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    causal = bool(attrs.get("causal", False))
-    p_drop = float(attrs.get("dropout_prob", 0.0))
-    if p_drop > 0.0 and not attrs.get("is_test", False):
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                "scaled_dot_product_attention: attention dropout on a CUDA "
-                "tensor needs the kernel's in-kernel dropout (not ported)")
-        return {"Out": [_dropout_attention(q, k, v, bias, scale, causal,
-                                           p_drop, generator)],
-                "Lse": [_lse(q, k, bias, scale, causal)]}
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, scale, causal)
+    out, lse = fa.flash_attention_bthd_fwd(
+        q, k, v, _x(ins, "Bias"), scale, bool(attrs.get("causal", False)))
     return {"Out": [out], "Lse": [lse]}
-
-
-def _scores(q, k, bias, scale, causal):
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        bias = fa._combined_causal_bias(bias, q.shape[1], k.shape[1], q.device)
-    return s if bias is None else s + bias.to(torch.float32)
-
-
-def _lse(q, k, bias, scale, causal):
-    s = _scores(q, k, bias, scale, causal)
-    return torch.logsumexp(s, dim=-1, keepdim=True).permute(0, 2, 1, 3)
-
-
-def _dropout_attention(q, k, v, bias, scale, causal, p_drop, generator):
-    p = torch.softmax(_scores(q, k, bias, scale, causal), dim=-1)
-    keep = torch.empty_like(p).bernoulli_(1.0 - p_drop, generator=generator)
-    p = p * keep / (1.0 - p_drop)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

@@ -43,7 +43,7 @@ _make_elementwise("elementwise_max", torch.maximum)
 
 
 def _make_compare(name, fn):
-    @register_op(name, no_grad=True)
+    @register_op(name)
     def _compute(ins, attrs, device, fn=fn):
         x, y = _x(ins), _x(ins, "Y")
         return {"Out": [fn(x, _bcast_y(x, y, attrs.get("axis", -1)))]}
@@ -53,12 +53,12 @@ _make_compare("equal", torch.eq)
 _make_compare("less_than", torch.lt)
 
 
-@register_op("logical_and", no_grad=True)
+@register_op("logical_and")
 def _logical_and(ins, attrs, device):
     return {"Out": [torch.logical_and(_x(ins), _x(ins, "Y"))]}
 
 
-@register_op("logical_not", no_grad=True)
+@register_op("logical_not")
 def _logical_not(ins, attrs, device):
     return {"Out": [torch.logical_not(_x(ins))]}
 

@@ -17,7 +17,7 @@ def _stat_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-@register_op("layer_norm", diff_inputs=("X", "Scale", "Bias"))
+@register_op("layer_norm")
 def _layer_norm(ins, attrs, device):
     """Normalize over dims [begin_norm_axis, ...); statistics and the
     affine run in f32, only Y returns to X's dtype."""
@@ -42,7 +42,7 @@ def _layer_norm(ins, attrs, device):
     }
 
 
-@register_op("softmax_with_cross_entropy", diff_inputs=("Logits",))
+@register_op("softmax_with_cross_entropy")
 def _softmax_with_cross_entropy(ins, attrs, device):
     logits, label = _x(ins, "Logits"), _x(ins, "Label")
     ignore_index = attrs.get("ignore_index", -100)
@@ -61,7 +61,7 @@ def _softmax_with_cross_entropy(ins, attrs, device):
     return {"Softmax": [logp.exp()], "Loss": [loss]}
 
 
-@register_op("label_smooth", diff_inputs=("X",))
+@register_op("label_smooth")
 def _label_smooth(ins, attrs, device):
     x = _x(ins)
     eps = attrs.get("epsilon", 0.1)

@@ -17,7 +17,7 @@ from paddle_tpu_torch.core.registry import register_op
 NEG_INF = -1e9
 
 
-@register_op("kv_cache_write", no_grad=True)
+@register_op("kv_cache_write")
 def _kv_cache_write(ins, attrs, device):
     """Write this step's K/V rows into the slot-indexed cache.
 
@@ -38,7 +38,7 @@ def _kv_cache_write(ins, attrs, device):
     return {"Out": [out]}
 
 
-@register_op("kv_step_bias", no_grad=True)
+@register_op("kv_step_bias")
 def _kv_step_bias(ins, attrs, device):
     """Per-slot additive attention bias over the KV cache: position j of
     slot s is visible iff ``j <= Pos[s]``.

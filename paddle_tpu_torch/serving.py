@@ -10,9 +10,9 @@ The port of the JAX package's ``serving.ServingEngine``:
   request's cross-attention K/V into slot-indexed device-resident cache
   tensors; each decode step appends one self-attention K/V row per slot
   and emits one greedy token per slot.
-- **Overlapped fetch**: a decode step's fetches stay on the device
+- **Deferred fetch**: a decode step's fetches stay on the device
   (``Executor.run(async_fetch=True)``) until the next scheduler tick, so
-  the host reads step N's tokens after queuing step N+1's admissions.
+  the host reads step N's tokens at the start of the next tick.
 - **Backpressure and deadlines**: ``submit`` raises ``QueueFull`` past
   ``queue_depth``; a request past its deadline is evicted at the next
   token boundary (outcome ``expired``), and deadline-aware admission
@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import collections
 import itertools
-import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -39,9 +38,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from paddle_tpu_torch.executor import Executor, Scope, scope_guard, to_numpy
-
-REQUEST_OUTCOMES = ("completed", "length", "expired", "rejected",
-                    "rejected_early", "drained", "error", "evicted")
 
 
 class QueueFull(RuntimeError):
@@ -72,7 +68,9 @@ class DeadlineUnmeetable(RuntimeError):
 
 
 class ServeRequest:
-    """One in-flight generation request (handle returned by submit)."""
+    """One generation request (handle returned by submit). ``outcome``
+    is None while in flight, then one of completed, length, expired,
+    rejected, rejected_early, drained or error."""
 
     # itertools.count: atomic under CPython — submit() is meant for
     # concurrent callers and ids must stay unique across threads
@@ -86,47 +84,11 @@ class ServeRequest:
         self.submit_ts = time.perf_counter()
         self.deadline_ts = (self.submit_ts + deadline_s
                             if deadline_s else None)
-        self.tokens: List[int] = []
+        self.tokens: List[int] = []  # emitted tokens, EOS excluded
         self.outcome: Optional[str] = None
-        self.ttft_s: Optional[float] = None
-        self.admit_ts: Optional[float] = None
-        self.prefill_s: Optional[float] = None
-        self._done = threading.Event()
-
-    @property
-    def done(self) -> bool:
-        return self._done.is_set()
-
-    def result(self, timeout: Optional[float] = None) -> List[int]:
-        """Block until the request reaches a terminal outcome; returns
-        the emitted tokens (EOS excluded)."""
-        if not self._done.wait(timeout):
-            raise TimeoutError(
-                f"request {self.id} not finished within {timeout}s")
-        return list(self.tokens)
 
     def _finish(self, outcome: str):
         self.outcome = outcome
-        self._done.set()
-
-
-def _load_weights_into(scope: Scope, weights) -> None:
-    """Install model weights into the engine's private scope from a Scope
-    (tensors shared, not copied: the port's ops never update a weight in
-    place) or a directory holding the JAX package's ``__params__.npz``."""
-    if isinstance(weights, Scope):
-        for name in weights.var_names():
-            scope.set(name, weights.find_var(name))
-        return
-    if isinstance(weights, str):
-        from paddle_tpu_torch import io as _io
-
-        with np.load(os.path.join(weights, _io.PARAMS_FILE)) as data:
-            for name in data.files:
-                scope.set(name, np.asarray(data[name]))
-        return
-    raise TypeError(
-        f"weights must be a Scope or a model dir, got {type(weights).__name__}")
 
 
 class _Slot:
@@ -146,9 +108,12 @@ class ServingEngine:
     generated tokens per request. ``submit()`` enqueues; the caller
     drives ``step()`` — or ``run_until_idle()`` — to make progress;
     ``drain()`` stops admissions and finishes the in-flight set;
-    ``close()`` drains and releases the device state. ``place`` defaults
-    to ``CUDAPlace(0)`` (raising without CUDA); pass ``CPUPlace()`` for
-    the CPU. ``queue_depth``, ``deadline_ms`` and ``admission_control``
+    ``close()`` drains and releases the device state. ``weights`` is a
+    Scope (``io.scope_from_numpy`` / ``io.load_params`` carry the JAX
+    package's weights into one); its tensors are shared, not copied, as
+    no op updates a weight in place. ``place`` defaults to
+    ``CUDAPlace(0)`` (raising without CUDA); pass ``CPUPlace()`` for the
+    CPU. ``queue_depth``, ``deadline_ms`` and ``admission_control``
     default to the JAX package's ``serve_queue_depth`` (64),
     ``serve_deadline_ms`` (0 = none) and ``serve_admission_control``
     (True) flags.
@@ -159,7 +124,7 @@ class ServingEngine:
     def __init__(self, cfg, weights, *, slots: int = 4, src_len: int = 32,
                  max_len: int = 32, bos_id: int = 0, end_id: int = 1,
                  place=None, queue_depth: int = 64, deadline_ms: float = 0,
-                 admission_control: bool = True, pipeline_depth: int = 1):
+                 admission_control: bool = True):
         from paddle_tpu_torch.models import transformer as _T
 
         if slots < 1:
@@ -171,15 +136,13 @@ class ServingEngine:
         self.queue_depth = int(queue_depth)
         self.deadline_s = float(deadline_ms) / 1e3 if deadline_ms else 0.0
         self.admission_control = bool(admission_control)
-        # 1 = step N's fetch is read after step N+1's admissions are
-        # queued; 0 = fully synchronous steps
-        self.pipeline_depth = 1 if pipeline_depth else 0
         self._exe = Executor(place)
         self._progs = _T.build_serving(cfg, self.slots, self.src_len,
                                        self.max_len, bos_id=self.bos_id,
                                        end_id=self.end_id)
         self.scope = Scope()
-        _load_weights_into(self.scope, weights)
+        for name in weights.var_names():
+            self.scope.set(name, weights.find_var(name))
         # device-resident serving state, zero-initialized (live=False
         # everywhere: every slot starts free)
         for name, (shape, dtype) in self._progs["state_specs"].items():
@@ -301,8 +264,6 @@ class ServingEngine:
         emitted = self._process_ready()
         self._admit()
         self._dispatch()
-        if self.pipeline_depth == 0:
-            emitted += self._process_ready()
         return emitted
 
     def run_until_idle(self, max_steps: int = 100_000) -> int:
@@ -354,7 +315,7 @@ class ServingEngine:
     def close(self, drain_timeout_s: float = 30.0):
         """Drain, then release the device-resident state. Every handle
         still in flight is finished ('drained', or 'error' when the engine
-        failed) so ``result()`` never blocks on a closed engine."""
+        failed), so no handle is left without an outcome."""
         if self._closed:
             return
         if not self._failed:
@@ -401,7 +362,6 @@ class ServingEngine:
             if req.deadline_ts is not None and now > req.deadline_ts:
                 req._finish("expired")
                 continue
-            req.admit_ts = now
             pre = self._progs["prefill"]
             try:
                 with scope_guard(self.scope):
@@ -419,7 +379,6 @@ class ServingEngine:
                 # the handle before propagating
                 req._finish("error")
                 raise
-            req.prefill_s = time.perf_counter() - req.admit_ts
             self._slots[free].request = req
 
     def _dispatch(self):
@@ -509,8 +468,6 @@ class ServingEngine:
                 req.tokens.append(tok)
                 emitted += 1
                 self.tokens_emitted += 1
-                if req.ttft_s is None:
-                    req.ttft_s = now - req.submit_ts
                 if not alive or len(req.tokens) >= req.max_new_tokens:
                     self._finish_slot(i, req, "length")
                 elif (req.deadline_ts is not None
@@ -560,5 +517,4 @@ class ServingEngine:
                 None if not self._step_walls
                 else round(float(np.percentile(
                     list(self._step_walls), 99)) * 1e3, 3)),
-            "pipeline_depth": self.pipeline_depth,
         }

@@ -23,16 +23,18 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("dtype,b,tq,tk,causal,pad", [
-    (torch.float32, 1, 128, 128, False, True),
-    (torch.bfloat16, 8, 256, 256, True, False),
-    (torch.float32, 2, 64, 128, False, True),
-    (torch.float32, 2, 100, 77, False, False),
-    (torch.float32, 1, 8, 512, False, True),
+@pytest.mark.parametrize("dtype,b,tq,tk,dh,causal,pad", [
+    (torch.float32, 1, 128, 128, 64, False, True),
+    (torch.bfloat16, 8, 256, 256, 64, True, False),
+    (torch.float32, 2, 64, 128, 64, False, True),
+    (torch.float32, 2, 100, 77, 64, False, False),
+    (torch.float32, 1, 8, 512, 64, False, True),
+    (torch.float32, 2, 128, 128, 128, False, True),
+    (torch.bfloat16, 2, 96, 200, 32, False, True),
 ])
-def test_kernel_matches_plain(cuda, dtype, b, tq, tk, causal, pad):
+def test_kernel_matches_plain(cuda, dtype, b, tq, tk, dh, causal, pad):
     g = torch.Generator(device=cuda).manual_seed(0)
-    h, dh = 8, 64
+    h = 8
     q, k, v = (torch.randn(b, t, h, dh, generator=g, device=cuda).to(dtype)
                for t in (tq, tk, tk))
     bias = None
