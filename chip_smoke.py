@@ -66,10 +66,11 @@ def _time_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, match, iters=20):
-    """Device time per call of the kernels whose name contains ``match``,
-    from a torch.profiler trace (None when the trace holds no such
-    kernel): the kernel alone, without the host's launch overhead."""
+def _device_ms(fn, match="", iters=20):
+    """Device time per call of ``fn`` spent in the kernels whose name
+    contains ``match`` (every kernel and copy when empty), from a
+    torch.profiler trace; None when the trace holds no such kernel. The
+    device's busy time, without the host's launch overhead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,6 +207,7 @@ def serve(torch, np, fluid, T, fa, serving):
     pre, dec = eng._progs["prefill"], eng._progs["decode"]
 
     def prefill_once(i):
+        """One admission of request i into slot i % slots (no fetch)."""
         with fluid.scope_guard(eng.scope):
             eng._exe.run(eng._progs["prefill_program"], feed={
                 pre["feeds"][0].name: np.pad(srcs[i], (0, src_len - lens[i]))[None],
@@ -222,14 +224,22 @@ def serve(torch, np, fluid, T, fa, serving):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t1) / slots * 1e3
     active = np.ones(slots, bool)
-    t1 = time.perf_counter()
-    n_steps = 16
-    for _ in range(n_steps):
+
+    def decode_once():
+        """One decode step over all slots, its tokens fetched (synced)."""
         with fluid.scope_guard(eng.scope):
             eng._exe.run(eng._progs["decode_program"],
                          feed={dec["feeds"][0].name: active},
                          fetch_list=[dec["emit"]])
+
+    t1 = time.perf_counter()
+    n_steps = 16
+    for _ in range(n_steps):
+        decode_once()
     decode_ms = (time.perf_counter() - t1) / n_steps * 1e3
+    # device busy time per step/admission: the rest of the wall is host
+    decode_device_ms = _device_ms(decode_once, iters=8)
+    prefill_device_ms = _device_ms(lambda: prefill_once(0), iters=8)
 
     # the prefill state against the same program on the CPU (plain path)
     cpu_params = {n: scope.find_var(n).cpu().numpy()
@@ -269,6 +279,8 @@ def serve(torch, np, fluid, T, fa, serving):
         "tokens": n_tokens, "decode_steps": decode_steps,
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
         "decode_step_ms": decode_ms, "prefill_ms": prefill_ms,
+        "decode_device_ms": decode_device_ms,
+        "prefill_device_ms": prefill_device_ms,
         "prefill_state_err": state_err, "launches": launches,
     }
 

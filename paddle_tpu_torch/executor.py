@@ -32,12 +32,8 @@ class Scope:
     elsewhere, zeroed state) are accepted and moved to the device on
     first use."""
 
-    _uid_counter = 0
-
     def __init__(self):
         self._vars: Dict[str, Any] = {}
-        Scope._uid_counter += 1
-        self._uid = Scope._uid_counter
 
     def set(self, name: str, value):
         self._vars[name] = value
@@ -108,7 +104,6 @@ class Executor:
 
     def __init__(self, place: Optional[Union[CPUPlace, CUDAPlace]] = None):
         self.device = resolve_device(place)
-        self.place = place if place is not None else CUDAPlace(0)
         self._cache: Dict[tuple, lowering.LoweredBlock] = {}
         self._generators: Dict[int, torch.Generator] = {}
 

@@ -45,8 +45,6 @@ _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 def torch_dtype(name) -> torch.dtype:
     """Dtype name (or anything ``convert_np_dtype_to_dtype_`` accepts)
     -> ``torch.dtype``."""
-    if isinstance(name, torch.dtype):
-        return name
     return _TORCH_DTYPES[convert_np_dtype_to_dtype_(name)]
 
 
@@ -57,8 +55,6 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def convert_np_dtype_to_dtype_(dtype) -> str:
     """Canonicalize any dtype spec to a numpy dtype name string."""
-    if isinstance(dtype, torch.dtype):
-        return dtype_name(dtype)
     if isinstance(dtype, str) and dtype in ("bfloat16",):
         return "bfloat16"
     return np.dtype(dtype).name
