@@ -15,11 +15,10 @@
 //
 // What bounds it on the H100: at the serving prefill shape (b=1, t=128,
 // h=8, dh=64) the work is 33.5 MFLOP over ~1 MB, so the card's limit is
-// ~0.5 us of f32 arithmetic; the launch and the block ramp dominate. At
-// larger shapes the O(tq*tk*dh) multiply-adds dominate, and this version
-// runs them on the f32 CUDA cores from shared memory, not on the tensor
-// cores (wgmma), so it is bound by operations at a fraction of the f32
-// peak.
+// ~0.5 us of f32 arithmetic. This version takes ~28 us there (H100 SXM,
+// 700 W): the grid is only 32 blocks of 4 warps, one per SM, so nothing
+// hides global-load latency, and the O(tq*tk*dh) multiply-adds run on the
+// f32 CUDA cores from shared memory, not on the tensor cores (wgmma).
 //
 // What the design does about it: one thread block per (32-row query tile,
 // head, batch) gives b*h*ceil(tq/32) independent blocks instead of the TPU

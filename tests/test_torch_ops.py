@@ -93,6 +93,8 @@ CASES = [
      {"squeeze_last": False}),
     ("lookup_table", {"W": [_f(10, 4)], "Ids": [_i(0, 10, 3, 1)]},
      {"squeeze_last": False}),
+    ("lookup_table", {"W": [_f(10, 4)], "Ids": [np.array([[0, 9, 3, 9]])]},
+     {"squeeze_last": False, "padding_idx": -1}),
     ("mul", {"X": [_f(2, 3, 4)], "Y": [_f(4, 5)]},
      {"x_num_col_dims": 2, "y_num_col_dims": 1}),
     ("mul", {"X": [_f(3, 2, 2)], "Y": [_f(4, 5)]},
@@ -132,6 +134,8 @@ CASES = [
                  "Updates": [np.array([7])]}, {"overwrite": True}),
     ("scatter", {"X": [_b(6)], "Ids": [np.array([0])],
                  "Updates": [np.array([True])]}, {"overwrite": True}),
+    ("scatter", {"X": [_f(5, 3)], "Ids": [np.array([1, 4])],
+                 "Updates": [_f(2, 3)]}, {"overwrite": False}),
     ("softmax_with_cross_entropy", {"Logits": [_f(2, 3, 6)],
                                     "Label": [np.eye(6, dtype=np.float32)[
                                         _R.randint(0, 6, (2, 3))]]},

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import paddle_tpu as pfluid
+from paddle_tpu import framework as pframework
 from paddle_tpu import serving as pserving
 from paddle_tpu.models import transformer as PT
 
@@ -190,6 +191,14 @@ def test_program_structure_matches_jax():
             _op_signature(p.global_block())
         assert _persistables(t) == _persistables(p)
     assert tprogs["state_specs"] == pprogs["state_specs"]
+
+    # shape inference gives up where the JAX package's does (the error
+    # types of a failed evaluation differ between the frameworks)
+    def kinds(gaps):
+        return {(t, g.split(":")[0]) for t, g in gaps}
+
+    assert kinds(tframework.shape_infer_gaps()) <= \
+        kinds(pframework.shape_infer_gaps())
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])
