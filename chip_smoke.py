@@ -6,8 +6,8 @@
 Phases (any failure raises and exits non-zero; no phase is caught):
 
 1. the card: name and power limit (nvidia-smi), torch's device name;
-2. build every CUDA kernel of the package from csrc/ (one nvcc each, all
-   started together) and print ptxas' register / shared-memory report;
+2. build the CUDA kernel from csrc/ and print ptxas' register /
+   shared-memory report and the build's seconds (or that it was cached);
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and a few more, with stated
    tolerances, and time kernel, plain version and the one PyTorch library
@@ -32,13 +32,18 @@ import sys
 import time
 
 SEED = 1234
-# Tolerances of kernel vs plain version (max abs error of out and of lse).
-# f32: both sum in f32, in different orders (measured <= 1e-6 on an H100).
-# bf16: both round out to bf16 once at the end, so they may differ by one
-# bf16 ulp of the output (0.0156 for |out| in [2, 4)); lse stays f32.
-TOL = {"float32": 5e-6, "bfloat16": 2e-2}
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
+# Tolerances of kernel vs plain version (max abs error). Both sum in f32,
+# in different orders; on an H100 out read <= 7.2e-7 in f32 and lse
+# <= 4.8e-7 in both dtypes. In bf16 both round out to bf16 once at the
+# end, so they may differ by one bf16 ulp of the output: 3.9e-3 read at
+# these shapes (|out| in [0.5, 1)); the limit is one ulp below 2.
+TOL_OUT = {"float32": 5e-6, "bfloat16": 8e-3}
+TOL_LSE = 5e-6  # lse is f32 for every input dtype
+# GPU prefill state vs the same program on the CPU (f32; read 3.0e-6)
+TOL_STATE = 1e-5
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
+# bf16 on the tensor cores; HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -128,12 +133,13 @@ def check_attention_kernel(fa, case, gen):
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, eff_bias, scale)
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
-    tol = TOL[str(dtype).split(".")[-1]]
+    dname = str(dtype).split(".")[-1]
+    tol = TOL_OUT[dname]
     assert out.shape == q.shape and lse.shape == (b, tq, h, 1), name
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
-    assert err_out <= tol and err_lse <= tol, (
-        f"{name}: kernel vs plain max abs err out={err_out} lse={err_lse} "
-        f"> {tol}")
+    assert err_out <= tol and err_lse <= TOL_LSE, (
+        f"{name}: kernel vs plain max abs err out={err_out} (tol {tol}) "
+        f"lse={err_lse} (tol {TOL_LSE})")
 
     ms = _time_ms(lambda: fa.flash_attention_bthd_fwd(q, k, v, bias, scale,
                                                       causal))
@@ -148,17 +154,19 @@ def check_attention_kernel(fa, case, gen):
         "fwd_kernel")
 
     # bound: each input read once, each output written once (HBM), and
-    # the 4*b*h*tq*tk*dh multiply-add operations at the f32 peak
-    esize = q.element_size()
+    # the 4*b*h*tq*tk*dh operations at the input dtype's peak. The causal
+    # mask is the wrapper's own, not an input: its bytes are not counted.
     flops = 4.0 * b * h * tq * tk * dh
-    nbytes = (esize * (2 * b * tq * h * dh + 2 * b * tk * h * dh)
+    nbytes = (q.element_size() * (2 * b * tq * h * dh + 2 * b * tk * h * dh)
               + 4 * b * tq * h
-              + (0 if eff_bias is None else 4 * eff_bias.numel()))
-    op_ms, byte_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+              + (0 if bias is None else 4 * bias.numel()))
+    op_ms = flops / PEAK_FLOPS[dname] * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {
-        "case": name, "dtype": str(dtype).split(".")[-1],
+        "case": name, "dtype": dname,
         "shape": [b, tq, tk, h, dh], "bias": bias_kind,
-        "err_out": err_out, "err_lse": err_lse, "tol": tol,
+        "err_out": err_out, "err_lse": err_lse, "tol_out": tol,
+        "tol_lse": TOL_LSE,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(op_ms, byte_ms),
@@ -173,11 +181,11 @@ def serve(torch, np, fluid, T, fa, serving):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         T.build(cfg, is_test=True)
+    startup.random_seed = SEED  # the executor's generator for this seed
     scope = fluid.Scope()
     exe = fluid.Executor(dev_place)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     with fluid.scope_guard(scope):
-        exe.run(startup, generator=gen)
+        exe.run(startup)
 
     slots, src_len, max_len, n_req, new_tokens = 8, 128, 128, 16, 32
     rng = np.random.RandomState(SEED)
@@ -261,7 +269,8 @@ def serve(torch, np, fluid, T, fa, serving):
         float(np.abs(eng.scope.find_var(f"serve_{kind}{last}")[0].cpu().numpy()
                      - cpu_scope.find_var(f"serve_{kind}{last}")[0].numpy()).max())
         for kind in ("ck", "cv"))
-    assert state_err <= 1e-3, f"prefill state GPU vs CPU max abs err {state_err}"
+    assert state_err <= TOL_STATE, (
+        f"prefill state GPU vs CPU max abs err {state_err} > {TOL_STATE}")
     eng.close()
 
     # two requests decoded alone through an engine of the same geometry
@@ -311,14 +320,14 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | device {kind}", flush=True)
 
-    # 2. build every kernel
-    t0 = time.perf_counter()
-    kernels.build_all()
-    build_s = time.perf_counter() - t0
-    for name in kernels.sources():
-        print(f"build {name}: {kernels.build_seconds.get(name, 0.0):.2f} s "
-              f"(all kernels {build_s:.2f} s)\n"
-              f"{kernels.build_logs.get(name, '').strip()}", flush=True)
+    # 2. build the kernel
+    built = kernels.build(fa._SOURCE)
+    if built is None:
+        print(f"build {fa._SOURCE}: cached", flush=True)
+    else:
+        log, seconds = built
+        print(f"build {fa._SOURCE}: {seconds:.2f} s\n{log.strip()}",
+              flush=True)
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)

@@ -114,13 +114,12 @@ class Executor:
         fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
         scope: Optional[Scope] = None,
         async_fetch: bool = False,
-        generator: Optional[torch.Generator] = None,
     ):
         """Run block 0 of ``program``. Returns the fetches as numpy arrays,
         or as the device tensors themselves when ``async_fetch`` (the
         caller materializes them later, after it has queued more work).
-        ``generator`` overrides the executor's per-seed generator for the
-        program's random ops."""
+        Random ops draw from the executor's generator for
+        ``program.random_seed``."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
@@ -136,9 +135,7 @@ class Executor:
             self._cache[key] = lowered
         state = self._gather_state(scope, lowered)
         feeds = {k: as_tensor(feed[k], self.device) for k in feed_names}
-        gen = None
-        if lowered.needs_rng:
-            gen = generator or self._generator_for(program)
+        gen = self._generator_for(program) if lowered.needs_rng else None
         with torch.inference_mode():
             fetches, new_state = lowered.fn(state, feeds, gen)
         # Commit: the scope now holds the tensors the block produced. Ops

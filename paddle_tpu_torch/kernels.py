@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -26,15 +26,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# name -> compiler output (ptxas register/shared-memory report) and the
-# build's wall seconds, for the run that built it
-build_logs: Dict[str, str] = {}
-build_seconds: Dict[str, float] = {}
-
-
-def sources() -> List[str]:
-    """Names of every kernel source in csrc/ (without the .cu suffix)."""
-    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
 def _nvcc() -> str:
@@ -54,49 +45,31 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one source; returns (proc, tmp path, final path,
-    t0), or None when the library is already built."""
+def build(name: str) -> Optional[Tuple[str, float]]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    Returns the compiler's output (ptxas' register and shared-memory
+    report) and the build's wall seconds, or None when it was cached."""
     path = library_path(name)
     if os.path.exists(path):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, path, time.perf_counter()
-
-
-def _finish(name: str, started) -> None:
-    proc, tmp, path, t0 = started
-    log, _ = proc.communicate()
-    build_seconds[name] = time.perf_counter() - t0
-    build_logs[name] = log
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, path)  # atomic: readers see a whole library or none
-
-
-def build_all(names=None) -> None:
-    """Build the given kernels (default: every source) with one nvcc
-    process each, all started together."""
-    names = sources() if names is None else list(names)
-    started = {n: _start(n) for n in names}
-    for n, s in started.items():
-        if s is not None:
-            _finish(n, s)
+    return proc.stdout, time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        started = _start(name)
-        if started is not None:
-            _finish(name, started)
+        build(name)
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib

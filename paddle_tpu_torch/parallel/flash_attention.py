@@ -9,8 +9,8 @@ as that function does:
   Hopper kernel ``csrc/flash_attention_bthd_fwd.cu``, the counterpart of
   the TPU kernel ``_fwd_small_kernel``;
 - shapes the JAX package sends to its k-blocked or long-context TPU
-  kernels (``_use_bthd_kblock``, tk > 512) have no Hopper kernel yet: a
-  CUDA tensor there raises ``NotImplementedError``;
+  kernels (every tk > 512 outside the small regime) have no Hopper
+  kernel yet: a CUDA tensor there raises ``NotImplementedError``;
 - everything else (for example tq < 8, the single-token decode step) is
   the dense composition ``attention_bthd_plain``, as the JAX package
   leaves it to XLA.
@@ -35,8 +35,6 @@ _SMALL_T_MAX = 512
 # tq is walked in 128-row chunks by the TPU kernel; the routing predicate
 # keeps that constraint so both packages route every shape alike
 _CQ = 128
-_BK_CHOICES = (512, 256)
-_KB_T_MAX = 1024
 
 # Kernel launches made by flash_attention_bthd_fwd (the wrapper adds one
 # per launch of the CUDA kernel and nowhere else). chip_smoke.py resets
@@ -52,23 +50,6 @@ def _use_bthd_small(tq, tk):
         8 <= tq <= _SMALL_T_MAX
         and 8 <= tk <= _SMALL_T_MAX
         and (tq <= _CQ or tq % _CQ == 0)
-    )
-
-
-def _pick_bk(tk, h, dh):
-    for bk in _BK_CHOICES:
-        if tk % bk == 0 and h * _CQ * bk <= 8 * 256 * 256:
-            return bk
-    return None
-
-
-def _use_bthd_kblock(tq, tk, h, dh):
-    return (
-        _SMALL_T_MAX < tk <= _KB_T_MAX
-        and _pick_bk(tk, h, dh) is not None
-        and tq >= 8
-        and (tq <= _CQ or tq % _CQ == 0)
-        and tk * h * dh <= 2 * 1024 * 512
     )
 
 
@@ -116,7 +97,7 @@ def flash_attention_bthd_fwd(q, k, v, bias=None, scale: Optional[float] = None,
             f"flash_attention_bthd_fwd: no path for device {q.device}")
     if _use_bthd_small(tq, tk):
         return _launch(q, k, v, bias, scale)
-    if _use_bthd_kblock(tq, tk, h, dh) or tk > _SMALL_T_MAX:
+    if tk > _SMALL_T_MAX:  # the JAX package's k-blocked or BHTD kernel
         raise NotImplementedError(
             f"flash_attention_bthd_fwd: tq={tq} tk={tk} h={h} dh={dh} needs "
             f"the k-blocked/long-context attention kernel, which has no "

@@ -5,8 +5,9 @@ imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: f32 5e-6 (both sum in f32, in different
-orders), bf16 2e-2 (one bf16 ulp of outputs below 4)."""
+Tolerances as in chip_smoke.py: out 5e-6 in f32 (both sum in f32, in
+different orders) and 8e-3 in bf16 (one bf16 ulp of outputs below 2);
+lse, f32 in both dtypes, 5e-6."""
 
 import pytest
 import torch
@@ -47,7 +48,7 @@ def test_kernel_matches_plain(cuda, dtype, b, tq, tk, dh, causal, pad):
     assert fa.launches == before + 1
     eff = fa._combined_causal_bias(bias, tq, tk, cuda) if causal else bias
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, eff)
-    tol = 5e-6 if dtype == torch.float32 else 2e-2
+    tol = 5e-6 if dtype == torch.float32 else 8e-3
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 5e-6
 

@@ -70,9 +70,14 @@ def test_routing_predicates_match_jax():
         for tk in _GRID:
             assert tfa._use_bthd_small(tq, tk) == jfa._use_bthd_small(tq, tk), \
                 (tq, tk)
+            if jfa._use_bthd_small(tq, tk):
+                continue
+            # the port raises on a CUDA tensor for tk > 512: exactly where
+            # the JAX package takes a kernel that has no Hopper port yet
             for h, dh in ((2, 64), (8, 64), (16, 128)):
-                assert (tfa._use_bthd_kblock(tq, tk, h, dh)
-                        == jfa._use_bthd_kblock(tq, tk, h, dh)), (tq, tk, h, dh)
+                j_kernel = (jfa._use_bthd_kblock(tq, tk, h, dh)
+                            or tk > jfa._SMALL_T_MAX)
+                assert (tk > tfa._SMALL_T_MAX) == j_kernel, (tq, tk, h, dh)
 
 
 def test_decode_shape_takes_the_dense_path_on_cpu():
