@@ -2,13 +2,20 @@
 
 The same Program IR and module names as the JAX package (a reader finds
 each counterpart by name); ops are plain PyTorch functions run eagerly by
-the executor, and the attention kernel the serving path needs is a
-hand-written CUDA kernel for Hopper (parallel/flash_attention.py,
-csrc/). Entry points run on ``CUDAPlace(0)`` unless the caller passes
-``CPUPlace()``.
+the executor, and the attention kernels the serving and training paths
+need (forward with dropout, backward) are hand-written CUDA kernels for
+Hopper (parallel/flash_attention.py, csrc/). Entry points run on
+``CUDAPlace(0)`` unless the caller passes ``CPUPlace()``.
 """
 
-from paddle_tpu_torch import initializer, layers, unique_name  # noqa: F401
+from paddle_tpu_torch import (  # noqa: F401
+    amp,
+    backward,
+    initializer,
+    layers,
+    optimizer,
+    unique_name,
+)
 from paddle_tpu_torch.executor import (  # noqa: F401
     Executor,
     Scope,

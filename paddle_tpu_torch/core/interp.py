@@ -1,6 +1,16 @@
 """The op-list interpreter: runs a block's ops eagerly, in order, against
 an environment (name -> tensor). Each op's compute is called with the
-run's ``torch.device`` and, for random ops, its ``torch.Generator``.
+run's ``torch.device`` and, for random ops, a ``torch.Generator`` of its
+own.
+
+Randomness: a run draws one base seed (executor.py); a random op's
+generator is seeded with ``op_seed(base, forward_op_idx or its index)``,
+the counterpart of the JAX package's ``fold_in(key, forward_op_idx)``.
+A grad op carries its forward's index, so it replays the forward's seed
+(the attention backward regenerates the forward's dropout mask).
+
+AMP (bf16 activation stream) casting is applied here, with the JAX
+package's op sets.
 """
 
 from __future__ import annotations
@@ -9,11 +19,102 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from paddle_tpu_torch.core.registry import OpDef, get_op_def
+from paddle_tpu_torch.core import autodiff
+from paddle_tpu_torch.core.registry import (
+    GRAD_OP_SUFFIX,
+    OpDef,
+    get_op_def,
+    has_op,
+)
+
+# Matmul-heavy ops that run in bfloat16 under AMP: every f32 input
+# (master weights included) is cast to bf16 and the output stays bf16,
+# so the activation stream between matmuls lives in bf16. bf16 needs no
+# loss scaling.
+AMP_OP_TYPES = {
+    "mul",
+    "matmul",
+    "conv2d",
+    "depthwise_conv2d",
+    "conv2d_transpose",
+    "scaled_dot_product_attention",
+}
+
+# Precision-following ops: when any input is already bf16, their other
+# f32 float inputs (layer params, residual branches) are cast down so the
+# op does not promote the stream back to f32. (layer_norm is absent: it
+# computes in f32 and returns X's dtype itself.)
+AMP_FLOW_OP_TYPES = {
+    "elementwise_add",
+    "elementwise_sub",
+    "elementwise_mul",
+    "elementwise_div",
+    "scale",
+    "dropout",
+    "relu",
+    "gelu",
+    "tanh",
+    "sigmoid",
+    "softmax",
+    "concat",
+    "stack",
+}
+
+# Slots that stay f32 under AMP (saved statistics, not streams).
+AMP_KEEP_F32_SLOTS = frozenset({"Lse", "GRAD::Lse"})
+
+_MASK64 = (1 << 64) - 1
+
+
+def op_seed(base: int, idx: int) -> int:
+    """A 63-bit seed for op ``idx`` of a run whose base seed is ``base``
+    (splitmix64 of their combination)."""
+    z = (base + (idx + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def _is_f32(v):
+    return isinstance(v, torch.Tensor) and v.dtype == torch.float32
+
+
+def _is_bf16(v):
+    return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+
+
+def _amp_cast_ins(ins):
+    out = {}
+    for slot, vals in ins.items():
+        if slot in AMP_KEEP_F32_SLOTS:
+            out[slot] = list(vals)
+            continue
+        out[slot] = [v.to(torch.bfloat16) if _is_f32(v) else v for v in vals]
+    return out
+
+
+def _amp_flow_cast_ins(ins):
+    """Cast f32 inputs to bf16 only when the op already consumes bf16."""
+    if not any(_is_bf16(v) for vals in ins.values() for v in vals):
+        return ins
+    return _amp_cast_ins(ins)
 
 
 def resolve_op_def(op_type: str) -> OpDef:
-    """Resolve an op type to its compute (raises naming unknown ops)."""
+    """Resolve an op type to its compute, deriving ``<type>_grad`` on
+    demand (raises naming unknown ops)."""
+    if has_op(op_type):
+        return get_op_def(op_type)
+    if op_type.endswith(GRAD_OP_SUFFIX):
+        base = op_type[: -len(GRAD_OP_SUFFIX)]
+        if has_op(base):
+            fwd = get_op_def(base)
+            return OpDef(
+                type=op_type,
+                compute=autodiff.make_grad_compute(fwd),
+                needs_rng=fwd.needs_rng,
+                no_grad=True,
+            )
     return get_op_def(op_type)
 
 
@@ -22,20 +123,32 @@ def exec_ops(
     env: Dict[str, Any],
     *,
     device: torch.device,
-    generator: Optional[torch.Generator] = None,
+    seed: Optional[int] = None,
+    amp: bool = False,
     op_defs: Optional[List[OpDef]] = None,
 ):
-    """Execute an op list against ``env`` in place; returns ``env``."""
+    """Execute an op list against ``env`` in place; returns ``env``.
+    ``seed`` is the run's base seed (required when an op is random)."""
     if op_defs is None:
         op_defs = [resolve_op_def(op.type) for op in ops]
-    for op, opdef in zip(ops, op_defs):
+    gen_device = device if device.type == "cuda" else torch.device("cpu")
+    for idx, (op, opdef) in enumerate(zip(ops, op_defs)):
         ins = {
             slot: [env[n] if n else None for n in names]
             for slot, names in op.inputs.items()
         }
         kwargs = {"device": device}
         if opdef.needs_rng:
-            kwargs["generator"] = generator
+            gen = torch.Generator(device=gen_device)
+            gen.manual_seed(op_seed(seed, op.attrs.get("forward_op_idx", idx)))
+            kwargs["generator"] = gen
+        if amp:
+            base_type = (op.type[: -len(GRAD_OP_SUFFIX)]
+                         if op.type.endswith(GRAD_OP_SUFFIX) else op.type)
+            if base_type in AMP_OP_TYPES:
+                ins = _amp_cast_ins(ins)
+            elif base_type in AMP_FLOW_OP_TYPES:
+                ins = _amp_flow_cast_ins(ins)
         outs = opdef.compute(ins, dict(op.attrs), **kwargs)
         for slot, names in op.outputs.items():
             vals = outs.get(slot, [])

@@ -19,8 +19,9 @@ from paddle_tpu_torch.framework import Block, Program
 
 @dataclasses.dataclass
 class LoweredBlock:
-    """A runnable block: ``fn(state, feeds, generator) -> (fetches,
-    new_state)``.
+    """A runnable block: ``fn(state, feeds, seed) -> (fetches,
+    new_state)``; ``seed`` is the run's base seed (core/interp.py), or
+    None when no op of the block is random.
 
     ``state_in_names``: persistable vars read before being written —
     gathered from the Scope. ``state_out_names``: every state-in var plus
@@ -77,7 +78,10 @@ def lower_block(
     feed_names: Sequence[str],
     fetch_names: Sequence[str],
     device: torch.device,
+    amp: bool = False,
 ) -> LoweredBlock:
+    """``amp``: run the block's matmul-heavy ops in bf16 (core/interp.py
+    AMP sets)."""
     block = program.blocks[block_idx]
     state_in, state_out = analyze_state(block, feed_names)
     state_out = tuple(state_out)
@@ -86,11 +90,11 @@ def lower_block(
     op_defs = [resolve_op_def(op.type) for op in block.ops]
     ops = list(block.ops)
 
-    def run_block(state: Dict[str, Any], feeds: Dict[str, Any], generator):
+    def run_block(state: Dict[str, Any], feeds: Dict[str, Any], seed):
         env: Dict[str, Any] = {}
         env.update(state)
         env.update(feeds)
-        exec_ops(ops, env, device=device, generator=generator,
+        exec_ops(ops, env, device=device, seed=seed, amp=amp,
                  op_defs=op_defs)
         fetches = [env[n] for n in fetch_names]
         return fetches, {n: env[n] for n in state_out}

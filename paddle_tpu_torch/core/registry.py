@@ -4,20 +4,29 @@ Each op type maps to an ``OpDef`` whose ``compute`` is a plain PyTorch
 function over tensors: ``compute(ins, attrs, device, [generator])`` with
 slot-keyed inputs and outputs (``{"X": [t, ...]}``). ``device`` is the
 ``torch.device`` the executor runs on (ops that create tensors from
-attrs alone need it); ops registered with ``needs_rng`` also receive the
-run's ``torch.Generator``. Shape inference runs the same function over
+attrs alone need it); ops registered with ``needs_rng`` also receive a
+``torch.Generator`` seeded for the op and the run (core/interp.py; None
+during shape inference). Shape inference runs the same function over
 tensors on ``device="meta"`` (framework.infer_op_outputs).
+
+Gradients follow the JAX package's convention: an op without a
+registered ``<type>_grad`` gets one derived from its forward compute
+(core/autodiff.py); ``grad_maker`` may emit other grad ops instead, and
+``no_grad`` ops take no part in the backward pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 # Slot-keyed values: {"X": [tensor, ...], "Y": [tensor]}
 Ins = Dict[str, List[Any]]
 Outs = Dict[str, List[Any]]
 ComputeFn = Callable[..., Outs]  # compute(ins, attrs, device, [generator])
+
+GRAD_SUFFIX = "@GRAD"
+GRAD_OP_SUFFIX = "_grad"
 
 
 @dataclasses.dataclass
@@ -26,9 +35,20 @@ class OpDef:
 
     type: str
     compute: ComputeFn
+    # Slots that hold differentiable (float) inputs. None = all float inputs.
+    diff_inputs: Optional[Sequence[str]] = None
+    # Custom grad maker: fn(op, block, out_grads, provide, should_skip) ->
+    # list of op-desc dicts, or None to defer to the derived grad op.
+    grad_maker: Optional[Callable] = None
+    # True if this op has no gradient (fills, metrics, masks).
+    no_grad: bool = False
     # True if compute wants a `generator` keyword (torch.Generator).
     needs_rng: bool = False
     doc: str = ""
+
+    def __post_init__(self):
+        if self.diff_inputs is not None:
+            self.diff_inputs = tuple(self.diff_inputs)
 
 
 _OP_REGISTRY: Dict[str, OpDef] = {}
@@ -37,6 +57,9 @@ _OP_REGISTRY: Dict[str, OpDef] = {}
 def register_op(
     type: str,
     *,
+    diff_inputs: Optional[Sequence[str]] = None,
+    grad_maker: Optional[Callable] = None,
+    no_grad: bool = False,
     needs_rng: bool = False,
     doc: str = "",
 ) -> Callable[[ComputeFn], ComputeFn]:
@@ -48,6 +71,9 @@ def register_op(
         _OP_REGISTRY[type] = OpDef(
             type=type,
             compute=fn,
+            diff_inputs=diff_inputs,
+            grad_maker=grad_maker,
+            no_grad=no_grad,
             needs_rng=needs_rng,
             doc=doc or (fn.__doc__ or ""),
         )

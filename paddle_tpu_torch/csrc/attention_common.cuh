@@ -1,0 +1,96 @@
+// Device helpers shared by the BTHD attention kernels
+// (flash_attention_bthd_fwd.cu, flash_attention_bthd_bwd.cu).
+//
+// Dropout keep mask. The TPU kernels draw their mask from the TPU's own
+// generator, keyed by absolute 128-row blocks so forward and backward
+// regenerate the same bits whatever their tiling. Here the mask is a
+// stateless hash of absolute positions, never of tile sizes:
+//   key   = stream key of the op's seed (computed on the host)
+//   hrow  = fmix32(fmix32(key ^ (batch * heads + head)) ^ query_row)
+//   bits  = fmix32(hrow ^ key_column)
+//   keep  = bits < thresh,  thresh = min(floor((1 - p) * 2^32), 2^32 - 1)
+// and a kept probability is scaled by keep_scale = 1/(1 - p) in f32.
+// fmix32 is MurmurHash3's 32-bit finalizer. The plain PyTorch version
+// (dropout_keep_mask_plain in parallel/flash_attention.py) computes the
+// same bits with integer tensor ops, so kernel and plain agree bit for
+// bit.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace pt_attn {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+constexpr int kLdBatch = 8;  // global loads a thread issues before storing
+
+// Copies rows [row0, row0 + nrows) x [0, dh) of a strided [t, dh] source
+// (rows past `limit` read as zeros) into shared memory at stride
+// `sstride`. Each thread issues kLdBatch loads before storing any, so a
+// block with few warps still keeps several loads in flight.
+template <int kThreads, typename T>
+__device__ __forceinline__ void load_tile(float* dst, int sstride,
+                                          const T* __restrict__ src,
+                                          long long rstride, int row0,
+                                          int nrows, int limit, int dh) {
+  const int n = nrows * dh;
+  for (int base = 0; base < n; base += kThreads * kLdBatch) {
+    float buf[kLdBatch];
+#pragma unroll
+    for (int u = 0; u < kLdBatch; ++u) {
+      int i = base + u * kThreads + threadIdx.x;
+      int r = i / dh, d = i - r * dh;
+      bool ok = i < n && row0 + r < limit;
+      buf[u] = ok ? to_f32(src[(long long)(row0 + r) * rstride + d]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLdBatch; ++u) {
+      int i = base + u * kThreads + threadIdx.x;
+      int r = i / dh, d = i - r * dh;
+      if (i < n) dst[r * sstride + d] = buf[u];
+    }
+  }
+}
+
+// The dropout arguments of a launch (see above).
+struct Dropout {
+  uint32_t key, thresh;
+  float keep_scale;
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// Per-(batch*heads + head, query row) prefix of the keep-mask hash.
+__device__ __forceinline__ uint32_t drop_row_hash(uint32_t key, int bh,
+                                                  int row) {
+  return fmix32(fmix32(key ^ (uint32_t)bh) ^ (uint32_t)row);
+}
+
+// Scale of one score: keep_scale where the mask keeps it, else 0.
+__device__ __forceinline__ float drop_scale(uint32_t hrow, int col,
+                                            uint32_t thresh,
+                                            float keep_scale) {
+  return fmix32(hrow ^ (uint32_t)col) < thresh ? keep_scale : 0.f;
+}
+
+}  // namespace pt_attn

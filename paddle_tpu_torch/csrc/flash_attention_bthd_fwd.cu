@@ -1,17 +1,23 @@
-// Single-pass attention forward in the BTHD layout, for Hopper (sm_90a).
+// Single-pass attention forward in the BTHD layout, for Hopper (sm_90a),
+// with optional in-kernel dropout; and the dump of its dropout mask.
 //
 // Replaces the TPU kernel `_fwd_small_kernel`
 // (paddle_tpu/parallel/flash_attention.py:808), reached from
 // `flash_attention_bthd_fwd` for 8 <= tq, tk <= 512. Computes, for every
 // (batch, query row, head):
 //   s_j  = scale * <q, k_j> + bias[b|1, h|1, q|1, j]     (f32)
-//   out  = sum_j softmax(s)_j v_j                         (q's dtype)
-//   lse  = m + log(l), m = max_j s_j, l = sum_j exp(s_j - m)   (f32)
-// with q [b, tq, h, dh], k/v [b, tk, h, dh] in f32 or bf16, each with
-// contiguous (h, dh) rows and any batch / time strides (so the q/k/v views
-// of a fused QKV projection need no copy), out and lse contiguous, and an
-// optional f32 additive bias addressed through element strides (0 on a
-// broadcast dim). Causal attention reaches the kernel folded into the bias.
+//   p_j  = exp(s_j - m) / l,  m = max_j s_j, l = sum_j exp(s_j - m)
+//   out  = sum_j p_j M_j v_j                              (q's dtype)
+//   lse  = m + log(l)                                     (f32)
+// where M_j is the dropout keep mask scaled by 1/(1 - p_drop) in f32
+// (attention_common.cuh), or 1 without dropout. As in the TPU kernel,
+// l and lse are the undropped softmax's: the mask multiplies only the
+// exp(s - m) terms that feed the output accumulator. q [b, tq, h, dh],
+// k/v [b, tk, h, dh] are f32 or bf16, each with contiguous (h, dh) rows
+// and any batch / time strides (so the q/k/v views of a fused QKV
+// projection need no copy); out and lse are contiguous; the optional f32
+// additive bias is addressed through element strides (0 on a broadcast
+// dim). Causal attention reaches the kernel folded into the bias.
 //
 // What bounds it on the H100: at the serving prefill shape (b=1, t=128,
 // h=8, dh=64) the work is 33.5 MFLOP over ~1 MB, so the card's limit is
@@ -27,38 +33,30 @@
 // an online softmax keeps the running max, sum and the [32 x dh] output
 // tile in registers, so no score matrix ever reaches device memory. With
 // few blocks per SM at serving shapes, global-load latency is exposed, so
-// each thread issues its tile loads in batches of kLdBatch before storing
-// any to shared memory. The head width is a template bound (64 or 128) so
-// the accumulator holds no dead columns at dh=64. All arithmetic is f32;
-// bf16 inputs are widened on load. Ragged edges (rows past tq, keys past
-// tk) are masked. Tensor cores, TMA and warp specialisation are left to a
-// later version.
+// each thread issues its tile loads in batches before storing any to
+// shared memory. The head width is a template bound (64 or 128) so the
+// accumulator holds no dead columns at dh=64, and dropout is a template
+// flag, so p_drop = 0 compiles to the kernel without it. The mask is a
+// hash of absolute (batch, head, row, column), so the backward kernel
+// regenerates it whatever its tiling. All arithmetic is f32; bf16 inputs
+// are widened on load. Ragged edges (rows past tq, keys past tk) are
+// masked. Tensor cores, TMA and warp specialisation are left to a later
+// version.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace pt_attn;
 
 constexpr int kBQ = 32;        // query rows per block
 constexpr int kBK = 64;        // keys per shared-memory tile
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMaxDh = 128;
-constexpr int kLdBatch = 8;    // global loads a thread issues before storing
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 size_t smem_bytes(int dh) {
   // Qs [BQ][dh], Ks [BK][dh+1], Vs [BK][dh], Ss [BQ][BK+1], all f32
@@ -66,40 +64,14 @@ size_t smem_bytes(int dh) {
          (size_t)(kBQ * dh + kBK * (dh + 1) + kBK * dh + kBQ * (kBK + 1));
 }
 
-// Copies rows [row0, row0 + nrows) x [0, dh) of a strided [t, dh] source
-// (rows past `limit` read as zeros) into shared memory at stride `sstride`.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int sstride,
-                                          const T* __restrict__ src,
-                                          long long rstride, int row0,
-                                          int nrows, int limit, int dh) {
-  const int n = nrows * dh;
-  for (int base = 0; base < n; base += kThreads * kLdBatch) {
-    float buf[kLdBatch];
-#pragma unroll
-    for (int u = 0; u < kLdBatch; ++u) {
-      int i = base + u * kThreads + threadIdx.x;
-      int r = i / dh, d = i - r * dh;
-      bool ok = i < n && row0 + r < limit;
-      buf[u] = ok ? to_f32(src[(long long)(row0 + r) * rstride + d]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLdBatch; ++u) {
-      int i = base + u * kThreads + threadIdx.x;
-      int r = i / dh, d = i - r * dh;
-      if (i < n) dst[r * sstride + d] = buf[u];
-    }
-  }
-}
-
-template <typename T, int kDhMax>
+template <typename T, int kDhMax, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ bias,
            T* __restrict__ out, float* __restrict__ lse, int tq, int tk,
            int nh, int dh, long long qsb, long long qst, long long ksb,
            long long kst, long long vsb, long long vst, long long sb,
-           long long sh, long long sq, float scale) {
+           long long sh, long long sq, float scale, Dropout drop) {
   extern __shared__ float smem[];
   float* Qs = smem;                   // [kBQ][dh]
   float* Ks = Qs + kBQ * dh;          // [kBK][dh + 1]
@@ -119,7 +91,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bias == nullptr ? nullptr : bias + (long long)bb * sb + (long long)hh * sh;
 
   // Q tile -> shared (rows past tq read as zeros and are never stored)
-  load_tile(Qs, dh, qb, qst, q0, kBQ, tq, dh);
+  load_tile<kThreads>(Qs, dh, qb, qst, q0, kBQ, tq, dh);
 
   // Score micro-tile: rows 4*rg .. 4*rg+3, keys 4*cg .. 4*cg+3.
   const int rg = tid / 16, cg = tid % 16;
@@ -131,11 +103,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kDPerThread; ++j) acc[j] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
+  uint32_t hrow = 0;
+  if (kDrop) hrow = drop_row_hash(drop.key, bb * nh + hh, q0 + r);
 
   for (int k0 = 0; k0 < tk; k0 += kBK) {
     __syncthreads();  // previous tile's Ks/Vs/Ss reads are done
-    load_tile(Ks, ks, kb, kst, k0, kBK, tk, dh);
-    load_tile(Vs, dh, vb, vst, k0, kBK, tk, dh);
+    load_tile<kThreads>(Ks, ks, kb, kst, k0, kBK, tk, dh);
+    load_tile<kThreads>(Vs, dh, vb, vst, k0, kBK, tk, dh);
     __syncthreads();
 
     float s[4][4];
@@ -186,8 +160,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kBK / 4; ++i) {
       float p = expf(Ss[r * ss + c + 4 * i] - m_new);
+      psum += p;  // l sums the undropped terms
+      if (kDrop)
+        p *= drop_scale(hrow, k0 + c + 4 * i, drop.thresh, drop.keep_scale);
       Ss[r * ss + c + 4 * i] = p;
-      psum += p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -224,36 +200,68 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int kDhMax>
-cudaError_t launch_dh(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, float* lse, int b, int tq,
-                   int tk, int h, int dh, const long long* st, long long sb,
-                   long long sh, long long sq, float scale,
-                   cudaStream_t stream) {
+template <typename T, int kDhMax, bool kDrop>
+cudaError_t launch_cfg(const void* q, const void* k, const void* v,
+                       const float* bias, void* out, float* lse, int b,
+                       int tq, int tk, int h, int dh, const long long* st,
+                       long long sb, long long sh, long long sq, float scale,
+                       Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, kDhMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_kernel<T, kDhMax, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kBQ - 1) / kBQ, h, b);
-  fwd_kernel<T, kDhMax><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, kDhMax, kDrop><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), lse, tq, tk, h,
-      dh, st[0], st[1], st[2], st[3], st[4], st[5], sb, sh, sq, scale);
+      dh, st[0], st[1], st[2], st[3], st[4], st[5], sb, sh, sq, scale, drop);
   return cudaGetLastError();
+}
+
+template <typename T, bool kDrop>
+cudaError_t launch_drop(const void* q, const void* k, const void* v,
+                        const float* bias, void* out, float* lse, int b,
+                        int tq, int tk, int h, int dh, const long long* st,
+                        long long sb, long long sh, long long sq, float scale,
+                        Dropout drop, cudaStream_t stream) {
+  return dh <= 64
+             ? launch_cfg<T, 64, kDrop>(q, k, v, bias, out, lse, b, tq, tk,
+                                        h, dh, st, sb, sh, sq, scale, drop,
+                                        stream)
+             : launch_cfg<T, kMaxDh, kDrop>(q, k, v, bias, out, lse, b, tq,
+                                            tk, h, dh, st, sb, sh, sq, scale,
+                                            drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, void* out, float* lse, int b, int tq,
                    int tk, int h, int dh, const long long* st, long long sb,
-                   long long sh, long long sq, float scale,
-                   cudaStream_t stream) {
-  return dh <= 64 ? launch_dh<T, 64>(q, k, v, bias, out, lse, b, tq, tk, h,
-                                     dh, st, sb, sh, sq, scale, stream)
-                  : launch_dh<T, kMaxDh>(q, k, v, bias, out, lse, b, tq, tk,
-                                         h, dh, st, sb, sh, sq, scale,
-                                         stream);
+                   long long sh, long long sq, float scale, bool use_drop,
+                   Dropout drop, cudaStream_t stream) {
+  return use_drop ? launch_drop<T, true>(q, k, v, bias, out, lse, b, tq, tk,
+                                         h, dh, st, sb, sh, sq, scale, drop,
+                                         stream)
+                  : launch_drop<T, false>(q, k, v, bias, out, lse, b, tq,
+                                          tk, h, dh, st, sb, sh, sq, scale,
+                                          drop, stream);
+}
+
+// The dropout mask as the attention kernels apply it: out[b, q, h, j] =
+// keep_scale where kept, else 0 (f32, contiguous [b, tq, h, tk]).
+__global__ void mask_kernel(float* __restrict__ out, int tq, int nh, int tk,
+                            long long n, Dropout drop) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int col = (int)(i % tk);
+  const long long rest = i / tk;
+  const int hh = (int)(rest % nh);
+  const long long bq = rest / nh;
+  const int qr = (int)(bq % tq);
+  const int bb = (int)(bq / tq);
+  const uint32_t hrow = drop_row_hash(drop.key, bb * nh + hh, qr);
+  out[i] = drop_scale(hrow, col, drop.thresh, drop.keep_scale);
 }
 
 }  // namespace
@@ -262,25 +270,48 @@ extern "C" {
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers;
 // `bias` may be null. `strides` (host memory) holds the element strides
-// of q, k, v over (batch, time): {q_b, q_t, k_b, k_t, v_b, v_t}. `stream`
+// of q, k, v over (batch, time): {q_b, q_t, k_b, k_t, v_b, v_t}. With
+// `use_dropout`, the mask is keyed by `drop_key` and keeps a score when
+// its hash is below `drop_thresh`, scaling it by `keep_scale`. `stream`
 // is a cudaStream_t.
 int pt_flash_attention_bthd_fwd(const void* q, const void* k, const void* v,
                                 const void* bias, void* out, void* lse, int b,
                                 int tq, int tk, int h, int dh,
                                 const long long* strides, long long sb,
                                 long long sh, long long sq, float scale,
-                                int is_bf16, void* stream) {
+                                int is_bf16, int use_dropout,
+                                unsigned int drop_key,
+                                unsigned int drop_thresh, float keep_scale,
+                                void* stream) {
   if (dh < 1 || dh > kMaxDh || tq < 1 || tk < 1 || b < 1 || h < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   float* l = static_cast<float*>(lse);
+  const pt_attn::Dropout drop{drop_key, drop_thresh, keep_scale};
   cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, bf, out, l, b, tq, tk, h, dh,
-                                      strides, sb, sh, sq, scale, s)
+                                      strides, sb, sh, sq, scale,
+                                      use_dropout != 0, drop, s)
               : launch<float>(q, k, v, bf, out, l, b, tq, tk, h, dh, strides,
-                              sb, sh, sq, scale, s);
+                              sb, sh, sq, scale, use_dropout != 0, drop, s);
   return (int)err;
+}
+
+// Writes the scaled keep mask of a [b, tq, h, tk] attention into `out`
+// (f32, contiguous [b, tq, h, tk]).
+int pt_dropout_keep_mask(void* out, int b, int tq, int h, int tk,
+                         unsigned int drop_key, unsigned int drop_thresh,
+                         float keep_scale, void* stream) {
+  if (b < 1 || tq < 1 || h < 1 || tk < 1) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)b * tq * h * tk;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  mask_kernel<<<(unsigned int)blocks, threads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), tq, h, tk, n,
+      pt_attn::Dropout{drop_key, drop_thresh, keep_scale});
+  return (int)cudaGetLastError();
 }
 
 const char* pt_cuda_error_string(int err) {

@@ -1,10 +1,13 @@
 """Executor and Scope.
 
 ``Executor.run`` has the Fluid contract: feed a dict of arrays, fetch a
-list of variables, read and commit persistable state through a Scope.
-A block runs eagerly on the executor's ``torch.device`` (one PyTorch
-call per op, core/lowering.py), under ``torch.inference_mode()``: no
-program of this package holds gradient ops yet.
+list of variables, read and commit persistable state through a Scope;
+``Executor.run_steps`` runs several training steps. A block runs eagerly
+on the executor's ``torch.device`` (one PyTorch call per op,
+core/lowering.py) under ``torch.no_grad()``: gradients are ops of the
+program (backward.py), and autograd is enabled only inside a derived
+grad op (core/autodiff.py). A program marked ``_amp`` (amp.py) runs its
+matmul-heavy ops in bf16.
 """
 
 from __future__ import annotations
@@ -105,6 +108,8 @@ class Executor:
     def __init__(self, place: Optional[Union[CPUPlace, CUDAPlace]] = None):
         self.device = resolve_device(place)
         self._cache: Dict[tuple, lowering.LoweredBlock] = {}
+        # program seed -> the host-side stream each run's base seed is
+        # drawn from
         self._generators: Dict[int, torch.Generator] = {}
 
     def run(
@@ -118,26 +123,28 @@ class Executor:
         """Run block 0 of ``program``. Returns the fetches as numpy arrays,
         or as the device tensors themselves when ``async_fetch`` (the
         caller materializes them later, after it has queued more work).
-        Random ops draw from the executor's generator for
-        ``program.random_seed``."""
+        A run of a program with random ops draws one base seed from the
+        executor's stream for ``program.random_seed``; each random op
+        derives its own seed from it (core/interp.py)."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
         feed_names = sorted(feed)
-        key = (program._uid, program.version, tuple(feed_names),
+        amp = bool(program._amp)
+        key = (program._uid, program.version, amp, tuple(feed_names),
                tuple(fetch_names))
         lowered = self._cache.get(key)
         if lowered is None:
             lowered = lowering.lower_block(program, 0, feed_names,
-                                           fetch_names, self.device)
+                                           fetch_names, self.device, amp)
             self._cache[key] = lowered
         state = self._gather_state(scope, lowered)
         feeds = {k: as_tensor(feed[k], self.device) for k in feed_names}
-        gen = self._generator_for(program) if lowered.needs_rng else None
-        with torch.inference_mode():
-            fetches, new_state = lowered.fn(state, feeds, gen)
+        seed = self._next_seed(program) if lowered.needs_rng else None
+        with torch.no_grad():
+            fetches, new_state = lowered.fn(state, feeds, seed)
         # Commit: the scope now holds the tensors the block produced. Ops
         # are functional, so the previous state tensors are released when
         # nothing else references them — the counterpart of the JAX
@@ -162,14 +169,39 @@ class Executor:
             state[n] = v
         return state
 
-    def _generator_for(self, program) -> torch.Generator:
+    def run_steps(
+        self,
+        program=None,
+        feed_list: Optional[Sequence[Dict[str, Any]]] = None,
+        steps: int = 1,
+        fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+        scope: Optional[Scope] = None,
+        async_fetch: bool = False,
+    ):
+        """Run ``steps`` iterations of ``program``, rotating over
+        ``feed_list`` (step i consumes feed ``i % len(feed_list)``), and
+        return the LAST step's fetches. Each step is one ``run``, so the
+        random streams equal those of ``steps`` successive ``run``
+        calls."""
+        if not feed_list:
+            raise ValueError("run_steps needs a non-empty feed_list")
+        if steps < 1:
+            raise ValueError(f"run_steps: steps={steps}, expected >= 1")
+        for i in range(steps - 1):
+            self.run(program, feed_list[i % len(feed_list)], None, scope)
+        return self.run(program, feed_list[(steps - 1) % len(feed_list)],
+                        fetch_list, scope, async_fetch)
+
+    def _next_seed(self, program) -> int:
+        """The next base seed of ``program.random_seed``'s stream (drawn
+        on the host: no device sync)."""
         seed = program.random_seed if program.random_seed is not None else 0
         gen = self._generators.get(seed)
         if gen is None:
-            gen = torch.Generator(device=self.device)
+            gen = torch.Generator()
             gen.manual_seed(seed)
             self._generators[seed] = gen
-        return gen
+        return int(torch.randint(0, 2**62, (), generator=gen))
 
     def close(self):
         self._cache.clear()

@@ -21,7 +21,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import unique_name
-from paddle_tpu_torch.core.registry import get_op_def, has_op
+from paddle_tpu_torch.core.registry import (
+    GRAD_OP_SUFFIX,
+    GRAD_SUFFIX,
+    get_op_def,
+    has_op,
+)
 
 # Sentinel used to stand in for a symbolic (-1) batch dim during abstract
 # shape inference. Prime and unlikely to appear as a real static dim.
@@ -40,6 +45,10 @@ _TORCH_DTYPES = {
     "bool": torch.bool,
 }
 _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -189,6 +198,15 @@ class Block:
         self.vars[name] = p
         return p
 
+    def var(self, name: str) -> Variable:
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise KeyError(f"variable '{name}' not found in block {self.idx}")
+        return v
+
+    def has_var(self, name: str) -> bool:
+        return self._find_var_recursive(name) is not None
+
     def _find_var_recursive(self, name: str) -> Optional[Variable]:
         b: Optional[Block] = self
         while b is not None:
@@ -196,6 +214,9 @@ class Block:
                 return b.vars[name]
             b = b.parent_block
         return None
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     # --- ops ---
 
@@ -230,7 +251,8 @@ class Block:
 
 
 # (op_type, gap kind) pairs where shape inference could not run. Kinds:
-# 'no_kernel' (op type has no registered compute), 'missing_input_meta'
+# 'no_kernel' (op type has no registered compute), 'autodiff_grad' (a
+# derived <type>_grad op), 'missing_input_meta'
 # (an input var lacks shape/dtype), 'eval_failed:<Error>' (the meta
 # evaluation raised).
 # Bounded by the op-type vocabulary.
@@ -267,6 +289,11 @@ def infer_op_outputs(block: "Block", op: Operator):
     -> list of meta tensors (``None`` when inference could not run, with
     ``gap`` naming why)."""
     if not has_op(op.type):
+        if op.type.endswith(GRAD_OP_SUFFIX) and \
+                has_op(op.type[: -len(GRAD_OP_SUFFIX)]):
+            # derived when the block runs (core/autodiff.py); shapes
+            # mirror the differentiated inputs
+            return None, "autodiff_grad"
         return None, "no_kernel"
     opdef = get_op_def(op.type)
     try:
@@ -274,6 +301,9 @@ def infer_op_outputs(block: "Block", op: Operator):
         for slot, names in op.inputs.items():
             specs = []
             for n in names:
+                if not n:  # a hole: the op sees None, as when it runs
+                    specs.append(None)
+                    continue
                 v = block._find_var_recursive(n)
                 if v is None or v.shape is None or v.dtype is None:
                     return None, "missing_input_meta"
@@ -324,6 +354,10 @@ class Program:
         self._uid = Program._uid_counter
         self._version = 0
         self.random_seed: Optional[int] = None
+        # bf16 execution of the matmul-heavy ops (amp.enable_amp)
+        self._amp = False
+        # param name -> its gradient var (backward.append_backward)
+        self._param_grad_map: Dict[str, str] = {}
 
     def _bump_version(self):
         self._version += 1
@@ -341,6 +375,9 @@ class Program:
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for b in self.blocks for v in b.all_parameters()]
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)

@@ -3,13 +3,17 @@
 Both packages name parameters alike (models/transformer.py), so weights
 move by name: ``scope_from_numpy`` takes the arrays of a JAX-package
 scope (``{n: np.asarray(scope.find_var(n))}``) and ``load_params`` reads
-the ``__params__.npz`` that ``paddle_tpu.io`` saves.
+the ``__params__.npz`` that ``paddle_tpu.io`` saves. Optimizer state
+(Adam moments, beta powers, the learning rate) moves by (parameter,
+kind) instead: its var names come from per-build counters, so
+``rekey_optimizer_state`` maps them through both optimizers'
+``slot_descriptor()``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 
@@ -34,3 +38,23 @@ def load_params(dirname: str, place=None) -> Scope:
     """Read ``dirname/__params__.npz`` into a Scope on ``place``'s device."""
     with np.load(os.path.join(dirname, PARAMS_FILE)) as data:
         return scope_from_numpy({n: data[n] for n in data.files}, place)
+
+
+def rekey_optimizer_state(values: Mapping[str, np.ndarray],
+                          saved_slots: Mapping[str, dict],
+                          target_slots: Mapping[str, dict]
+                          ) -> Dict[str, np.ndarray]:
+    """Re-key optimizer slot state from the saving optimizer's var names
+    (``saved_slots``: its ``slot_descriptor()``) onto the restoring
+    optimizer's (``target_slots``), joined on (param, kind). Entries that
+    are not slots (parameters) pass through by name; a saved slot with no
+    target is dropped, and a target slot with no saved value is left to
+    the restoring startup program. Returns a new dict."""
+    by_key = {(d["param"], d["slot"]): name
+              for name, d in saved_slots.items()}
+    out = {n: v for n, v in values.items() if n not in saved_slots}
+    for tname, d in target_slots.items():
+        sname = by_key.get((d["param"], d["slot"]))
+        if sname is not None and sname in values:
+            out[tname] = values[sname]
+    return out

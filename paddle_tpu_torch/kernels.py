@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which
 ``ctypes`` loads; no PyTorch headers are involved, so a build takes
 seconds. Libraries go to ``paddle_tpu_torch/build/`` (git-ignored) under
-a name that carries a digest of the source and the flags, so an edited
-source rebuilds and concurrent processes never load a half-written file.
+a name that carries a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and
+concurrent processes never load a half-written file.
 """
 
 from __future__ import annotations
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            h.update(src.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 

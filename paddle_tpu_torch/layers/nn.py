@@ -11,7 +11,7 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "relu", "abs",
+    "fc", "embedding", "layer_norm", "dropout", "relu", "abs",
     "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
     "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_max", "reduce_sum", "reduce_max", "scale", "cast",
@@ -125,6 +125,29 @@ def layer_norm(
         attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon},
     )
     return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Randomly zero elements of ``x`` with probability ``dropout_prob``
+    (``upscale_in_train``: kept elements scaled by 1/(1 - p) in
+    training; ``downgrade_in_infer``: outputs scaled by (1 - p) at test
+    time). The keep mask is saved for the backward pass."""
+    if dropout_implementation not in ("downgrade_in_infer",
+                                      "upscale_in_train"):
+        raise ValueError(
+            f"dropout_implementation {dropout_implementation!r}: expected "
+            f"'downgrade_in_infer' or 'upscale_in_train'")
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype="uint8",
+                                                     stop_gradient=True)
+    helper.append_op(
+        "dropout", inputs={"X": x}, outputs={"Out": out, "Mask": mask},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
 
 
 # --- activations ---

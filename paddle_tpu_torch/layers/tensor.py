@@ -4,10 +4,33 @@ from __future__ import annotations
 
 import numpy as np
 
-from paddle_tpu_torch.framework import Variable, convert_np_dtype_to_dtype_
+from paddle_tpu_torch import unique_name
+from paddle_tpu_torch.framework import (
+    Variable,
+    convert_np_dtype_to_dtype_,
+    default_main_program,
+    default_startup_program,
+)
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["fill_constant", "assign"]
+__all__ = ["create_global_var", "fill_constant", "assign"]
+
+
+def create_global_var(shape, value, dtype, persistable=False, name=None):
+    """A persistable var initialized in the startup program."""
+    name = name or unique_name.generate("global_var")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    sb = default_startup_program().global_block()
+    sb.create_var(name=name, shape=shape, dtype=dtype,
+                  persistable=persistable)
+    sb.append_op(
+        "fill_constant",
+        outputs={"Out": name},
+        attrs={"shape": list(shape), "dtype": dtype, "value": float(value)},
+    )
+    mb = default_main_program().global_block()
+    return mb.create_var(name=name, shape=shape, dtype=dtype,
+                         persistable=persistable)
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

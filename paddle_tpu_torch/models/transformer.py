@@ -1,11 +1,11 @@
 """Transformer NMT model (Transformer-base on WMT16 en-de by default).
 
-The port of the JAX package's models/transformer.py for inference and
-serving: ``build(cfg, is_test=True)`` and the serving programs
+The port of the JAX package's models/transformer.py for training and
+serving: ``build(cfg)`` (training graph with dropout unless
+``is_test=True``), ``make_batch`` and the serving programs
 (``build_prefill`` / ``build_decode_step`` / ``build_slot_scrub``). The
 programs, op sequences and parameter / state names match the JAX
-package's, so weights carry across by name. Training (dropout, the
-backward pass) waits for the training slice.
+package's, so weights carry across by name.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def _multi_head_attention(q_in, kv_in, bias, cfg: TransformerConfig, prefix: str
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
     helper = LayerHelper(f"{prefix}_sdpa")
     ctx = helper.create_variable_for_type_inference(dtype=cfg.dtype)
-    # logsumexp rows (f32), for the backward of the training slice
+    # logsumexp rows (f32), saved for the attention backward
     lse = helper.create_variable_for_type_inference(dtype="float32")
     lse.stop_gradient = True
     inputs = {"Q": q, "K": k, "V": v}
@@ -125,15 +125,23 @@ def _multi_head_attention(q_in, kv_in, bias, cfg: TransformerConfig, prefix: str
     return _fc(ctx, d, f"{prefix}_out", "rowp")
 
 
+def _dropout(x, cfg: TransformerConfig, is_test: bool):
+    if cfg.dropout and not is_test:
+        x = layers.dropout(x, cfg.dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    return x
+
+
 def _ffn(x, cfg: TransformerConfig, prefix: str, is_test: bool):
     h = _fc(x, cfg.d_inner, f"{prefix}_ffn1", "colp", act="relu")
+    h = _dropout(h, cfg, is_test)
     return _fc(h, cfg.d_model, f"{prefix}_ffn2", "rowp")
 
 
 def _pre_post(x, residual, cfg, prefix, is_test):
-    """Residual wiring: norm -> sublayer -> (dropout, training only) ->
-    add."""
-    return layers.elementwise_add(x, residual)
+    """Residual wiring (reference: preprocess 'n', postprocess 'da'):
+    norm -> sublayer -> dropout (training only) -> add."""
+    return layers.elementwise_add(_dropout(x, cfg, is_test), residual)
 
 
 def _ln(x, prefix):
@@ -165,7 +173,7 @@ def _embed(ids, vocab, cfg: TransformerConfig, name: str, pos_table_name: str,
             trainable=False,
         ),
     )
-    return layers.elementwise_add(emb, pos)
+    return _dropout(layers.elementwise_add(emb, pos), cfg, is_test)
 
 
 def _position_ids(ids):
@@ -247,19 +255,14 @@ def _loss_head(dec, lbl, trg_pad, cfg):
     return logits, token_count, loss
 
 
-def build(cfg: Optional[TransformerConfig] = None, is_test: bool = True):
+def build(cfg: Optional[TransformerConfig] = None, is_test: bool = False):
     """Builds the full model graph (logits and the masked token loss) in
-    the current main/startup programs.
+    the current main/startup programs; with ``is_test=False`` (training)
+    dropout runs on the embeddings, residual branches, FFN and attention.
 
     Feeds: src_ids[b,s], trg_ids[b,t], lbl_ids[b,t], src_pad_mask[b,s],
-    trg_pad_mask[b,t] (1 = real token). Returns dict of key variables.
-    Training-time dropout (``is_test=False`` with ``cfg.dropout``) comes
-    with the training slice and raises here."""
+    trg_pad_mask[b,t] (1 = real token). Returns dict of key variables."""
     cfg = cfg or base()
-    if cfg.dropout and not is_test:
-        raise NotImplementedError(
-            "transformer.build: training-time dropout is not ported; "
-            "build with is_test=True")
     (src, trg, lbl, src_pad, trg_pad,
      enc_bias, dec_self_bias) = _train_feeds_and_biases()
     cross_bias = enc_bias  # same src padding bias, broadcast over query dim
@@ -281,6 +284,29 @@ def build(cfg: Optional[TransformerConfig] = None, is_test: bool = True):
         "logits": logits,
         "token_count": token_count,
         "config": cfg,
+    }
+
+
+def make_batch(cfg: TransformerConfig, batch: int, src_len: int, trg_len: int,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    """Synthetic padded batch matching the feed contract (the JAX
+    package's generator: the same seed gives the same arrays)."""
+    r = np.random.RandomState(seed)
+    src = r.randint(3, cfg.src_vocab_size, (batch, src_len)).astype(np.int64)
+    trg = r.randint(3, cfg.trg_vocab_size, (batch, trg_len)).astype(np.int64)
+    lbl = r.randint(3, cfg.trg_vocab_size, (batch, trg_len)).astype(np.int64)
+    src_lens = r.randint(src_len // 2, src_len + 1, batch)
+    trg_lens = r.randint(trg_len // 2, trg_len + 1, batch)
+    src_pad = (np.arange(src_len)[None, :] < src_lens[:, None]).astype(
+        np.float32)
+    trg_pad = (np.arange(trg_len)[None, :] < trg_lens[:, None]).astype(
+        np.float32)
+    return {
+        "src_ids": src * src_pad.astype(np.int64),
+        "trg_ids": trg * trg_pad.astype(np.int64),
+        "lbl_ids": lbl,
+        "src_pad_mask": src_pad,
+        "trg_pad_mask": trg_pad,
     }
 
 

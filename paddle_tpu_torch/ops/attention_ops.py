@@ -1,7 +1,8 @@
-"""Attention support ops: position ids, additive attention bias, and the
-forward of scaled-dot-product attention (parallel/flash_attention.py:
-the Hopper kernel for the small regime on a CUDA tensor, the plain
-PyTorch composition on the CPU and for single-token decode).
+"""Attention support ops: position ids, additive attention bias, and
+scaled-dot-product attention with its registered backward
+(parallel/flash_attention.py: the Hopper kernels for the small regime on
+a CUDA tensor, the plain PyTorch composition on the CPU and for
+single-token decode).
 """
 
 from __future__ import annotations
@@ -21,14 +22,14 @@ def _x(ins, slot="X", i=0):
     return v[i] if v else None
 
 
-@register_op("position_ids")
+@register_op("position_ids", no_grad=True)
 def _position_ids(ins, attrs, device):
     x = _x(ins)  # [b, t] any int dtype
     b, t = x.shape[0], x.shape[1]
     return {"Out": [torch.arange(t, device=x.device).expand(b, t)]}
 
 
-@register_op("attn_bias")
+@register_op("attn_bias", no_grad=True)
 def _attn_bias(ins, attrs, device):
     """PadMask [b, t_k] (1=real token) -> additive bias.
 
@@ -46,26 +47,55 @@ def _attn_bias(ins, attrs, device):
     return {"Out": [pad_bias[:, None, None, :]]}
 
 
-@register_op("scaled_dot_product_attention")
-def _sdpa(ins, attrs, device):
-    """Attention over Q, K, V [b, t, h, dh] (``layout="bthd"``) with an
-    optional additive Bias; emits Out (Q's dtype) and the real f32
-    logsumexp rows Lse [b, tq, h, 1].
-
-    Training-time attention dropout (``dropout_prob > 0`` and not
-    ``is_test``) raises: it comes with the kernel's in-kernel dropout in
-    the training slice."""
-    q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
-    if attrs.get("layout", "bhtd") != "bthd":
-        raise NotImplementedError(
-            "scaled_dot_product_attention: only layout='bthd' is ported")
-    if attrs.get("dropout_prob", 0.0) > 0.0 and not attrs.get("is_test", False):
-        raise NotImplementedError(
-            "scaled_dot_product_attention: training-time attention dropout "
-            "is not ported (needs the kernel's in-kernel dropout)")
+def _sdpa_config(ins, attrs, generator):
+    """Shared forward / grad config: (scale, p_drop, seed). The grad op's
+    generator is seeded from the same forward_op_idx as the forward's
+    (core/interp.py), so both see one seed and the kernels one mask."""
+    q = _x(ins, "Q")
     scale = attrs.get("scale", None)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    p_drop = attrs.get("dropout_prob", 0.0)
+    if p_drop > 0.0 and not attrs.get("is_test", False):
+        seed = generator.initial_seed() if generator is not None else 0
+        return scale, float(p_drop), seed
+    return scale, 0.0, None
+
+
+def _check_layout(attrs):
+    if attrs.get("layout", "bhtd") != "bthd":
+        raise NotImplementedError(
+            "scaled_dot_product_attention: only layout='bthd' is ported")
+
+
+@register_op("scaled_dot_product_attention", diff_inputs=("Q", "K", "V"),
+             needs_rng=True)
+def _sdpa(ins, attrs, device, generator=None):
+    """Attention over Q, K, V [b, t, h, dh] (``layout="bthd"``) with an
+    optional additive Bias and, in training (``dropout_prob > 0`` and not
+    ``is_test``), attention dropout inside the kernel from the op's seed;
+    emits Out (Q's dtype) and the real f32 logsumexp rows Lse [b, tq, h,
+    1], which the grad op consumes."""
+    _check_layout(attrs)
+    q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
+    scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
     out, lse = fa.flash_attention_bthd_fwd(
-        q, k, v, _x(ins, "Bias"), scale, bool(attrs.get("causal", False)))
+        q, k, v, _x(ins, "Bias"), scale, bool(attrs.get("causal", False)),
+        seed=seed, p_drop=p_drop)
     return {"Out": [out], "Lse": [lse]}
+
+
+@register_op("scaled_dot_product_attention_grad", no_grad=True,
+             needs_rng=True)
+def _sdpa_grad(ins, attrs, device, generator=None):
+    """The attention backward from the forward's saved (Out, Lse): the
+    backward kernel (or its plain version), never a re-run of the
+    forward."""
+    _check_layout(attrs)
+    q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
+    scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
+    dq, dk, dv = fa.flash_attention_bthd_bwd(
+        q, k, v, _x(ins, "Bias"), seed, _x(ins, "Out"), _x(ins, "Lse"),
+        _x(ins, "GRAD::Out").to(q.dtype), scale, p_drop,
+        bool(attrs.get("causal", False)))
+    return {"GRAD::Q": [dq], "GRAD::K": [dk], "GRAD::V": [dv]}

@@ -43,7 +43,7 @@ _make_elementwise("elementwise_max", torch.maximum)
 
 
 def _make_compare(name, fn):
-    @register_op(name)
+    @register_op(name, no_grad=True)
     def _compute(ins, attrs, device, fn=fn):
         x, y = _x(ins), _x(ins, "Y")
         return {"Out": [fn(x, _bcast_y(x, y, attrs.get("axis", -1)))]}
@@ -53,12 +53,12 @@ _make_compare("equal", torch.eq)
 _make_compare("less_than", torch.lt)
 
 
-@register_op("logical_and")
+@register_op("logical_and", no_grad=True)
 def _logical_and(ins, attrs, device):
     return {"Out": [torch.logical_and(_x(ins), _x(ins, "Y"))]}
 
 
-@register_op("logical_not")
+@register_op("logical_not", no_grad=True)
 def _logical_not(ins, attrs, device):
     return {"Out": [torch.logical_not(_x(ins))]}
 
@@ -74,6 +74,15 @@ def _mul(ins, attrs, device):
     x2 = x.reshape(math.prod(xs[:xnc]), -1)
     y2 = y.reshape(math.prod(ys[:ync]), -1)
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:])]}
+
+
+@register_op("sum", doc="add N tensors (sum_op.cc)")
+def _sum(ins, attrs, device):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
 
 
 def _reduce_dims(x, attrs):

@@ -1,10 +1,10 @@
 """Tensor creation & manipulation ops.
 
-Random fills draw from the ``torch.Generator`` the executor hands them
-(one stateful stream per executor and program seed, see executor.py), so
-a seeded run is reproducible on one device. The streams differ from the
-JAX package's PRNG: weights carry across by name (io.scope_from_numpy),
-never by re-drawing them.
+Random fills draw from the ``torch.Generator`` the interpreter hands
+them (seeded per op and run from the executor's stream for the program
+seed, see core/interp.py), so a seeded run is reproducible on one
+device. The streams differ from the JAX package's PRNG: weights carry
+across by name (io.scope_from_numpy), never by re-drawing them.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ def _x(ins, slot="X", i=0):
     return ins[slot][i]
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", no_grad=True)
 def _fill_constant(ins, attrs, device):
     shape = tuple(attrs.get("shape", []))
     dtype = torch_dtype(attrs.get("dtype", "float32"))
@@ -28,12 +28,12 @@ def _fill_constant(ins, attrs, device):
                                device=device)]}
 
 
-@register_op("fill_any_like")
+@register_op("fill_any_like", no_grad=True)
 def _fill_any_like(ins, attrs, device):
     return {"Out": [torch.full_like(_x(ins), attrs.get("value", 0.0))]}
 
 
-@register_op("gaussian_random", needs_rng=True)
+@register_op("gaussian_random", no_grad=True, needs_rng=True)
 def _gaussian_random(ins, attrs, device, generator=None):
     shape = tuple(attrs["shape"])
     dtype = torch_dtype(attrs.get("dtype", "float32"))
@@ -42,7 +42,7 @@ def _gaussian_random(ins, attrs, device, generator=None):
     return {"Out": [out]}
 
 
-@register_op("uniform_random", needs_rng=True)
+@register_op("uniform_random", no_grad=True, needs_rng=True)
 def _uniform_random(ins, attrs, device, generator=None):
     shape = tuple(attrs["shape"])
     dtype = torch_dtype(attrs.get("dtype", "float32"))
@@ -56,7 +56,7 @@ def _assign(ins, attrs, device):
     return {"Out": [_x(ins)]}
 
 
-@register_op("assign_value")
+@register_op("assign_value", no_grad=True)
 def _assign_value(ins, attrs, device):
     shape = tuple(attrs["shape"])
     vals = np.asarray(attrs["values"], dtype=np.float64).reshape(shape)
@@ -95,7 +95,7 @@ def _unsqueeze2(ins, attrs, device):
     return {"Out": [x], "XShape": []}
 
 
-@register_op("scatter")
+@register_op("scatter", diff_inputs=("X", "Updates"))
 def _scatter(ins, attrs, device):
     x, ids, updates = _x(ins), _x(ins, "Ids"), _x(ins, "Updates")
     out = x.clone()
@@ -106,7 +106,7 @@ def _scatter(ins, attrs, device):
     return {"Out": [out]}
 
 
-@register_op("one_hot")
+@register_op("one_hot", no_grad=True)
 def _one_hot(ins, attrs, device):
     x = _x(ins)
     if x.dim() > 1 and x.shape[-1] == 1:
@@ -116,7 +116,18 @@ def _one_hot(ins, attrs, device):
     return {"Out": [hot.to(torch_dtype(attrs.get("dtype", "float32")))]}
 
 
-@register_op("lookup_table",
+def _lookup_table_grad_maker(op, block, out_grads, provide, should_skip):
+    """A dense table takes the derived grad op (a scatter-add into W);
+    the row-sparse gradient of ``is_sparse=True`` is not ported."""
+    if op.attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table(is_sparse=True): the row-sparse gradient is not "
+            "ported; build the embedding with is_sparse=False")
+    return None
+
+
+@register_op("lookup_table", diff_inputs=("W",),
+             grad_maker=_lookup_table_grad_maker,
              doc="embedding lookup over int ids (lookup_table_op.cc)")
 def _lookup_table(ins, attrs, device):
     w, ids = _x(ins, "W"), _x(ins, "Ids")
@@ -136,17 +147,17 @@ def _lookup_table(ins, attrs, device):
     return {"Out": [out]}
 
 
-@register_op("arg_max")
+@register_op("arg_max", no_grad=True)
 def _arg_max(ins, attrs, device):
     return {"Out": [torch.argmax(_x(ins), dim=attrs.get("axis", -1))]}
 
 
-@register_op("where")
+@register_op("where", diff_inputs=("X", "Y"))
 def _where(ins, attrs, device):
     return {"Out": [torch.where(_x(ins, "Condition"), _x(ins), _x(ins, "Y"))]}
 
 
-@register_op("dynamic_update")
+@register_op("dynamic_update", diff_inputs=("X", "Value"))
 def _dynamic_update(ins, attrs, device):
     """Write Value at the (device-resident) position Index along axis 0
     of X. The index clamps into range like ``lax.dynamic_update_slice``,

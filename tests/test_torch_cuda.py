@@ -1,4 +1,5 @@
-"""Card-only checks of the port's CUDA kernel against its plain version.
+"""Card-only checks of the port's CUDA kernels against their plain
+versions.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so it also runs where JAX is not installed:
@@ -7,7 +8,9 @@ imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances as in chip_smoke.py: out 5e-6 in f32 (both sum in f32, in
 different orders) and 8e-3 in bf16 (one bf16 ulp of outputs below 2);
-lse, f32 in both dtypes, 5e-6."""
+lse, f32 in both dtypes, 5e-6; dq/dk/dv relative to the largest
+|gradient|, 1e-5 in f32 and 8e-3 (one bf16 ulp) in bf16. The dropout
+mask is compared bit for bit."""
 
 import pytest
 import torch
@@ -60,7 +63,102 @@ def test_unported_regimes_raise_and_decode_stays_plain(cuda):
         kv = torch.randn(1, tk, h, dh, device=cuda)
         with pytest.raises(NotImplementedError):
             fa.flash_attention_bthd_fwd(q, kv, kv)
+        lse = torch.zeros(1, 128, h, 1, device=cuda)
+        with pytest.raises(NotImplementedError):
+            fa.flash_attention_bthd_bwd(q, kv, kv, None, None, q, lse, q)
     before = fa.launches
     kv = torch.randn(1, 128, h, dh, device=cuda)
     out, lse = fa.flash_attention_bthd_fwd(q[:, :1], kv, kv)  # one token
     assert fa.launches == before and out.shape == (1, 1, h, dh)
+
+
+def _bwd_inputs(cuda, dtype, b, tq, tk, dh, kind, h=8):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(b, t, h, dh, generator=g, device=cuda).to(dtype)
+               for t in (tq, tk, tk))
+    bias = None
+    if kind in ("pad", "cross", "causal_pad"):
+        lens = torch.randint(tk // 2, tk + 1, (b, 1), generator=g,
+                             device=cuda)
+        bias = torch.where(torch.arange(tk, device=cuda)[None] < lens, 0.0,
+                           -1e9)[:, None, None, :]
+    dout = torch.randn(b, tq, h, dh, generator=g, device=cuda).to(dtype)
+    return q, k, v, bias, kind.startswith("causal"), dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,tq,tk,p_drop", [
+    ("causal_pad", 256, 256, 0.0), ("pad", 256, 256, 0.0),
+    ("cross", 128, 256, 0.0), ("causal_pad", 256, 256, 0.1),
+    ("cross", 64, 128, 0.3),
+])
+def test_bwd_kernel_matches_plain(cuda, dtype, kind, tq, tk, p_drop):
+    """The backward kernel and the forward kernel with dropout against
+    their plain versions, which rebuild the same keep mask."""
+    q, k, v, bias, causal, dout = _bwd_inputs(cuda, dtype, 4, tq, tk, 64,
+                                              kind)
+    seed = 77 if p_drop else None
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
+                                           seed=seed, p_drop=p_drop)
+    eff = fa._combined_causal_bias(bias, tq, tk, cuda) if causal else bias
+    ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, eff, None, seed,
+                                               p_drop)
+    f32 = dtype == torch.float32
+    assert (out.float() - ref_out.float()).abs().max().item() <= \
+        (5e-6 if f32 else 8e-3)
+    assert (lse - ref_lse).abs().max().item() <= 5e-6
+    before = fa.bwd_launches
+    grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
+                                        None, p_drop, causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    refs = fa.attention_bthd_bwd_plain(q, k, v, eff, seed, out, lse, dout,
+                                       None, p_drop)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype
+        rel = ((got.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel <= (1e-5 if f32 else 8e-3), rel
+
+
+@pytest.mark.parametrize("dh,tq,tk", [(128, 128, 128), (32, 100, 77)])
+def test_bwd_kernel_head_widths_and_ragged(cuda, dh, tq, tk):
+    q, k, v, bias, _, dout = _bwd_inputs(cuda, torch.float32, 2, tq, tk,
+                                         dh, "pad", h=4)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed=5,
+                                           p_drop=0.2)
+    grads = fa.flash_attention_bthd_bwd(q, k, v, bias, 5, out, lse, dout,
+                                        None, 0.2)
+    refs = fa.attention_bthd_bwd_plain(q, k, v, bias, 5, out, lse, dout,
+                                       None, 0.2)
+    for got, ref in zip(grads, refs):
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-5, rel
+
+
+def test_mask_dump_equals_plain_mask(cuda):
+    before = fa.mask_launches
+    got = fa.dropout_keep_mask(123, 3, 5, 256, 200, 0.1, cuda)
+    torch.cuda.synchronize()
+    assert fa.mask_launches == before + 1
+    ref = fa.dropout_keep_mask_plain(123, 3, 5, 256, 200, 0.1, cuda)
+    assert torch.equal(got, ref.permute(0, 2, 1, 3))
+
+
+def test_autograd_function_runs_the_backward_kernel(cuda):
+    q, k, v, bias, _, dout = _bwd_inputs(cuda, torch.float32, 2, 128, 128,
+                                         64, "pad")
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = fa.bwd_launches
+    out, _ = fa.flash_attention_bthd_with_lse(q, k, v, bias, 9, None, 0.1,
+                                              True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    assert fa.bwd_launches == before + 1
+    q2, k2, v2 = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    out2, _ = fa.attention_bthd_plain(
+        q2, k2, v2, fa._combined_causal_bias(bias.cpu(), 128, 128, "cpu"),
+        None, 9, 0.1)
+    refs = torch.autograd.grad(out2, (q2, k2, v2), dout.cpu())
+    for got, ref in zip((dq, dk, dv), refs):
+        rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 1e-4, rel

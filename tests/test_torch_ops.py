@@ -4,10 +4,13 @@ numpy inputs: f32 results within atol 1e-5, integer and bool results
 exact, dtypes equal.
 
 Two kinds of result cannot be held to the JAX value and get their own
-reference: the random fills (the two packages draw different streams
-from a seed, so shape, dtype and moments are checked), and the attention
-logsumexp rows, which the JAX op returns as zeros off the TPU while the
-port computes them (checked against float64 numpy)."""
+reference: the random fills and the training-mode dropout mask (the two
+packages draw different streams from a seed, so shape, dtype and
+moments, or Out against the op's own Mask, are checked), and the
+attention logsumexp rows, which the JAX op returns as zeros off the TPU
+while the port computes them (checked against float64 numpy). The
+attention grad op consumes the forward's saved Out and Lse, which the
+JAX op ignores off the TPU; both get the port's plain forward's."""
 
 import numpy as np
 import pytest
@@ -18,10 +21,14 @@ import jax.numpy as jnp
 
 from paddle_tpu.core.registry import get_op_def as jax_op_def
 from paddle_tpu_torch.core.registry import get_op_def, registered_ops
+from paddle_tpu_torch.parallel import flash_attention as tfa
 
-# the op types of build(cfg, is_test=True), its startup program and the
-# three serving programs
+# the op types of build(cfg), its startup program, Adam/SGD.minimize and
+# the three serving programs (the explicitly registered grad ops included;
+# the others are derived)
 PATH_OP_TYPES = sorted({
+    "adam", "dropout", "dropout_grad", "scaled_dot_product_attention_grad",
+    "sgd", "sum",
     "assign", "attn_bias", "dynamic_update", "elementwise_add",
     "fill_constant", "layer_norm", "lookup_table", "mul", "position_ids",
     "relu", "reshape2", "scale", "scaled_dot_product_attention", "scatter",
@@ -52,10 +59,56 @@ _MASK = (np.arange(6)[None, :] < np.array([[6], [3]])).astype(np.float32)
 _ONEHOT = np.eye(5, dtype=np.float32)[_R.randint(0, 5, (2, 3))]
 _SDPA_BIAS = ((1.0 - (np.arange(16)[None, :] < np.array([[16], [9]]))
                .astype(np.float32)) * -1e9)[:, None, None, :]
+_QKV = [_f(2, 16, 2, 8) for _ in range(3)]
+
+
+def _sdpa_saved(causal):
+    """The forward's (Out, Lse) that the attention grad op consumes."""
+    q, k, v = (torch.from_numpy(a) for a in _QKV)
+    bias = torch.from_numpy(_SDPA_BIAS)
+    out, lse = tfa.flash_attention_bthd_fwd(q, k, v, bias, 8 ** -0.5, causal)
+    return [out.numpy()], [lse.numpy()]
+
+
+def _sdpa_grad_case(causal):
+    out, lse = _sdpa_saved(causal)
+    return ("scaled_dot_product_attention_grad",
+            {"Q": [_QKV[0]], "K": [_QKV[1]], "V": [_QKV[2]],
+             "Bias": [_SDPA_BIAS], "Out": out, "Lse": lse,
+             "GRAD::Out": [_f(2, 16, 2, 8)]},
+            {"scale": 8 ** -0.5, "layout": "bthd", "causal": causal,
+             "is_test": False, "dropout_prob": 0.0,
+             "fwd_input_slots": ["Q", "K", "V", "Bias"],
+             "fwd_output_slots": ["Out", "Lse"], "forward_op_idx": 3})
 
 # (op type, inputs, attrs): several cases for ops with several modes
 CASES = [
     ("abs", {"X": [_f(3, 4)]}, {}),
+    ("adam", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+              "Moment1": [_f(3, 4)], "Moment2": [np.abs(_f(3, 4))],
+              "Beta1Pow": [np.array([0.81], np.float32)],
+              "Beta2Pow": [np.array([0.998], np.float32)],
+              "LearningRate": [np.array([0.01], np.float32)]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+    ("dropout", {"X": [_f(4, 6)]}, {"dropout_prob": 0.3, "is_test": True,
+                                    "dropout_implementation":
+                                        "upscale_in_train"}),
+    ("dropout", {"X": [_f(4, 6)]}, {"dropout_prob": 0.3, "is_test": True,
+                                    "dropout_implementation":
+                                        "downgrade_in_infer"}),
+    ("dropout", {"X": [_f(64, 64)]}, {"dropout_prob": 0.3, "is_test": False,
+                                      "dropout_implementation":
+                                          "upscale_in_train"}),
+    ("dropout_grad", {"X": [_f(4, 6)], "Out": [_f(4, 6)],
+                      "Mask": [(_R.rand(4, 6) > 0.3).astype(np.uint8)],
+                      "GRAD::Out": [_f(4, 6)]},
+     {"dropout_prob": 0.3, "is_test": False,
+      "dropout_implementation": "upscale_in_train"}),
+    ("dropout_grad", {"X": [_f(4, 6)], "Out": [_f(4, 6)],
+                      "Mask": [(_R.rand(4, 6) > 0.3).astype(np.uint8)],
+                      "GRAD::Out": [_f(4, 6)]},
+     {"dropout_prob": 0.3, "is_test": False,
+      "dropout_implementation": "downgrade_in_infer"}),
     ("arg_max", {"X": [_f(4, 7)]}, {"axis": -1}),
     ("assign", {"X": [_f(3, 4)]}, {}),
     ("assign_value", {}, {"shape": [2, 3], "dtype": "float32",
@@ -130,6 +183,8 @@ CASES = [
      {"Q": [_f(3, 1, 2, 8)], "K": [_f(3, 12, 2, 8)], "V": [_f(3, 12, 2, 8)]},
      {"scale": 8 ** -0.5, "layout": "bthd", "causal": False,
       "is_test": True}),
+    _sdpa_grad_case(False),
+    _sdpa_grad_case(True),
     ("scatter", {"X": [_i(0, 9, 6)], "Ids": [np.array([3])],
                  "Updates": [np.array([7])]}, {"overwrite": True}),
     ("scatter", {"X": [_b(6)], "Ids": [np.array([0])],
@@ -143,7 +198,10 @@ CASES = [
     ("softmax_with_cross_entropy", {"Logits": [_f(2, 3, 6)],
                                     "Label": [_i(0, 6, 2, 3, 1)]},
      {"soft_label": False, "ignore_index": -100}),
+    ("sgd", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+             "LearningRate": [np.array([0.1], np.float32)]}, {}),
     ("split", {"X": [_f(2, 3, 12)]}, {"num": 3, "axis": -1}),
+    ("sum", {"X": [_f(3, 4), _f(3, 4), _f(3, 4)]}, {}),
     ("unsqueeze2", {"X": [_i(0, 9, 4)]}, {"axes": [1]}),
     ("unsqueeze2", {"X": [_f(3, 4)]}, {"axes": [0, 2]}),
     ("kv_cache_write", {"Cache": [_f(3, 5, 2, 4)], "New": [_f(3, 1, 2, 4)],
@@ -210,6 +268,8 @@ def test_op_matches_jax(case):
             assert t.dtype == j.dtype, (slot, t.dtype, j.dtype)
             if op_type in ("gaussian_random", "uniform_random"):
                 _check_random(op_type, t, attrs)
+            elif op_type == "dropout" and not attrs["is_test"]:
+                _check_dropout(ins["X"][0], t_outs, attrs)
             elif slot == "Lse":
                 np.testing.assert_allclose(t, _sdpa_lse(ins, attrs),
                                            atol=1e-5, rtol=0)
@@ -230,3 +290,13 @@ def _check_random(op_type, t, attrs):
         assert t.min() >= lo and t.max() < hi
         sd = (hi - lo) / np.sqrt(12.0)
         assert abs(t.mean() - (lo + hi) / 2) < 5 * sd / np.sqrt(n)
+
+
+def _check_dropout(x, outs, attrs):
+    """Out is X scaled by 1/(1 - p) where the op's Mask keeps it, 0 where
+    it drops it; the keep rate is within 5 standard errors of 1 - p."""
+    p = attrs["dropout_prob"]
+    keep = outs["Mask"][0].numpy().astype(bool)
+    np.testing.assert_allclose(outs["Out"][0].numpy(),
+                               np.where(keep, x / (1 - p), 0.0), rtol=1e-6)
+    assert abs(keep.mean() - (1 - p)) < 5 * np.sqrt(p * (1 - p) / keep.size)

@@ -156,10 +156,12 @@ def test_prefill_state_and_decode_fetches_match_jax(weights):
 
 
 def _op_signature(block):
-    """(op type, output shapes, output dtypes) per op, in order."""
+    """(op type, output shapes, output dtypes) per op, in order ("" marks
+    a grad op's hole)."""
     sig = []
     for op in block.ops:
-        outs = [block._find_var_recursive(n) for n in op.output_arg_names]
+        outs = [block._find_var_recursive(n) for n in op.output_arg_names
+                if n]
         sig.append((op.type, [v.shape for v in outs],
                     [v.dtype for v in outs]))
     return sig
@@ -190,15 +192,22 @@ def test_program_structure_matches_jax():
         assert _op_signature(t.global_block()) == \
             _op_signature(p.global_block())
         assert _persistables(t) == _persistables(p)
+        assert_infer_gaps_within_jax(p, t)
     assert tprogs["state_specs"] == pprogs["state_specs"]
 
-    # shape inference gives up where the JAX package's does (the error
-    # types of a failed evaluation differ between the frameworks)
-    def kinds(gaps):
-        return {(t, g.split(":")[0]) for t, g in gaps}
 
-    assert kinds(tframework.shape_infer_gaps()) <= \
-        kinds(pframework.shape_infer_gaps())
+def assert_infer_gaps_within_jax(pprog, tprog):
+    """Op for op, shape inference gives up only where the JAX package's
+    does, with the same kind of gap (the error types of a failed
+    evaluation differ between the frameworks)."""
+    pblock, tblock = pprog.global_block(), tprog.global_block()
+    for pop, top in zip(pblock.ops, tblock.ops):
+        _, tgap = tframework.infer_op_outputs(tblock, top)
+        if tgap is None:
+            continue
+        _, pgap = pframework.infer_op_outputs(pblock, pop)
+        assert pgap is not None and \
+            tgap.split(":")[0] == pgap.split(":")[0], (top.type, tgap, pgap)
 
 
 @pytest.mark.parametrize("eps", [0.0, 0.1])
