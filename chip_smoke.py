@@ -12,23 +12,32 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 3. hold each kernel against its plain PyTorch version on the card, with
    stated tolerances, and time kernel, plain version and the one PyTorch
    library call that computes the same function (the yardstick, never
-   used by the package): the attention forward at the serving shapes and,
-   with dropout, at the training shapes; the attention backward at the
-   training shapes; the dropout-mask dump, bit for bit;
+   used by the package), on every route of
+   ``flash_attention.attention_route``: the small route (serving and
+   t = 256 training shapes), the kblock route (t = 1024, b = 8), the
+   bhtd route (t = 4096, b = 2; dropout at t = 2048; BHTD-layout inputs
+   with an lse cotangent; the decode step tq = 1 over 1024 keys; each
+   backward pass launched and checked on its own), a causal forward and
+   backward at t = 8192 whose memory rise shows no [tq, tk] tensor, and
+   the dropout-mask dump, bit for bit;
 4. serve Transformer-base (base() widths, random weights from a seeded
    generator) through ServingEngine on CUDAPlace(0): 16 requests on 8
-   slots, with every kernel's launch count read from that run alone;
-   check that two requests decoded alone through an engine of the same
-   geometry give the same tokens, and that one request's prefill state
-   agrees with the same program run on the CPU;
+   slots at src_len = max_len = 128, then (4b) 8 requests on 4 slots at
+   src_len = max_len = 1024; every route's launch count read from each
+   run alone; two requests decoded alone through an engine of the same
+   geometry give the same tokens, and one request's prefill state agrees
+   with the same program run on the CPU;
 5. train Transformer-base (full depth, dropout 0.1, label smoothing 0.1,
-   Adam 1e-4, bf16 AMP) at batch 64 x seq 256 through Executor.run_steps:
-   finite loss every step, lower loss after a few steps on a repeated
-   batch, the kernels' launches per step from the timed window alone,
-   step wall / device-busy ms, target tokens/s and peak memory;
-6. one f32 training step (dropout 0, batch 2, seq 32, full widths) on the
-   card against the same step on the CPU: loss and a named set of
-   parameter gradients;
+   Adam 1e-4, bf16 AMP) through Executor.run_steps at batch 64 x seq 256
+   and (5b) at seq 1024 x batch 8 and seq 4096 x batch 2: finite loss
+   every step, lower loss after a few steps on a repeated batch, 18
+   forward and 18 backward launches a step of the shape's route and none
+   of any other, the step wall / device-busy ms, target tokens/s and peak
+   memory;
+6. one f32 training step (dropout 0) on the card against the same step
+   on the CPU: full widths and depth at batch 2 x seq 32, and (6b) 2+2
+   layers at seq 768 (kblock route) and 1280 (bhtd route): loss and a
+   named set of parameter gradients;
 7. print the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -44,33 +53,47 @@ from concurrent.futures import ThreadPoolExecutor
 
 SEED = 1234
 # Tolerances of kernel vs plain version (max abs error). Both sum in f32,
-# in different orders; on an H100 out read <= 7.2e-7 in f32 and lse
-# <= 4.8e-7 in both dtypes. In bf16 both round out to bf16 once at the
-# end, so they may differ by one bf16 ulp of the output: 3.9e-3 read at
-# these shapes (|out| in [0.5, 1)); the limit is one ulp below 2.
+# in different orders; on an H100 out read <= 1.5e-6 in f32 (t up to
+# 4096) and lse <= 9.6e-7 in both dtypes. In bf16 both round out to bf16
+# once at the end, so they may differ by one bf16 ulp of the output:
+# 3.9e-3 read (|out| in [0.5, 1)); the limit is one ulp below 2.
 TOL_OUT = {"float32": 5e-6, "bfloat16": 8e-3}
 TOL_LSE = 5e-6  # lse is f32 for every input dtype
 # Backward kernel vs plain backward, relative to the largest |gradient|
 # of the reference: both compute in f32 from the same inputs, in other
-# orders (f32: a few ulps of the sums, read <= 1.6e-7 on an H100); in
-# bf16 both round dq/dk/dv to bf16 once at the end, so one bf16 ulp
-# (2^-8 relative) of the largest element bounds it (read 1.7e-3).
+# orders (f32: a few ulps of the sums, read <= 3.6e-7 on an H100, t up
+# to 4096); in bf16 both round dq/dk/dv to bf16 once at the end, so one
+# bf16 ulp (2^-8 relative) of the largest element bounds it (read 1.7e-3).
 TOL_GRAD_REL = {"float32": 1e-5, "bfloat16": 8e-3}
-# GPU prefill state vs the same program on the CPU (f32; read 3.0e-6)
-TOL_STATE = 1e-5
+# GPU prefill state vs the same program on the CPU (f32 through six
+# encoder layers; read 3.1e-6 at src_len 128 and 4.1e-6 at 1024 in most
+# runs, and 1.5e-5 at src_len 128 in one run of the unchanged serving
+# path, whose library GEMMs and CPU sums may take another order per
+# process): 3x the largest reading
+TOL_STATE = 5e-5
 # One f32 training step on the card vs on the CPU (phase 6): the loss,
 # and each named gradient relative to its largest |element| (the card
 # runs the kernels and cuBLAS, the CPU the plain versions and MKL; f32
-# sums in other orders through 12 layers). Read on an H100: loss equal,
-# gradients within 2.1e-6; the limits are ~10x the reading.
+# sums in other orders through 12 layers). Read on an H100: loss equal
+# (9.5e-7 at t = 1280, 2+2 layers), gradients within 2.1e-6 at t = 32 and
+# 3.5e-6 at t = 768 / 1280; the limits are 6-10x the readings.
 TOL_STEP_LOSS = 2e-5
 TOL_STEP_GRAD_REL = 2e-5
+# the t = 8192 causal call's memory rise over its inputs and outputs
+# (a folded f32 [8192, 8192] bias alone would be 256 MiB)
+MAX_RISE_MIB = 32
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
 # bf16 on the tensor cores; HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
-# the training shape of bench.py's Transformer-base run
+# the training shape of bench.py's Transformer-base run, and its
+# long-context rows at constant tokens per step (bench.py:199)
 TRAIN_B, TRAIN_T = 64, 256
+LONG_TRAIN = ((1024, 8, "kblock"), (4096, 2, "bhtd"))
+
+_SRC_FWD = "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu"
+_SRC_BWD = "paddle_tpu_torch/csrc/flash_attention_bthd_bwd.cu"
+_TPU_FA = "paddle_tpu/parallel/flash_attention.py"
 
 
 def _card_line():
@@ -115,44 +138,73 @@ def _device_times(fn, iters):
             / iters / 1e3 for evt in prof.key_averages()}
 
 
-def _device_ms(fn, match="", iters=20):
+def _device_ms(fn, match="", iters=20, times=None):
     """Device time per call of ``fn`` spent in the kernels whose name
     contains ``match`` (every kernel and copy when empty); None when the
-    trace holds no such kernel."""
-    total = sum(ms for name, ms in _device_times(fn, iters).items()
-                if match in name)
+    trace holds no such kernel. ``times``: a trace already taken."""
+    times = _device_times(fn, iters) if times is None else times
+    total = sum(ms for name, ms in times.items() if match in name)
     return total or None
 
 
-def _attention_case(fa, dtype, b, tq, tk, h, dh, bias_kind, fused, gen):
-    """Inputs for one attention comparison: (q, k, v, bias, causal).
-    ``fused``: q, k, v are the strided [b, t, h, dh] views of one fused
-    [b, t, 3*h*dh] projection, as the encoder's self-attention gives them.
-    ``bias_kind``: none; pad ([1, 1, 1, tk], the last tk/8 keys padded);
-    pad_b ([b, 1, 1, tk], per-row lengths in [tk/2, tk], as make_batch
-    pads); causal; causal_pad (causal over pad_b)."""
+def _iters(b, h, tq, tk):
+    """Timed calls per measurement: fewer at the long shapes."""
+    work = b * h * tq * tk
+    return 100 if work <= 1 << 23 else 20 if work <= 1 << 27 else 5
+
+
+def _case(name, dtype, b, tq, tk, bias, fused=False, p_drop=0.0,
+          layout="bthd", h=8, dh=64, split=False, g_lse=False):
+    """One kernel comparison. ``bias``: none; pad ([1, 1, 1, tk], the
+    last tk/8 keys padded); pad_b ([b, 1, 1, tk], per-row lengths in
+    [tk/2, tk], as make_batch pads); causal; causal_pad (causal over
+    pad_b). ``fused``: q, k, v are the strided [b, t, h, dh] views of one
+    fused [b, t, 3*h*dh] projection, as the encoder's self-attention gives
+    them. ``layout="bhtd"``: [b, h, t, dh] inputs through the BHTD
+    functions. ``split``: also launch and check the backward's passes one
+    at a time. ``g_lse``: a nonzero lse cotangent (BHTD)."""
+    return dict(name=name, dtype=dtype, b=b, tq=tq, tk=tk, h=h, dh=dh,
+                bias=bias, fused=fused, p_drop=p_drop, layout=layout,
+                split=split, g_lse=g_lse)
+
+
+def _attention_inputs(c, gen):
+    """(q, k, v, bias, causal) for a case, on the card."""
     import torch
 
     dev = torch.device("cuda", 0)
-    if fused:
+    b, tq, tk, h, dh, dtype = (c[n] for n in ("b", "tq", "tk", "h", "dh",
+                                              "dtype"))
+    if c["fused"]:
         qkv = torch.randn(b, tq, 3 * h * dh, generator=gen, device=dev)
         q, k, v = (x.reshape(b, tq, h, dh)
                    for x in qkv.to(dtype).split(h * dh, dim=-1))
     else:
         q, k, v = (torch.randn(b, t, h, dh, generator=gen,
                                device=dev).to(dtype) for t in (tq, tk, tk))
-    causal = bias_kind.startswith("causal")
+    if c["layout"] == "bhtd":
+        q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kind = c["bias"]
     bias = None
-    if bias_kind == "pad":
+    if kind == "pad":
         n_real = tk - tk // 8
         mask = (torch.arange(tk, device=dev) < n_real).float()
         bias = ((1.0 - mask) * -1e9)[None, None, None, :]
-    elif bias_kind in ("pad_b", "causal_pad"):
+    elif kind in ("pad_b", "causal_pad"):
         lens = torch.randint(tk // 2, tk + 1, (b, 1), generator=gen,
                              device=dev)
         mask = (torch.arange(tk, device=dev)[None, :] < lens).float()
         bias = ((1.0 - mask) * -1e9)[:, None, None, :]
-    return q, k, v, bias, causal
+    return q, k, v, bias, kind.startswith("causal")
+
+
+def _live(tq, tk, causal):
+    """Live score elements per (batch, head): every (row, key) pair, or
+    under the causal mask sum over rows of min(row + 1, tk)."""
+    if not causal:
+        return tq * tk
+    n = min(tq, tk)
+    return n * (n + 1) // 2 + (tq - n) * tk
 
 
 def _bound(flops, nbytes, dname):
@@ -162,146 +214,282 @@ def _bound(flops, nbytes, dname):
                                  else "bytes")
 
 
-def check_attention_kernel(fa, case, gen):
-    """Forward kernel vs plain version on one case (with dropout when the
-    case's p_drop > 0: the plain version rebuilds the kernel's mask);
-    returns the measurements."""
+def _library_mask(fa, bias, causal, tq, tk, dtype, dev):
+    """(attn_mask, is_causal) for F.scaled_dot_product_attention."""
+    if causal and bias is None:
+        return None, True
+    if causal:
+        return fa._combined_causal_bias(bias, tq, tk, dev).to(dtype), False
+    return (None if bias is None else bias.to(dtype)), False
+
+
+def _fns(fa, c, q, k, v, bias, causal, scale, seed):
+    """(kernel forward, plain forward) for a case's layout."""
+    p = c["p_drop"]
+    if c["layout"] == "bhtd":
+        return (lambda: fa.flash_attention_fwd(q, k, v, bias, seed, scale, p,
+                                               causal=causal),
+                lambda: fa.attention_plain(q, k, v, bias, scale, seed, p,
+                                           causal))
+    return (lambda: fa.flash_attention_bthd_fwd(q, k, v, bias, scale, causal,
+                                                seed=seed, p_drop=p),
+            lambda: fa.attention_bthd_plain(q, k, v, bias, scale, seed, p,
+                                            causal))
+
+
+def check_attention_kernel(fa, c, gen):
+    """Forward kernel vs plain version on one case (with dropout when
+    p_drop > 0: the plain version rebuilds the kernel's mask); returns the
+    measurements."""
     import torch
     import torch.nn.functional as F
 
-    name, dtype, b, tq, tk, h, dh, bias_kind, fused, p_drop = case
-    q, k, v, bias, causal = _attention_case(fa, dtype, b, tq, tk, h, dh,
-                                            bias_kind, fused, gen)
+    b, tq, tk, h, dh = (c[n] for n in ("b", "tq", "tk", "h", "dh"))
+    q, k, v, bias, causal = _attention_inputs(c, gen)
+    route = fa.attention_route(tq, tk, h, dh, c["layout"])
     scale = 1.0 / dh ** 0.5
-    seed = SEED + 17 if p_drop > 0 else None
-    eff_bias = (fa._combined_causal_bias(bias, tq, tk, q.device)
-                if causal else bias)
+    seed = SEED + 17 if c["p_drop"] > 0 else None
+    kernel, plain = _fns(fa, c, q, k, v, bias, causal, scale, seed)
 
-    def kernel():
-        return fa.flash_attention_bthd_fwd(q, k, v, bias, scale, causal,
-                                           seed=seed, p_drop=p_drop)
-
-    def plain():
-        return fa.attention_bthd_plain(q, k, v, eff_bias, scale, seed,
-                                       p_drop)
-
+    fa.reset_counts()
     out, lse = kernel()
     torch.cuda.synchronize()
+    assert fa.launch_counts[(route, "fwd")] == 1, (c["name"], route)
     ref_out, ref_lse = plain()
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
-    dname = str(dtype).split(".")[-1]
+    del ref_out, ref_lse
+    dname = str(c["dtype"]).split(".")[-1]
     tol = TOL_OUT[dname]
-    assert out.shape == q.shape and lse.shape == (b, tq, h, 1), name
+    assert out.shape == q.shape and lse.shape == q.shape[:3] + (1,)
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     assert err_out <= tol and err_lse <= TOL_LSE, (
-        f"{name}: kernel vs plain max abs err out={err_out} (tol {tol}) "
-        f"lse={err_lse} (tol {TOL_LSE})")
+        f"{c['name']}: kernel vs plain max abs err out={err_out} (tol "
+        f"{tol}) lse={err_lse} (tol {TOL_LSE})")
 
-    iters = 100 if b * tq * tk <= 1 << 20 else 20
-    ms = _time_ms(kernel, iters)
-    plain_ms = _time_ms(plain, iters)
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    mask = None if eff_bias is None else eff_bias.to(dtype)
+    iters = _iters(b, h, tq, tk)
+    ms = _time_ms(kernel, iters, warmup=min(10, iters))
+    plain_ms = _time_ms(plain, iters, warmup=2)
+    qh, kh, vh = ((q, k, v) if c["layout"] == "bhtd"
+                  else (x.transpose(1, 2) for x in (q, k, v)))
+    mask, is_causal = _library_mask(fa, bias, causal, tq, tk, c["dtype"],
+                                    q.device)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, dropout_p=p_drop, scale=scale), iters)
-    device_ms = _device_ms(kernel, "fwd_kernel")
+        qh, kh, vh, attn_mask=mask, dropout_p=c["p_drop"],
+        is_causal=is_causal, scale=scale), iters, warmup=2)
+    del mask
+    device_ms = _device_ms(kernel, "fwd_kernel", iters=min(iters, 20))
 
     # bound: each input read once, each output written once (HBM), and
-    # the 4*b*h*tq*tk*dh operations at the input dtype's peak. The causal
-    # mask is the wrapper's own, not an input: its bytes are not counted.
+    # 4*b*h*dh operations per live score at the input dtype's peak. A
+    # folded causal mask is the wrapper's own, not an input.
     bound_ms, bound_by = _bound(
-        4.0 * b * h * tq * tk * dh,
+        4.0 * b * h * dh * _live(tq, tk, causal),
         q.element_size() * (2 * b * tq * h * dh + 2 * b * tk * h * dh)
         + 4 * b * tq * h + (0 if bias is None else 4 * bias.numel()), dname)
     return {
-        "case": name, "dtype": dname, "p_drop": p_drop,
-        "shape": [b, tq, tk, h, dh], "bias": bias_kind,
-        "err_out": err_out, "err_lse": err_lse, "tol_out": tol,
-        "tol_lse": TOL_LSE,
+        "case": c["name"], "route": route, "layout": c["layout"],
+        "dtype": dname, "p_drop": c["p_drop"], "shape": [b, tq, tk, h, dh],
+        "bias": c["bias"], "err_out": err_out, "err_lse": err_lse,
+        "tol_out": tol, "tol_lse": TOL_LSE,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
-def check_attention_bwd(fa, case, gen):
-    """Backward kernel vs plain backward on one case, both fed the
-    kernel forward's (out, lse) and one output gradient; returns the
-    measurements."""
+def _grad_errs(name, grads, refs, xs):
     import torch
-    import torch.nn.functional as F
 
-    name, dtype, b, tq, tk, h, dh, bias_kind, fused, p_drop = case
-    q, k, v, bias, causal = _attention_case(fa, dtype, b, tq, tk, h, dh,
-                                            bias_kind, fused, gen)
-    scale = 1.0 / dh ** 0.5
-    seed = SEED + 29 if p_drop > 0 else None
-    eff_bias = (fa._combined_causal_bias(bias, tq, tk, q.device)
-                if causal else bias)
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, scale, causal,
-                                           seed=seed, p_drop=p_drop)
-    g = torch.randn(out.shape, generator=gen, device=out.device).to(dtype)
-
-    def kernel():
-        return fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, g,
-                                           scale, p_drop, causal)
-
-    def plain():
-        return fa.attention_bthd_bwd_plain(q, k, v, eff_bias, seed, out, lse,
-                                           g, scale, p_drop)
-
-    before = fa.bwd_launches
-    grads = kernel()
-    torch.cuda.synchronize()
-    assert fa.bwd_launches == before + 1, name
-    refs = plain()
-    dname = str(dtype).split(".")[-1]
     errs, rels = [], []
-    for nm, got, ref, x in zip("qkv", grads, refs, (q, k, v)):
+    for nm, got, ref, x in zip("qkv", grads, refs, xs):
         assert got.shape == x.shape and got.dtype == x.dtype, (name, nm)
         assert torch.isfinite(got.float()).all(), (name, nm)
         err = (got.float() - ref.float()).abs().max().item()
         errs.append(err)
         rels.append(err / max(ref.float().abs().max().item(), 1e-30))
-    assert max(rels) <= TOL_GRAD_REL[dname], (
-        f"{name}: backward kernel vs plain, max abs err dq/dk/dv {errs}, "
-        f"relative {rels} (tol {TOL_GRAD_REL[dname]})")
+    return errs, rels
 
-    iters = 100 if b * tq * tk <= 1 << 20 else 20
-    ms = _time_ms(kernel, iters)
-    plain_ms = _time_ms(plain, iters)
+
+def check_attention_bwd(fa, c, gen):
+    """Backward kernel vs plain backward on one case, both fed the
+    kernel forward's (out, lse) and one output gradient (and an lse
+    cotangent for ``g_lse`` cases); with ``split``, each pass launched
+    alone as well (pass A: dk, dv; pass B: dq). Returns the
+    measurements."""
+    import torch
+    import torch.nn.functional as F
+
+    b, tq, tk, h, dh = (c[n] for n in ("b", "tq", "tk", "h", "dh"))
+    q, k, v, bias, causal = _attention_inputs(c, gen)
+    bhtd = c["layout"] == "bhtd"
+    route = fa.attention_route(tq, tk, h, dh, c["layout"])
+    scale = 1.0 / dh ** 0.5
+    p = c["p_drop"]
+    seed = SEED + 29 if p > 0 else None
+    out, lse = _fns(fa, c, q, k, v, bias, causal, scale, seed)[0]()
+    g = torch.randn(out.shape, generator=gen, device=out.device).to(
+        c["dtype"])
+    g_lse = (torch.randn(lse.shape, generator=gen, device=out.device)
+             if c["g_lse"] else None)
+
+    if bhtd:
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, bias, seed, out, lse, g,
+                                          scale, p, causal=causal,
+                                          g_lse=g_lse)
+
+        def plain():
+            return fa.attention_bwd_plain(q, k, v, bias, seed, out, lse, g,
+                                          scale, p, causal, g_lse)
+    else:
+        def kernel():
+            return fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out,
+                                               lse, g, scale, p, causal)
+
+        def plain():
+            return fa.attention_bthd_bwd_plain(q, k, v, bias, seed, out,
+                                               lse, g, scale, p, causal)
+
+    fa.reset_counts()
+    grads = kernel()
+    torch.cuda.synchronize()
+    assert fa.launch_counts[(route, "bwd")] == 1, (c["name"], route)
+    refs = plain()
+    dname = str(c["dtype"]).split(".")[-1]
+    errs, rels = _grad_errs(c["name"], grads, refs, (q, k, v))
+    tol = TOL_GRAD_REL[dname]
+    assert max(rels) <= tol, (
+        f"{c['name']}: backward kernel vs plain, max abs err dq/dk/dv "
+        f"{errs}, relative {rels} (tol {tol})")
+
+    iters = _iters(b, h, tq, tk)
+    ms = _time_ms(kernel, iters, warmup=min(10, iters))
+    plain_ms = _time_ms(plain, iters, warmup=2)
     # library: the backward of F.scaled_dot_product_attention on the same
     # inputs, timed as (forward + backward) - forward
-    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    gh = g.transpose(1, 2)
-    mask = None if eff_bias is None else eff_bias.to(dtype)
+    qh, kh, vh = ((x.detach().requires_grad_() for x in (q, k, v)) if bhtd
+                  else (x.transpose(1, 2).detach().requires_grad_()
+                        for x in (q, k, v)))
+    gh = g if bhtd else g.transpose(1, 2)
+    mask, is_causal = _library_mask(fa, bias, causal, tq, tk, c["dtype"],
+                                    q.device)
 
     def lib_fwd():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                              dropout_p=p_drop, scale=scale)
+                                              dropout_p=p,
+                                              is_causal=is_causal,
+                                              scale=scale)
 
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), (qh, kh, vh), gh)
 
-    library_ms = _time_ms(lib_fwd_bwd, iters) - _time_ms(lib_fwd, iters)
-    device_ms = _device_ms(kernel, "bwd_")
+    library_ms = (_time_ms(lib_fwd_bwd, iters, warmup=2)
+                  - _time_ms(lib_fwd, iters, warmup=2))
+    del mask
+    times = _device_times(kernel, min(iters, 20))
+    device_ms = _device_ms(None, "bwd_", times=times)
 
-    # bound: 10*b*h*tq*tk*dh operations (5 matrix products); bytes of q,
-    # k, v, dout, out, lse, delta, dq, dk, dv and the caller's bias
+    # bound: 10*b*h*dh operations per live score (5 matrix products);
+    # bytes read of q, out, dout, k, v, lse, delta and the caller's bias,
+    # and written of dq, dk, dv
+    live = _live(tq, tk, causal)
+    elt = q.element_size()
+    in_bytes = (elt * (3 * b * tq * h * dh + 2 * b * tk * h * dh)
+                + 8 * b * tq * h + (0 if bias is None else 4 * bias.numel()))
     bound_ms, bound_by = _bound(
-        10.0 * b * h * tq * tk * dh,
-        q.element_size() * (4 * b * tq * h * dh + 4 * b * tk * h * dh)
-        + 2 * 4 * b * tq * h + (0 if bias is None else 4 * bias.numel()),
-        dname)
-    return {
-        "case": name, "dtype": dname, "p_drop": p_drop,
-        "shape": [b, tq, tk, h, dh], "bias": bias_kind,
-        "err_dq_dk_dv": errs, "rel_err_dq_dk_dv": rels,
-        "tol_rel": TOL_GRAD_REL[dname],
+        10.0 * b * h * dh * live,
+        in_bytes + elt * (b * tq * h * dh + 2 * b * tk * h * dh), dname)
+    row = {
+        "case": c["name"], "route": route, "layout": c["layout"],
+        "dtype": dname, "p_drop": p, "shape": [b, tq, tk, h, dh],
+        "bias": c["bias"], "g_lse": c["g_lse"],
+        "err_dq_dk_dv": errs, "rel_err_dq_dk_dv": rels, "tol_rel": tol,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "device_ms_pass_a": _device_ms(None, "bwd_dkdv_kernel", times=times),
+        "device_ms_pass_b": _device_ms(None, "bwd_dq_kernel", times=times),
+        "device_ms_delta": _device_ms(None, "bwd_delta_kernel", times=times),
     }
+    if c["split"]:
+        row["passes"] = _check_passes(fa, c, route, q, k, v, bias, seed, out,
+                                      lse, g, scale, causal, refs, iters,
+                                      plain_ms, in_bytes, live)
+    return row
+
+
+def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
+                  causal, refs, iters, plain_ms, in_bytes, live):
+    """Pass A (dk, dv: the counterpart of ``_dkv_kernel``) and pass B (dq:
+    ``_dq_kernel``), each launched alone (with the delta pre-pass both
+    need), checked against the plain backward and timed. Bounds: 8 and 6
+    b*h*dh operations per live score (4 and 3 matrix products); bytes of
+    the inputs and of the pass's outputs. No single library call computes
+    one pass."""
+    import torch
+
+    b, tq, tk, h, dh = (c[n] for n in ("b", "tq", "tk", "h", "dh"))
+    dname = str(c["dtype"]).split(".")[-1]
+    grads = [torch.zeros_like(x) for x in (q, k, v)]
+    rows = {}
+    for name, passes, idx, nops, kname in (
+            ("pass_a", 1, (1, 2), 8.0, "bwd_dkdv_kernel"),
+            ("pass_b", 2, (0,), 6.0, "bwd_dq_kernel")):
+        def launch():
+            fa._launch_bwd(route, q, k, v, bias, seed, out, lse, g, None,
+                           scale, c["p_drop"], causal, *grads,
+                           passes=passes)
+
+        for i in idx:
+            grads[i].zero_()
+        launch()
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for i in idx:
+            ref = refs[i].float()
+            err = (grads[i].float() - ref).abs().max().item()
+            errs.append(err)
+            rels.append(err / max(ref.abs().max().item(), 1e-30))
+        assert max(rels) <= TOL_GRAD_REL[dname], (c["name"], name, rels)
+        out_bytes = q.element_size() * len(idx) * b * (
+            tq if idx == (0,) else tk) * h * dh
+        bound_ms, bound_by = _bound(nops * b * h * dh * live,
+                                    in_bytes + out_bytes, dname)
+        rows[name] = {
+            "max_abs_err": max(errs), "rel_err": rels,
+            "ms": _time_ms(launch, iters, warmup=min(10, iters)),
+            "device_ms": _device_ms(launch, kname, iters=min(iters, 20)),
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    return rows
+
+
+def check_long_causal_memory(fa, gen):
+    """A causal forward and backward at b = 1, t = 8192, bf16 (the bhtd
+    route): the rise of max_memory_allocated over inputs and outputs stays
+    under MAX_RISE_MIB, so no [tq, tk] tensor exists."""
+    import torch
+
+    c = _case("t8192 bf16 causal", torch.bfloat16, 1, 8192, 8192, "causal")
+    q, k, v, _, causal = _attention_inputs(c, gen)
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_counts()
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, None, None, causal)
+    grads = fa.flash_attention_bthd_bwd(q, k, v, None, None, out, lse, g,
+                                        None, 0.0, causal)
+    torch.cuda.synchronize()
+    made = sum(t.numel() * t.element_size() for t in (out, lse, *grads))
+    rise = (torch.cuda.max_memory_allocated() - base - made) / 2**20
+    assert fa.launch_counts[("bhtd", "fwd")] == 1
+    assert fa.launch_counts[("bhtd", "bwd")] == 1
+    assert all(torch.isfinite(x.float()).all() for x in (out, *grads))
+    assert rise < MAX_RISE_MIB, f"t=8192 causal call rose {rise} MiB"
+    return {"case": c["name"], "memory_rise_mib": rise,
+            "limit_mib": MAX_RISE_MIB,
+            "inputs_and_outputs_mib": (made + 4 * q.numel() * 2) / 2**20}
 
 
 def check_mask_dump(fa, b, tq, h, tk, p_drop):
@@ -340,9 +528,16 @@ def check_mask_dump(fa, b, tq, h, tk, p_drop):
     }
 
 
-def serve(torch, np, fluid, T, fa, serving):
-    """Phase 4: Transformer-base through ServingEngine on the card."""
-    cfg = T.base()
+def _counts(fa):
+    """The routes' launch counts and the dense calls, as JSON keys."""
+    out = {f"{r}/{d}": n for (r, d), n in fa.launch_counts.items()}
+    out["dense_calls"] = fa.dense_calls
+    return out
+
+
+def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
+          n_req, new_tokens, min_len):
+    """Phase 4/4b: Transformer-base through ServingEngine on the card."""
     dev_place = fluid.CUDAPlace(0)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -353,25 +548,23 @@ def serve(torch, np, fluid, T, fa, serving):
     with fluid.scope_guard(scope):
         exe.run(startup)
 
-    slots, src_len, max_len, n_req, new_tokens = 8, 128, 128, 16, 32
     rng = np.random.RandomState(SEED)
-    lens = rng.randint(16, src_len + 1, n_req)
+    lens = rng.randint(min_len, src_len + 1, n_req)
     srcs = [rng.randint(3, cfg.src_vocab_size, n).astype(np.int64)
             for n in lens]
 
     eng = serving.ServingEngine(cfg, scope, slots=slots, src_len=src_len,
                                 max_len=max_len, place=dev_place)
     torch.cuda.synchronize()
-    fa.launches = 0
+    fa.reset_counts()
     t0 = time.perf_counter()
     handles = [eng.submit(s, max_new_tokens=new_tokens) for s in srcs]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_bthd_fwd": fa.launches}
+    launches = _counts(fa)
     outcomes = [h.outcome for h in handles]
     assert all(o in ("completed", "length") for o in outcomes), outcomes
-    assert launches["flash_attention_bthd_fwd"] >= n_req * cfg.n_layer, launches
     tokens = [list(h.tokens) for h in handles]
     assert all(0 <= t < cfg.trg_vocab_size for ts in tokens for t in ts)
     n_tokens = sum(len(ts) for ts in tokens)
@@ -450,8 +643,10 @@ def serve(torch, np, fluid, T, fa, serving):
 
     return {
         "requests": n_req, "slots": slots, "src_len": src_len,
-        "max_len": max_len, "max_new_tokens": new_tokens,
-        "tokens": n_tokens, "decode_steps": decode_steps,
+        "max_len": max_len, "max_length": cfg.max_length,
+        "source_lengths": [int(min_len), int(src_len)],
+        "max_new_tokens": new_tokens, "tokens": n_tokens,
+        "decode_steps": decode_steps,
         "wall_s": wall, "tokens_per_s": n_tokens / wall,
         "decode_step_ms": decode_ms, "prefill_ms": prefill_ms,
         "decode_device_ms": decode_device_ms,
@@ -460,17 +655,19 @@ def serve(torch, np, fluid, T, fa, serving):
     }
 
 
-def train(torch, np, fluid, T, fa):
-    """Phase 5: train Transformer-base through Executor.run_steps."""
-    cfg = T.base()  # dropout 0.1, label smoothing 0.1
+def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
+          repeated=8, window=8):
+    """Phase 5/5b: train Transformer-base through Executor.run_steps at
+    batch x seq."""
+    cfg = T.TransformerConfig(max_length=max_length)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup):
-        model = T.build(cfg)
+        model = T.build(cfg)  # dropout 0.1, label smoothing 0.1
         fluid.optimizer.Adam(1e-4).minimize(model["loss"])
     fluid.amp.enable_amp(main_prog)
     startup.random_seed = main_prog.random_seed = SEED
     loss = model["loss"]
-    feeds = [T.make_batch(cfg, TRAIN_B, TRAIN_T, TRAIN_T, seed=SEED + i)
+    feeds = [T.make_batch(cfg, batch, seq, seq, seed=SEED + i)
              for i in range(4)]
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
@@ -483,44 +680,46 @@ def train(torch, np, fluid, T, fa):
         startup_s = time.perf_counter() - t0
 
         # a repeated batch: the loss of every step, and lower at the end
-        repeated = []
-        for _ in range(8):
+        losses = []
+        for _ in range(repeated):
             (value,) = exe.run_steps(main_prog, feeds[:1], 1, [loss])
-            repeated.append(float(value))
-        assert all(np.isfinite(repeated)), repeated
-        assert repeated[-1] < repeated[0], repeated
+            losses.append(float(value))
+        assert all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], losses
 
         # the timed window, rotating over four batches; launch counts
         # from this window alone
-        steps = 8
         torch.cuda.synchronize()
-        fa.launches = fa.bwd_launches = 0
+        fa.reset_counts()
         t0 = time.perf_counter()
-        (value,) = exe.run_steps(main_prog, feeds, steps, [loss])
+        (value,) = exe.run_steps(main_prog, feeds, window, [loss])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_attention_bthd_fwd": fa.launches,
-                    "flash_attention_bthd_bwd": fa.bwd_launches}
+        launches = _counts(fa)
         # a non-finite loss in any step of the window would have reached
         # the parameters through Adam
         assert np.isfinite(value), value
         assert all(torch.isfinite(scope.find_var(p.name)).all()
                    for p in main_prog.all_parameters()), "non-finite weights"
-        per_step = {n: c / steps for n, c in launches.items()}
-        # 6 encoder self, 6 decoder self and 6 cross attentions a step
-        assert min(per_step.values()) >= 3 * cfg.n_layer, per_step
+        per_step = {n: c / window for n, c in launches.items()}
+        # 6 encoder self, 6 decoder self and 6 cross attentions a step,
+        # each one forward and one backward launch on the shape's route
+        want = {k: 0.0 for k in per_step}
+        want[f"{route}/fwd"] = want[f"{route}/bwd"] = 3.0 * cfg.n_layer
+        assert per_step == want, per_step
         times = _device_times(
             lambda: exe.run_steps(main_prog, feeds[:1], 1, [loss]), iters=2)
     device_ms = sum(times.values()) or None
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
     peak = torch.cuda.max_memory_allocated()
     tokens = sum(float(feeds[i % len(feeds)]["trg_pad_mask"].sum())
-                 for i in range(steps))
-    step_ms = wall / steps * 1e3
+                 for i in range(window))
+    step_ms = wall / window * 1e3
     return {
-        "batch": TRAIN_B, "seq": TRAIN_T, "amp": True, "dropout": cfg.dropout,
-        "startup_s": startup_s, "repeated_batch_losses": repeated,
-        "window_steps": steps, "last_loss": float(value),
+        "batch": batch, "seq": seq, "route": route,
+        "max_length": cfg.max_length, "amp": True, "dropout": cfg.dropout,
+        "startup_s": startup_s, "repeated_batch_losses": losses,
+        "window_steps": window, "last_loss": float(value),
         "step_ms": step_ms, "step_device_ms": device_ms,
         "idle_share": None if device_ms is None else 1 - device_ms / step_ms,
         "target_tokens_per_s": tokens / wall,
@@ -530,16 +729,18 @@ def train(torch, np, fluid, T, fa):
     }
 
 
-def train_vs_cpu(torch, np, fluid, T):
-    """Phase 6: one f32 training step (dropout 0, Adam) on the card
+def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
+                 max_length=256):
+    """Phase 6/6b: one f32 training step (dropout 0, Adam) on the card
     against the same step, from the same state, on the CPU."""
-    cfg = T.TransformerConfig(dropout=0.0)  # base() widths, full depth
+    cfg = T.TransformerConfig(dropout=0.0, n_layer=n_layer,
+                              max_length=max_length)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup):
         model = T.build(cfg)
         fluid.optimizer.Adam(1e-4).minimize(model["loss"])
     startup.random_seed = SEED
-    feed = T.make_batch(cfg, 2, 32, 32, seed=SEED)
+    feed = T.make_batch(cfg, batch, seq, seq, seed=SEED)
     # every kind of attention backward feeds one of these
     last = cfg.n_layer - 1
     names = ["src_emb.w", "trg_emb.w", "proj_colp.w", "enc0_attn_qkv_colp.w",
@@ -554,7 +755,12 @@ def train_vs_cpu(torch, np, fluid, T):
         gpu_exe.run(startup)
         state = {n: gpu_scope.find_var(n).cpu().numpy()
                  for n in gpu_scope.var_names()}
+        fa.reset_counts()
         gpu = gpu_exe.run(main_prog, feed=feed, fetch_list=fetch)
+        launches = _counts(fa)
+    route = fa.attention_route(seq, seq, cfg.n_head, cfg.d_head)
+    assert launches[f"{route}/fwd"] == launches[f"{route}/bwd"] \
+        == 3 * n_layer and launches["dense_calls"] == 0, launches
     from paddle_tpu_torch import io as tio
 
     cpu_scope = tio.scope_from_numpy(state, fluid.CPUPlace())
@@ -568,7 +774,8 @@ def train_vs_cpu(torch, np, fluid, T):
         assert g.shape == c.shape and np.isfinite(g).all(), n
         rel[n] = float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
     assert max(rel.values()) <= TOL_STEP_GRAD_REL, rel
-    return {"loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+    return {"n_layer": n_layer, "seq": seq, "batch": batch, "route": route,
+            "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
             "loss_err": loss_err, "grad_rel_err": rel}
 
 
@@ -578,6 +785,69 @@ def _kernel_entry(name, source, replaces, launches, row, err):
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]}
+
+
+def _phase3_cases(torch):
+    f32, bf16 = torch.float32, torch.bfloat16
+    tb, tt = TRAIN_B, TRAIN_T
+    fwd = [
+        # the encoder self-attention of the serving prefill (src_len 128),
+        # without and with dropout
+        _case("prefill f32 pad", f32, 1, 128, 128, "pad", True),
+        _case("prefill f32 pad drop", f32, 1, 128, 128, "pad", True, 0.1),
+        _case("bf16 causal", bf16, 8, 256, 256, "causal"),
+        _case("cross f32", f32, 2, 64, 128, "pad"),
+        _case("ragged f32", f32, 2, 100, 77, "none"),
+        # both head-width instantiations of the kernel (dh <= 64, <= 128)
+        _case("dh128 f32", f32, 2, 128, 128, "pad", h=4, dh=128),
+        _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32),
+        # the training step's three attentions (encoder self, decoder
+        # self, cross), with its dropout
+        _case("train bf16 pad drop", bf16, tb, tt, tt, "pad_b", True, 0.1),
+        _case("train bf16 causal+pad drop", bf16, tb, tt, tt, "causal_pad",
+              True, 0.1),
+        _case("train bf16 cross drop", bf16, tb, tt, tt, "pad_b", False,
+              0.1),
+        _case("train f32 pad drop", f32, tb, tt, tt, "pad_b", True, 0.1),
+        _case("train f32 causal+pad drop", f32, tb, tt, tt, "causal_pad",
+              True, 0.1),
+        _case("train f32 cross drop", f32, tb, tt, tt, "pad_b", False, 0.1),
+    ]
+    # the kblock route: the t = 1024 training row's three attentions and
+    # the prefill at src_len 1024
+    for dname, dt in (("bf16", bf16), ("f32", f32)):
+        fwd += [
+            _case(f"t1024 {dname} pad drop", dt, 8, 1024, 1024, "pad_b",
+                  True, 0.1),
+            _case(f"t1024 {dname} causal+pad drop", dt, 8, 1024, 1024,
+                  "causal_pad", True, 0.1),
+            _case(f"t1024 {dname} cross drop", dt, 8, 1024, 1024, "pad_b",
+                  False, 0.1),
+        ]
+    # the bhtd route: the t = 4096 training row (decoder self with and
+    # without its causal mask), dropout at t = 2048, BHTD-layout inputs,
+    # and the serving decode step over 1024 keys
+    fwd += [
+        _case("t4096 bf16 causal+pad", bf16, 2, 4096, 4096, "causal_pad",
+              True, split=True),
+        _case("t4096 bf16 pad", bf16, 2, 4096, 4096, "pad_b", True,
+              split=True),
+        _case("t2048 bf16 causal+pad drop", bf16, 1, 2048, 2048,
+              "causal_pad", True, 0.1),
+        _case("bhtd layout f32 causal g_lse", f32, 2, 1024, 1024,
+              "causal_pad", layout="bhtd", g_lse=True),
+        _case("decode f32 tq1 tk1024", f32, 4, 1, 1024, "pad_b"),
+    ]
+    bwd = [c for c in fwd if c["name"].startswith(("train", "t1024",
+                                                   "t4096", "t2048",
+                                                   "bhtd"))] + [
+        _case("ragged f32", f32, 2, 100, 77, "none"),
+        _case("dh128 f32 drop", f32, 2, 128, 128, "pad", p_drop=0.2, h=4,
+              dh=128),
+        _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32),
+        _case("bf16 causal", bf16, 8, 256, 256, "causal"),
+    ]
+    return fwd, bwd
 
 
 def main() -> int:
@@ -623,95 +893,123 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    f32, bf16 = torch.float32, torch.bfloat16
-    tb, tt = TRAIN_B, TRAIN_T
-    # (name, dtype, b, tq, tk, h, dh, bias, fused qkv, p_drop)
-    fwd_cases = [
-        # the encoder self-attention of the serving prefill (src_len 128),
-        # without and with dropout
-        ("prefill f32 pad", f32, 1, 128, 128, 8, 64, "pad", True, 0.0),
-        ("prefill f32 pad drop", f32, 1, 128, 128, 8, 64, "pad", True, 0.1),
-        ("bf16 causal", bf16, 8, 256, 256, 8, 64, "causal", False, 0.0),
-        ("cross f32", f32, 2, 64, 128, 8, 64, "pad", False, 0.0),
-        ("ragged f32", f32, 2, 100, 77, 8, 64, "none", False, 0.0),
-        # both head-width instantiations of the kernel (dh <= 64, <= 128)
-        ("dh128 f32", f32, 2, 128, 128, 4, 128, "pad", False, 0.0),
-        ("dh32 bf16", bf16, 2, 96, 200, 4, 32, "pad", False, 0.0),
-        # the training step's three attentions (encoder self, decoder
-        # self, cross), with its dropout
-        ("train bf16 pad drop", bf16, tb, tt, tt, 8, 64, "pad_b", True, 0.1),
-        ("train bf16 causal+pad drop", bf16, tb, tt, tt, 8, 64,
-         "causal_pad", True, 0.1),
-        ("train bf16 cross drop", bf16, tb, tt, tt, 8, 64, "pad_b", False,
-         0.1),
-        ("train f32 pad drop", f32, tb, tt, tt, 8, 64, "pad_b", True, 0.1),
-        ("train f32 causal+pad drop", f32, tb, tt, tt, 8, 64, "causal_pad",
-         True, 0.1),
-        ("train f32 cross drop", f32, tb, tt, tt, 8, 64, "pad_b", False,
-         0.1),
-    ]
+    fwd_cases, bwd_cases = _phase3_cases(torch)
     fwd_results = {}
     for case in fwd_cases:
         r = check_attention_kernel(fa, case, gen)
         fwd_results[r["case"]] = r
         print("attention " + json.dumps(r), flush=True)
-    bwd_cases = [c for c in fwd_cases if c[0].startswith("train")] + [
-        ("ragged f32", f32, 2, 100, 77, 8, 64, "none", False, 0.0),
-        ("dh128 f32 drop", f32, 2, 128, 128, 4, 128, "pad", False, 0.2),
-        ("dh32 bf16", bf16, 2, 96, 200, 4, 32, "pad", False, 0.0),
-        ("bf16 causal", bf16, 8, 256, 256, 8, 64, "causal", False, 0.0),
-    ]
+        torch.cuda.empty_cache()
     bwd_results = {}
     for case in bwd_cases:
         r = check_attention_bwd(fa, case, gen)
         bwd_results[r["case"]] = r
         print("attention_bwd " + json.dumps(r), flush=True)
-    fa.mask_launches = 0
-    mask = check_mask_dump(fa, tb, tt, 8, tt, 0.1)
+        torch.cuda.empty_cache()
+    mem = check_long_causal_memory(fa, gen)
+    print("memory " + json.dumps(mem), flush=True)
+    fa.reset_counts()
+    mask = check_mask_dump(fa, TRAIN_B, TRAIN_T, 8, TRAIN_T, 0.1)
     mask_launches = fa.mask_launches
     print("mask " + json.dumps(mask), flush=True)
+    # the causal skip: causal / non-causal device time at t = 4096
+    c_f, n_f = (fwd_results[f"t4096 bf16 {k}"] for k in ("causal+pad", "pad"))
+    c_b, n_b = (bwd_results[f"t4096 bf16 {k}"] for k in ("causal+pad", "pad"))
+    skip = {"fwd": c_f["device_ms"] / n_f["device_ms"],
+            "pass_a": c_b["device_ms_pass_a"] / n_b["device_ms_pass_a"],
+            "pass_b": c_b["device_ms_pass_b"] / n_b["device_ms_pass_b"]}
+    print("causal_skip " + json.dumps(skip), flush=True)
 
-    # 4. the serving path
-    s = serve(torch, np, fluid, T, fa, serving)
+    # 4. the serving path, at src_len 128 and (4b) 1024
+    s = serve(torch, np, fluid, T, fa, serving, cfg=T.base(), slots=8,
+              src_len=128, max_len=128, n_req=16, new_tokens=32, min_len=16)
+    assert s["launches"]["small/fwd"] >= 16 * 6, s["launches"]
     print("serve " + json.dumps(s), flush=True)
     print(f"serving Transformer-base on {card}: {s['tokens_per_s']:.1f} "
           f"tokens/s, decode step {s['decode_step_ms']:.3f} ms "
           f"({s['slots']} slots), prefill {s['prefill_ms']:.3f} ms "
           f"(src_len {s['src_len']})", flush=True)
+    long_cfg = T.TransformerConfig(max_length=1026)
+    sl = serve(torch, np, fluid, T, fa, serving, cfg=long_cfg, slots=4,
+               src_len=1024, max_len=1024, n_req=8, new_tokens=16,
+               min_len=513)
+    n_layer = long_cfg.n_layer
+    # each prefill runs the encoder's self-attention on the kblock route;
+    # every decode step runs its self and cross attentions on the bhtd
+    # route (tq = 1 over 1024 keys); nothing else launches or runs dense
+    want = {k: 0 for k in sl["launches"]}
+    want["kblock/fwd"] = 8 * n_layer
+    want["bhtd/fwd"] = 2 * n_layer * sl["decode_steps"]
+    assert sl["launches"] == want, (sl["launches"], want)
+    print("serve_long " + json.dumps(sl), flush=True)
 
-    # 5. the training path
-    t = train(torch, np, fluid, T, fa)
+    # 5. the training path, at t = 256 and (5b) the long-context rows
+    t = train(torch, np, fluid, T, fa, seq=TRAIN_T, batch=TRAIN_B,
+              route="small")
     print("train " + json.dumps(t), flush=True)
     print(f"training Transformer-base on {card}: step {t['step_ms']:.1f} ms "
           f"wall, {t['step_device_ms']} ms device busy, "
           f"{t['target_tokens_per_s']:.0f} target tokens/s, peak "
           f"{t['peak_mem_gib']:.2f} GiB", flush=True)
+    long_train = {}
+    for seq, batch, route in LONG_TRAIN:
+        # max_length = seq + 2, as bench.py sets it
+        r = train(torch, np, fluid, T, fa, seq=seq, batch=batch,
+                  route=route, max_length=seq + 2, repeated=4, window=3)
+        long_train[seq] = r
+        print(f"train_t{seq} " + json.dumps(r), flush=True)
+        torch.cuda.empty_cache()
 
     # 6. one training step on the card against the CPU
-    c = train_vs_cpu(torch, np, fluid, T)
+    c = train_vs_cpu(torch, np, fluid, T, fa, n_layer=6, seq=32, batch=2)
     print("train_vs_cpu " + json.dumps(c), flush=True)
+    for seq in (768, 1280):
+        c6 = train_vs_cpu(torch, np, fluid, T, fa, n_layer=2, seq=seq,
+                          batch=1, max_length=seq + 2)
+        print(f"train_vs_cpu_t{seq} " + json.dumps(c6), flush=True)
 
+    t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
     bwd_main = bwd_results["train bf16 pad drop"]
+    kb_fwd, kb_bwd = (fwd_results["t1024 bf16 pad drop"],
+                      bwd_results["t1024 bf16 pad drop"])
+    bh_fwd = fwd_results["t4096 bf16 causal+pad"]
+    passes = bwd_results["t4096 bf16 causal+pad"]["passes"]
     kernels_line = {"kernels": [
         _kernel_entry(
-            "flash_attention_bthd_fwd",
-            "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu",
-            "paddle_tpu/parallel/flash_attention.py:808",
-            s["launches"]["flash_attention_bthd_fwd"]
-            + t["launches"]["flash_attention_bthd_fwd"], fwd_main,
-            max(fwd_main["err_out"], fwd_main["err_lse"])),
+            "flash_attention_bthd_fwd", _SRC_FWD, f"{_TPU_FA}:808",
+            s["launches"]["small/fwd"] + t["launches"]["small/fwd"],
+            fwd_main, max(fwd_main["err_out"], fwd_main["err_lse"])),
         _kernel_entry(
-            "flash_attention_bthd_bwd",
-            "paddle_tpu_torch/csrc/flash_attention_bthd_bwd.cu",
-            "paddle_tpu/parallel/flash_attention.py:861",
-            t["launches"]["flash_attention_bthd_bwd"], bwd_main,
+            "flash_attention_bthd_bwd", _SRC_BWD, f"{_TPU_FA}:861",
+            t["launches"]["small/bwd"], bwd_main,
             max(bwd_main["err_dq_dk_dv"])),
         _kernel_entry(
-            "dropout_keep_mask",
-            "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu",
-            "tests/test_flash_attention_tpu.py:26",
-            mask_launches, mask, 0.0),
+            "dropout_keep_mask", _SRC_FWD,
+            "tests/test_flash_attention_tpu.py:26", mask_launches, mask,
+            0.0),
+        _kernel_entry(
+            "flash_attention_fwd (bhtd route, causal)", _SRC_FWD,
+            f"{_TPU_FA}:126",
+            t4k["launches"]["bhtd/fwd"] + sl["launches"]["bhtd/fwd"],
+            bh_fwd, max(bh_fwd["err_out"], bh_fwd["err_lse"])),
+        _kernel_entry(
+            "flash_attention_bwd pass B, dq (bhtd route, causal)", _SRC_BWD,
+            f"{_TPU_FA}:181", t4k["launches"]["bhtd/bwd"],
+            passes["pass_b"], passes["pass_b"]["max_abs_err"]),
+        _kernel_entry(
+            "flash_attention_bwd pass A, dk/dv (bhtd route, causal)",
+            _SRC_BWD, f"{_TPU_FA}:233", t4k["launches"]["bhtd/bwd"],
+            passes["pass_a"], passes["pass_a"]["max_abs_err"]),
+        _kernel_entry(
+            "flash_attention_bthd_fwd (kblock route)", _SRC_FWD,
+            f"{_TPU_FA}:964",
+            t1k["launches"]["kblock/fwd"] + sl["launches"]["kblock/fwd"],
+            kb_fwd, max(kb_fwd["err_out"], kb_fwd["err_lse"])),
+        _kernel_entry(
+            "flash_attention_bthd_bwd (kblock route)", _SRC_BWD,
+            f"{_TPU_FA}:1028", t1k["launches"]["kblock/bwd"], kb_bwd,
+            max(kb_bwd["err_dq_dk_dv"])),
     ]}
     print(json.dumps(kernels_line))
     print(card)

@@ -1,5 +1,7 @@
-// Device helpers shared by the BTHD attention kernels
-// (flash_attention_bthd_fwd.cu, flash_attention_bthd_bwd.cu).
+// Device helpers shared by the attention kernels
+// (flash_attention_bthd_fwd.cu, flash_attention_bthd_bwd.cu): type
+// conversion, batched tile loads, the dropout keep mask and the causal
+// tile test.
 //
 // Dropout keep mask. The TPU kernels draw their mask from the TPU's own
 // generator, keyed by absolute 128-row blocks so forward and backward
@@ -18,6 +20,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace pt_attn {
@@ -91,6 +94,18 @@ __device__ __forceinline__ float drop_scale(uint32_t hrow, int col,
                                             uint32_t thresh,
                                             float keep_scale) {
   return fmix32(hrow ^ (uint32_t)col) < thresh ? keep_scale : 0.f;
+}
+
+// Causal attention (the TPU kernels' top-left mask: a score is live iff
+// key <= query row). Does the tile of query rows [q0, q0 + nrows), cut at
+// tq, and keys from k0 on hold any live score? The forward and both
+// backward passes walk their tiles through this one test, so they skip
+// exactly the same (query tile, key tile) pairs, as `_causal_live` does
+// for the TPU kernels. Key 0 is live for every row, so the first key
+// tile is never skipped and every row's softmax has a finite maximum.
+__device__ __forceinline__ bool causal_tile_live(int q0, int nrows, int tq,
+                                                 int k0) {
+  return k0 <= min(q0 + nrows, tq) - 1;
 }
 
 }  // namespace pt_attn

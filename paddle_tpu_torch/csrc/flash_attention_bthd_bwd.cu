@@ -1,31 +1,39 @@
-// Attention backward in the BTHD layout, for Hopper (sm_90a), with the
-// forward's dropout mask regenerated in-kernel.
+// Attention backward for Hopper (sm_90a), with an optional in-kernel
+// causal mask and the forward's dropout mask regenerated in-kernel.
 //
-// Replaces the TPU kernel `_dqdkv_small_kernel`
-// (paddle_tpu/parallel/flash_attention.py:861), reached from
-// `flash_attention_bthd_bwd` for 8 <= tq, tk <= 512. From the forward's
-// saved (out, lse) and delta = rowsum(dout * out) (f32, the wrapper's) it
-// computes, per (batch, head):
-//   s   = scale * q k^T + bias,   p = exp(s - lse)      (undropped)
+// One kernel family replaces the TPU's backward kernels
+// (paddle_tpu/parallel/flash_attention.py), one per route of
+// `attention_route` in parallel/flash_attention.py:
+//   small  `_dqdkv_small_kernel` (:861), 8 <= tq, tk <= 512: passes A, B;
+//   kblock `_dqdkv_kb_kernel` (:1028), 512 < tk <= 1024: passes A, B;
+//   bhtd   `_dkv_kernel` (:233): pass A, and `_dq_kernel` (:181): pass B.
+// From the forward's saved (out, lse) it computes, per (batch, head):
+//   delta = rowsum(dout o out) - g_lse                   (the pre-pass)
+//   s   = scale * q k^T + bias (-inf where causal and key > row)
+//   p   = exp(s - lse)                                   (undropped)
 //   dp  = (dout v^T) o M,         M = the forward's scaled keep mask
 //   ds  = p o (dp - delta) * scale
 //   dq  = ds k,   dk = ds^T q,   dv = (p o M)^T dout
-// with dq, dk, dv written contiguous [b, t, h, dh] in q's dtype. q/k/v
-// take the forward's strides (views of a fused QKV projection), dout is
-// contiguous, lse and delta are contiguous [b, tq, h] f32, and the
-// optional f32 bias is addressed through element strides as in the
-// forward. Causal attention reaches the kernel folded into the bias.
+// g_lse, the cotangent of the lse output (BHTD `flash_attention_bwd`),
+// is optional: d lse / d s = p, so it folds into delta. Every tensor
+// (q, k, v, out, dout, lse, g_lse, dq, dk, dv) is addressed through
+// (batch, time, head) element strides with a contiguous head dim, so BTHD
+// and BHTD tensors run with no copy; delta is the wrapper's contiguous
+// [b, tq, h] f32 scratch; the optional f32 bias is addressed through
+// element strides as in the forward. On the small route the caller folds
+// causal attention into the bias; on the other two the kernels mask it.
+// tk has no bound, and every offset that can pass 2^31 is 64-bit.
 //
-// What bounds it on the H100: 10*b*h*tq*tk*dh FLOP (5 matrix products)
-// over the bytes of q, k, v, dout, out, lse, delta, dq, dk, dv and the
-// bias. At the training shape (b=64, t=256, h=8, dh=64, bf16) that is
-// 21.5 GFLOP over ~62 MB: ~0.02 ms on the tensor cores, ~0.32 ms on the
-// f32 CUDA cores, which is where this version computes.
+// What bounds it on the H100: 10*b*h*tq*tk*dh FLOP (5 matrix products;
+// under the causal mask only the live scores count) over the bytes of q,
+// k, v, dout, out, lse, dq, dk, dv and the bias: operations at every
+// shape of the repo's paths. This version runs them on the f32 CUDA
+// cores from shared memory, not on the tensor cores.
 //
-// What the design does: the TPU kernel accumulates dk and dv in scratch
-// across its sequential q-chunk grid steps; blocks on a GPU run in no
-// order, so the work is split into two deterministic passes (no atomics,
-// so a run's gradients are bit-reproducible):
+// What the design does: the TPU kernels accumulate dk and dv in scratch
+// across their sequential grid steps; blocks on a GPU run in no order, so
+// the work is split into two deterministic passes (no atomics, so a run's
+// gradients are bit-reproducible):
 //   pass A, one block per (64-key tile, head, batch): K and V of the tile
 //     stay in shared memory while the block walks every 32-row query
 //     tile, recomputing s and dp there; dk and dv accumulate in
@@ -33,12 +41,15 @@
 //   pass B, one block per (32-row query tile, head, batch): Q and dout
 //     stay in shared memory while the block walks every 64-key tile,
 //     recomputing s and dp; dq accumulates in registers.
-// Recomputing s and dp in pass B costs two matrix products more than the
-// fused TPU kernel (7 instead of 5) and buys the absence of atomics.
-// The keep mask is a hash of absolute (batch, head, row, column)
-// (attention_common.cuh), so both passes regenerate exactly the
-// forward's bits. All arithmetic is f32 on CUDA cores from shared
-// memory; tensor cores (wgmma) and TMA are left to a later version.
+// Under the causal mask both passes skip the (query tile, key tile) pairs
+// with no live score through the forward's own test (causal_tile_live):
+// pass B stops after its last live key tile, pass A starts at the first
+// query tile that reaches its keys. Recomputing s and dp in pass B costs
+// two matrix products more than a fused kernel (7 instead of 5) and buys
+// the absence of atomics. The keep mask is a hash of absolute (batch,
+// head, row, column) (attention_common.cuh), so both passes regenerate
+// exactly the forward's bits. All arithmetic is f32 on CUDA cores from
+// shared memory; tensor cores (wgmma) and TMA are left to a later version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,15 +65,20 @@ constexpr int kBQ = 32;  // query rows per tile
 constexpr int kBK = 64;  // keys per tile
 constexpr int kThreadsA = 256;
 constexpr int kThreadsB = 128;
+constexpr int kThreadsDelta = 256;
+constexpr int kDeltaLanes = 8;  // threads that share one delta row
 constexpr int kMaxDh = 128;
 
 struct Args {
-  const void *q, *k, *v, *dout;
-  const float *bias, *lse, *delta;
+  const void *q, *k, *v, *out, *dout;
+  const float *bias, *lse, *g_lse;
+  float* delta;
   void *dq, *dk, *dv;
   int tq, tk, nh, dh;
-  long long qsb, qst, ksb, kst, vsb, vst;
-  long long sb, sh, sq;
+  // (batch, time, head) element strides
+  long long qs[3], ks[3], vs[3], os[3], dos[3], ls[3], gls[3], dqs[3],
+      dks[3], dvs[3];
+  long long sb, sh, sq;  // bias strides over (batch, head, query row)
   float scale;
   Dropout drop;
 };
@@ -79,8 +95,41 @@ size_t smem_b(int dh) {
                                   kBQ * (kBK + 1) + 2 * kBQ);
 }
 
+// The pre-pass: delta[b, t, h] = sum_d dout * out - g_lse, f32, with
+// kDeltaLanes neighbouring threads on neighbouring elements of one row.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsDelta) bwd_delta_kernel(Args a,
+                                                                  int b) {
+  const long long rows = (long long)b * a.tq * a.nh;
+  const long long row =
+      ((long long)blockIdx.x * kThreadsDelta + threadIdx.x) / kDeltaLanes;
+  const int lane = threadIdx.x % kDeltaLanes;
+  float acc = 0.f;
+  int hh = 0, qr = 0, bb = 0;
+  if (row < rows) {
+    hh = (int)(row % a.nh);
+    const long long bt = row / a.nh;
+    qr = (int)(bt % a.tq);
+    bb = (int)(bt / a.tq);
+    const T* o = static_cast<const T*>(a.out) + bb * a.os[0] +
+                 qr * a.os[1] + hh * a.os[2];
+    const T* g = static_cast<const T*>(a.dout) + bb * a.dos[0] +
+                 qr * a.dos[1] + hh * a.dos[2];
+    for (int d = lane; d < a.dh; d += kDeltaLanes)
+      acc = fmaf(to_f32(g[d]), to_f32(o[d]), acc);
+  }
+#pragma unroll
+  for (int off = 1; off < kDeltaLanes; off *= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && lane == 0) {
+    if (a.g_lse != nullptr)
+      acc -= a.g_lse[bb * a.gls[0] + qr * a.gls[1] + hh * a.gls[2]];
+    a.delta[row] = acc;  // contiguous [b, tq, h]
+  }
+}
+
 // Pass A: dk and dv of one 64-key tile.
-template <typename T, int kDhMax, bool kDrop>
+template <typename T, int kDhMax, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
   extern __shared__ float smem[];
   const int dh = a.dh, ks = dh + 1, ss = kBK + 1;
@@ -98,19 +147,19 @@ __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int nh = a.nh, tq = a.tq, tk = a.tk;
-  const long long row_stride = (long long)nh * dh;  // dout/dk/dv time stride
-  const T* qb = static_cast<const T*>(a.q) + bb * a.qsb + (long long)hh * dh;
-  const T* kb = static_cast<const T*>(a.k) + bb * a.ksb + (long long)hh * dh;
-  const T* vb = static_cast<const T*>(a.v) + bb * a.vsb + (long long)hh * dh;
-  const T* dob = static_cast<const T*>(a.dout) +
-                 (long long)bb * tq * row_stride + (long long)hh * dh;
-  const float* biasb = a.bias == nullptr
-                           ? nullptr
-                           : a.bias + bb * a.sb + (long long)hh * a.sh;
+  const T* qb = static_cast<const T*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
+  const T* kb = static_cast<const T*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
+  const T* vb = static_cast<const T*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
+  const T* dob =
+      static_cast<const T*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
+  const float* lsb = a.lse + bb * a.ls[0] + hh * a.ls[2];
+  const float* dlb = a.delta + (long long)bb * tq * nh + hh;
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
   const int bh = bb * nh + hh;
 
-  load_tile<kThreadsA>(Ks, ks, kb, a.kst, k0, kBK, tk, dh);
-  load_tile<kThreadsA>(Vs, ks, vb, a.vst, k0, kBK, tk, dh);
+  load_tile<kThreadsA>(Ks, ks, kb, a.ks[1], k0, kBK, tk, dh);
+  load_tile<kThreadsA>(Vs, ks, vb, a.vs[1], k0, kBK, tk, dh);
 
   // score micro-tile: rows 2*rg, 2*rg+1; keys 4*cg .. 4*cg+3
   const int rg = tid / 16, cg = tid % 16;
@@ -122,14 +171,15 @@ __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
   for (int j = 0; j < kDPerThread; ++j) acc_k[j] = acc_v[j] = 0.f;
 
   for (int q0 = 0; q0 < tq; q0 += kBQ) {
+    // causal: query tiles before the first that reaches k0 are dead
+    if (kCausal && !causal_tile_live(q0, kBQ, tq, k0)) continue;
     __syncthreads();  // previous tile's Qs/dOs/Ps/dSs reads are done
-    load_tile<kThreadsA>(Qs, dh, qb, a.qst, q0, kBQ, tq, dh);
-    load_tile<kThreadsA>(dOs, dh, dob, row_stride, q0, kBQ, tq, dh);
+    load_tile<kThreadsA>(Qs, dh, qb, a.qs[1], q0, kBQ, tq, dh);
+    load_tile<kThreadsA>(dOs, dh, dob, a.dos[1], q0, kBQ, tq, dh);
     if (tid < kBQ) {
       const int qr = q0 + tid;
-      const long long i = ((long long)bb * tq + qr) * nh + hh;
-      Ls[tid] = qr < tq ? a.lse[i] : 0.f;
-      Ds[tid] = qr < tq ? a.delta[i] : 0.f;
+      Ls[tid] = qr < tq ? lsb[qr * a.ls[1]] : 0.f;
+      Ds[tid] = qr < tq ? dlb[(long long)qr * nh] : 0.f;
     }
     __syncthreads();
 
@@ -167,7 +217,7 @@ __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
       for (int e = 0; e < 4; ++e) {
         const int col = cg * 4 + e, key = k0 + col;
         float p = 0.f, pd = 0.f, ds = 0.f;
-        if (qr < tq && key < tk) {
+        if (qr < tq && key < tk && (!kCausal || key <= qr)) {
           float sv = s[r][e] * a.scale;
           if (biasb != nullptr) sv += biasb[(long long)qr * a.sq + key];
           p = expf(sv - Ls[row]);
@@ -205,10 +255,10 @@ __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
 
   const int key = k0 + kr;
   if (key < tk) {
-    const long long o =
-        ((long long)bb * tk + key) * row_stride + (long long)hh * dh;
-    T* dkr = static_cast<T*>(a.dk) + o;
-    T* dvr = static_cast<T*>(a.dv) + o;
+    T* dkr = static_cast<T*>(a.dk) + bb * a.dks[0] + key * a.dks[1] +
+             hh * a.dks[2];
+    T* dvr = static_cast<T*>(a.dv) + bb * a.dvs[0] + key * a.dvs[1] +
+             hh * a.dvs[2];
 #pragma unroll
     for (int j = 0; j < kDPerThread; ++j) {
       const int d = c + 4 * j;
@@ -221,7 +271,7 @@ __global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
 }
 
 // Pass B: dq of one 32-row query tile.
-template <typename T, int kDhMax, bool kDrop>
+template <typename T, int kDhMax, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
   extern __shared__ float smem[];
   const int dh = a.dh, ks = dh + 1, ss = kBK + 1;
@@ -238,23 +288,21 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
   const int hh = blockIdx.y;
   const int bb = blockIdx.z;
   const int nh = a.nh, tq = a.tq, tk = a.tk;
-  const long long row_stride = (long long)nh * dh;
-  const T* qb = static_cast<const T*>(a.q) + bb * a.qsb + (long long)hh * dh;
-  const T* kb = static_cast<const T*>(a.k) + bb * a.ksb + (long long)hh * dh;
-  const T* vb = static_cast<const T*>(a.v) + bb * a.vsb + (long long)hh * dh;
-  const T* dob = static_cast<const T*>(a.dout) +
-                 (long long)bb * tq * row_stride + (long long)hh * dh;
-  const float* biasb = a.bias == nullptr
-                           ? nullptr
-                           : a.bias + bb * a.sb + (long long)hh * a.sh;
+  const T* qb = static_cast<const T*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
+  const T* kb = static_cast<const T*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
+  const T* vb = static_cast<const T*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
+  const T* dob =
+      static_cast<const T*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
 
-  load_tile<kThreadsB>(Qs, dh, qb, a.qst, q0, kBQ, tq, dh);
-  load_tile<kThreadsB>(dOs, dh, dob, row_stride, q0, kBQ, tq, dh);
+  load_tile<kThreadsB>(Qs, dh, qb, a.qs[1], q0, kBQ, tq, dh);
+  load_tile<kThreadsB>(dOs, dh, dob, a.dos[1], q0, kBQ, tq, dh);
   if (tid < kBQ) {
     const int qr = q0 + tid;
-    const long long i = ((long long)bb * tq + qr) * nh + hh;
-    Ls[tid] = qr < tq ? a.lse[i] : 0.f;
-    Ds[tid] = qr < tq ? a.delta[i] : 0.f;
+    Ls[tid] = qr < tq ? a.lse[bb * a.ls[0] + qr * a.ls[1] + hh * a.ls[2]]
+                      : 0.f;
+    Ds[tid] = qr < tq ? a.delta[((long long)bb * tq + qr) * nh + hh] : 0.f;
   }
 
   // score micro-tile: rows 4*rg .. 4*rg+3, keys 4*cg .. 4*cg+3
@@ -273,9 +321,11 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
   }
 
   for (int k0 = 0; k0 < tk; k0 += kBK) {
+    // causal: every later key tile is dead for this query tile
+    if (kCausal && !causal_tile_live(q0, kBQ, tq, k0)) break;
     __syncthreads();  // previous tile's Ks/Vs/dSs reads are done
-    load_tile<kThreadsB>(Ks, ks, kb, a.kst, k0, kBK, tk, dh);
-    load_tile<kThreadsB>(Vs, ks, vb, a.vst, k0, kBK, tk, dh);
+    load_tile<kThreadsB>(Ks, ks, kb, a.ks[1], k0, kBK, tk, dh);
+    load_tile<kThreadsB>(Vs, ks, vb, a.vs[1], k0, kBK, tk, dh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -310,7 +360,7 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
       for (int e = 0; e < 4; ++e) {
         const int col = cg * 4 + e, key = k0 + col;
         float ds = 0.f;
-        if (qr < tq && key < tk) {
+        if (qr < tq && key < tk && (!kCausal || key <= qr)) {
           float sv = s[i][e] * a.scale;
           if (biasb != nullptr) sv += biasb[(long long)qr * a.sq + key];
           const float p = expf(sv - Ls[row]);
@@ -339,8 +389,8 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
 
   const int qr = q0 + r;
   if (qr < tq) {
-    T* dqr = static_cast<T*>(a.dq) +
-             ((long long)bb * tq + qr) * row_stride + (long long)hh * dh;
+    T* dqr = static_cast<T*>(a.dq) + bb * a.dqs[0] + qr * a.dqs[1] +
+             hh * a.dqs[2];
 #pragma unroll
     for (int j = 0; j < kDPerThread; ++j) {
       const int d = c + 4 * j;
@@ -349,36 +399,63 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
   }
 }
 
-template <typename T, int kDhMax, bool kDrop>
-cudaError_t launch_cfg(const Args& a, int b, cudaStream_t stream) {
-  const size_t sa = smem_a(a.dh), sbytes = smem_b(a.dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<T, kDhMax, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<T, kDhMax, kDrop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sbytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid_a((a.tk + kBK - 1) / kBK, a.nh, b);
-  bwd_dkdv_kernel<T, kDhMax, kDrop><<<grid_a, kThreadsA, sa, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid_b((a.tq + kBQ - 1) / kBQ, a.nh, b);
-  bwd_dq_kernel<T, kDhMax, kDrop><<<grid_b, kThreadsB, sbytes, stream>>>(a);
-  return cudaGetLastError();
+template <typename T, int kDhMax, bool kDrop, bool kCausal>
+cudaError_t launch_cfg(const Args& a, int b, int passes,
+                       cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    const size_t sa = smem_a(a.dh);
+    err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, kDhMax, kDrop, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sa);
+    if (err != cudaSuccess) return err;
+    dim3 grid_a((a.tk + kBK - 1) / kBK, a.nh, b);
+    bwd_dkdv_kernel<T, kDhMax, kDrop, kCausal>
+        <<<grid_a, kThreadsA, sa, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (passes & 2) {
+    const size_t sbytes = smem_b(a.dh);
+    err = cudaFuncSetAttribute(bwd_dq_kernel<T, kDhMax, kDrop, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sbytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid_b((a.tq + kBQ - 1) / kBQ, a.nh, b);
+    bwd_dq_kernel<T, kDhMax, kDrop, kCausal>
+        <<<grid_b, kThreadsB, sbytes, stream>>>(a);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
-template <typename T, bool kDrop>
-cudaError_t launch_drop(const Args& a, int b, cudaStream_t stream) {
-  return a.dh <= 64 ? launch_cfg<T, 64, kDrop>(a, b, stream)
-                    : launch_cfg<T, kMaxDh, kDrop>(a, b, stream);
+template <typename T, int kDhMax, bool kDrop>
+cudaError_t launch_causal(const Args& a, int b, bool causal, int passes,
+                          cudaStream_t stream) {
+  return causal ? launch_cfg<T, kDhMax, kDrop, true>(a, b, passes, stream)
+                : launch_cfg<T, kDhMax, kDrop, false>(a, b, passes, stream);
+}
+
+template <typename T, int kDhMax>
+cudaError_t launch_drop(const Args& a, int b, bool drop, bool causal,
+                        int passes, cudaStream_t stream) {
+  return drop ? launch_causal<T, kDhMax, true>(a, b, causal, passes, stream)
+              : launch_causal<T, kDhMax, false>(a, b, causal, passes,
+                                                stream);
 }
 
 template <typename T>
-cudaError_t launch(const Args& a, int b, bool use_drop, cudaStream_t stream) {
-  return use_drop ? launch_drop<T, true>(a, b, stream)
-                  : launch_drop<T, false>(a, b, stream);
+cudaError_t launch(const Args& a, int b, bool drop, bool causal, int passes,
+                   cudaStream_t stream) {
+  const long long lanes = (long long)b * a.tq * a.nh * kDeltaLanes;
+  const long long blocks = (lanes + kThreadsDelta - 1) / kThreadsDelta;
+  bwd_delta_kernel<T><<<(unsigned int)blocks, kThreadsDelta, 0, stream>>>(
+      a, b);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return a.dh <= 64
+             ? launch_drop<T, 64>(a, b, drop, causal, passes, stream)
+             : launch_drop<T, kMaxDh>(a, b, drop, causal, passes, stream);
 }
 
 }  // namespace
@@ -386,28 +463,35 @@ cudaError_t launch(const Args& a, int b, bool use_drop, cudaStream_t stream) {
 extern "C" {
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers;
-// `bias` may be null. `strides` (host memory) holds the element strides
-// of q, k, v over (batch, time): {q_b, q_t, k_b, k_t, v_b, v_t}; dout,
-// dq, dk, dv are contiguous [b, t, h, dh] in q's dtype, lse and delta
-// contiguous [b, tq, h] f32. The dropout arguments are the forward's.
+// `bias` and `g_lse` may be null. `strides` (host memory) holds 30
+// element strides: (batch, time, head) of q, k, v, out, dout, lse, g_lse,
+// dq, dk, dv, in that order; the head dim of q, k, v, out, dout, dq, dk,
+// dv is contiguous. `delta` is scratch for a contiguous [b, tq, h] f32
+// array. With `causal`, keys past the query row are masked in-kernel.
+// `passes`: bit 1 runs pass A (dk, dv), bit 2 pass B (dq); the delta
+// pre-pass always runs. The dropout arguments are the forward's.
 // `stream` is a cudaStream_t.
 int pt_flash_attention_bthd_bwd(
     const void* q, const void* k, const void* v, const void* bias,
-    const void* dout, const void* lse, const void* delta, void* dq, void* dk,
-    void* dv, int b, int tq, int tk, int h, int dh, const long long* strides,
-    long long sb, long long sh, long long sq, float scale, int is_bf16,
-    int use_dropout, unsigned int drop_key, unsigned int drop_thresh,
-    float keep_scale, void* stream) {
-  if (dh < 1 || dh > kMaxDh || tq < 1 || tk < 1 || b < 1 || h < 1)
+    const void* out, const void* dout, const void* lse, const void* g_lse,
+    void* delta, void* dq, void* dk, void* dv, int b, int tq, int tk, int h,
+    int dh, const long long* strides, long long sb, long long sh,
+    long long sq, float scale, int is_bf16, int causal, int use_dropout,
+    unsigned int drop_key, unsigned int drop_thresh, float keep_scale,
+    int passes, void* stream) {
+  if (dh < 1 || dh > kMaxDh || tq < 1 || tk < 1 || b < 1 || h < 1 ||
+      b > 65535 || h > 65535 || passes < 0 || passes > 3)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
+  a.out = out;
   a.dout = dout;
   a.bias = static_cast<const float*>(bias);
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.g_lse = static_cast<const float*>(g_lse);
+  a.delta = static_cast<float*>(delta);
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
@@ -415,20 +499,20 @@ int pt_flash_attention_bthd_bwd(
   a.tk = tk;
   a.nh = h;
   a.dh = dh;
-  a.qsb = strides[0];
-  a.qst = strides[1];
-  a.ksb = strides[2];
-  a.kst = strides[3];
-  a.vsb = strides[4];
-  a.vst = strides[5];
+  long long* dst[10] = {a.qs,  a.ks,  a.vs,  a.os,  a.dos,
+                        a.ls,  a.gls, a.dqs, a.dks, a.dvs};
+  for (int t = 0; t < 10; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   a.sb = sb;
   a.sh = sh;
   a.sq = sq;
   a.scale = scale;
   a.drop = pt_attn::Dropout{drop_key, drop_thresh, keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(a, b, use_dropout != 0, s)
-                            : launch<float>(a, b, use_dropout != 0, s);
+  const bool drop = use_dropout != 0, cz = causal != 0;
+  cudaError_t err = is_bf16
+                        ? launch<__nv_bfloat16>(a, b, drop, cz, passes, s)
+                        : launch<float>(a, b, drop, cz, passes, s);
   return (int)err;
 }
 

@@ -117,7 +117,8 @@ def _multi_head_attention(q_in, kv_in, bias, cfg: TransformerConfig, prefix: str
             "is_test": is_test,
             "layout": "bthd",
             # causal is an attr: the attention wrapper folds the future
-            # mask into the additive bias (parallel/flash_attention.py)
+            # mask into the additive bias on the small route and masks
+            # it in-kernel on the long ones (parallel/flash_attention.py)
             "causal": causal,
         },
     )

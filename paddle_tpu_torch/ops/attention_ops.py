@@ -1,8 +1,10 @@
 """Attention support ops: position ids, additive attention bias, and
-scaled-dot-product attention with its registered backward
-(parallel/flash_attention.py: the Hopper kernels for the small regime on
-a CUDA tensor, the plain PyTorch composition on the CPU and for
-single-token decode).
+scaled-dot-product attention with its registered backward, in the BTHD
+(``layout="bthd"``) and BHTD (``layout="bhtd"``) layouts
+(parallel/flash_attention.py: the Hopper kernels on a CUDA tensor's
+kernel routes, the plain PyTorch composition on the CPU and on the dense
+route). Ring attention over a context mesh is not ported: the op has no
+context-parallel branch.
 """
 
 from __future__ import annotations
@@ -62,26 +64,32 @@ def _sdpa_config(ins, attrs, generator):
     return scale, 0.0, None
 
 
-def _check_layout(attrs):
-    if attrs.get("layout", "bhtd") != "bthd":
-        raise NotImplementedError(
-            "scaled_dot_product_attention: only layout='bthd' is ported")
+def _bthd_layout(attrs):
+    layout = attrs.get("layout", "bhtd")
+    if layout not in ("bthd", "bhtd"):
+        raise ValueError(f"scaled_dot_product_attention: layout {layout!r}")
+    return layout == "bthd"
 
 
 @register_op("scaled_dot_product_attention", diff_inputs=("Q", "K", "V"),
              needs_rng=True)
 def _sdpa(ins, attrs, device, generator=None):
-    """Attention over Q, K, V [b, t, h, dh] (``layout="bthd"``) with an
-    optional additive Bias and, in training (``dropout_prob > 0`` and not
-    ``is_test``), attention dropout inside the kernel from the op's seed;
-    emits Out (Q's dtype) and the real f32 logsumexp rows Lse [b, tq, h,
-    1], which the grad op consumes."""
-    _check_layout(attrs)
+    """Attention over Q, K, V ([b, t, h, dh] with ``layout="bthd"``, [b,
+    h, t, dh] with ``layout="bhtd"``) with an optional additive Bias and,
+    in training (``dropout_prob > 0`` and not ``is_test``), attention
+    dropout inside the kernel from the op's seed; emits Out (Q's dtype)
+    and the real f32 logsumexp rows Lse ([b, tq, h, 1] or [b, h, tq, 1]),
+    which the grad op consumes."""
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
     scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
-    out, lse = fa.flash_attention_bthd_fwd(
-        q, k, v, _x(ins, "Bias"), scale, bool(attrs.get("causal", False)),
-        seed=seed, p_drop=p_drop)
+    causal = bool(attrs.get("causal", False))
+    if _bthd_layout(attrs):
+        out, lse = fa.flash_attention_bthd_fwd(
+            q, k, v, _x(ins, "Bias"), scale, causal, seed=seed,
+            p_drop=p_drop)
+    else:
+        out, lse = fa.flash_attention_fwd(q, k, v, _x(ins, "Bias"), seed,
+                                          scale, p_drop, causal=causal)
     return {"Out": [out], "Lse": [lse]}
 
 
@@ -91,11 +99,13 @@ def _sdpa_grad(ins, attrs, device, generator=None):
     """The attention backward from the forward's saved (Out, Lse): the
     backward kernel (or its plain version), never a re-run of the
     forward."""
-    _check_layout(attrs)
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
     scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
-    dq, dk, dv = fa.flash_attention_bthd_bwd(
-        q, k, v, _x(ins, "Bias"), seed, _x(ins, "Out"), _x(ins, "Lse"),
-        _x(ins, "GRAD::Out").to(q.dtype), scale, p_drop,
-        bool(attrs.get("causal", False)))
+    args = (q, k, v, _x(ins, "Bias"), seed, _x(ins, "Out"), _x(ins, "Lse"),
+            _x(ins, "GRAD::Out").to(q.dtype), scale, p_drop)
+    causal = bool(attrs.get("causal", False))
+    if _bthd_layout(attrs):
+        dq, dk, dv = fa.flash_attention_bthd_bwd(*args, causal)
+    else:
+        dq, dk, dv = fa.flash_attention_bwd(*args, causal=causal)
     return {"GRAD::Q": [dq], "GRAD::K": [dk], "GRAD::V": [dv]}

@@ -57,19 +57,26 @@ def test_kernel_matches_plain(cuda, dtype, b, tq, tk, dh, causal, pad):
 
 
 def test_unported_regimes_raise_and_decode_stays_plain(cuda):
+    """Every long shape takes its route: tk = 2048 (and tq = 1 over a
+    1024-row cache) launches the kernels on the bhtd route; tk = 640 at tq
+    = 128 divides no BHTD block, so it stays dense, as does the decode
+    step over a 128-row cache."""
     h, dh = 8, 64
     q = torch.randn(1, 128, h, dh, device=cuda)
-    for tk in (640, 2048):  # k-blocked and long-context TPU kernels
+    for tq, tk, route in ((128, 640, "dense"), (128, 2048, "bhtd"),
+                          (1, 1024, "bhtd"), (1, 128, "dense")):
+        assert fa.attention_route(tq, tk, h, dh) == route
         kv = torch.randn(1, tk, h, dh, device=cuda)
-        with pytest.raises(NotImplementedError):
-            fa.flash_attention_bthd_fwd(q, kv, kv)
-        lse = torch.zeros(1, 128, h, 1, device=cuda)
-        with pytest.raises(NotImplementedError):
-            fa.flash_attention_bthd_bwd(q, kv, kv, None, None, q, lse, q)
-    before = fa.launches
-    kv = torch.randn(1, 128, h, dh, device=cuda)
-    out, lse = fa.flash_attention_bthd_fwd(q[:, :1], kv, kv)  # one token
-    assert fa.launches == before and out.shape == (1, 1, h, dh)
+        fa.reset_counts()
+        out, lse = fa.flash_attention_bthd_fwd(q[:, :tq], kv, kv)
+        grads = fa.flash_attention_bthd_bwd(q[:, :tq], kv, kv, None, None,
+                                            out, lse, out)
+        torch.cuda.synchronize()
+        kernel = route != "dense"
+        assert fa.launch_counts.get((route, "fwd"), 0) == int(kernel)
+        assert fa.launch_counts.get((route, "bwd"), 0) == int(kernel)
+        assert fa.dense_calls == 2 * (not kernel)
+        assert out.shape == (1, tq, h, dh) and grads[1].shape == kv.shape
 
 
 def _bwd_inputs(cuda, dtype, b, tq, tk, dh, kind, h=8):
@@ -162,3 +169,119 @@ def test_autograd_function_runs_the_backward_kernel(cuda):
     for got, ref in zip((dq, dk, dv), refs):
         rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
         assert rel <= 1e-4, rel
+
+
+# --- the long-context routes (kblock, bhtd): in-kernel causal mask ---
+
+
+def _long_inputs(cuda, dtype, b, tq, tk, kind, bhtd=False, h=8, dh=64):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    shape = (lambda t: (b, h, t, dh)) if bhtd else (lambda t: (b, t, h, dh))
+    q, k, v = (torch.randn(*shape(t), generator=g, device=cuda).to(dtype)
+               for t in (tq, tk, tk))
+    bias = None
+    if kind in ("pad", "causal_pad"):
+        lens = torch.randint(tk // 2, tk + 1, (b, 1), generator=g,
+                             device=cuda)
+        bias = torch.where(torch.arange(tk, device=cuda)[None] < lens, 0.0,
+                           -1e9)[:, None, None, :]
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    return q, k, v, bias, kind.startswith("causal"), dout
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def _abs(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,b,tq,tk,kind,p_drop", [
+    ("kblock", 2, 1024, 1024, "causal_pad", 0.1),
+    ("kblock", 2, 256, 768, "pad", 0.0),
+    ("bhtd", 1, 2048, 2048, "causal_pad", 0.0),
+    ("bhtd", 1, 512, 1280, "pad", 0.1),
+])
+def test_long_routes_match_plain(cuda, dtype, route, b, tq, tk, kind,
+                                 p_drop):
+    """Forward and backward kernels on the kblock and bhtd routes, causal
+    in-kernel and not, with and without dropout, against the plain
+    versions; one launch of each on the route."""
+    q, k, v, bias, causal, dout = _long_inputs(cuda, dtype, b, tq, tk, kind)
+    assert fa.attention_route(tq, tk, 8, 64) == route
+    seed = 31 if p_drop else None
+    fa.reset_counts()
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
+                                           seed=seed, p_drop=p_drop)
+    grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
+                                        None, p_drop, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[(route, "fwd")] == 1
+    assert fa.launch_counts[(route, "bwd")] == 1 and fa.dense_calls == 0
+    ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, bias, None, seed,
+                                               p_drop, causal)
+    f32 = dtype == torch.float32
+    assert _abs(out, ref_out) <= (5e-6 if f32 else 8e-3)
+    assert _abs(lse, ref_lse) <= 5e-6
+    refs = fa.attention_bthd_bwd_plain(q, k, v, bias, seed, out, lse, dout,
+                                       None, p_drop, causal)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype
+        assert _rel(got, ref) <= (1e-5 if f32 else 8e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bhtd_layout_strides_and_lse_cotangent(cuda, causal):
+    """BHTD tensors run through the head strides with no transpose, and
+    the lse cotangent folds into delta."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, torch.float32, 2, 512, 512,
+                                          "pad", bhtd=True)
+    g_lse = torch.randn(2, 8, 512, 1, device=cuda)
+    fa.reset_counts()
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, bias, None, out, lse, dout,
+                                   causal=causal, g_lse=g_lse)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[("bhtd", "fwd")] == 1
+    assert fa.launch_counts[("bhtd", "bwd")] == 1
+    ref_out, ref_lse = fa.attention_plain(q, k, v, bias, causal=causal)
+    assert out.shape == q.shape and lse.shape == (2, 8, 512, 1)
+    assert _abs(out, ref_out) <= 5e-6 and _abs(lse, ref_lse) <= 5e-6
+    refs = fa.attention_bwd_plain(q, k, v, bias, None, out, lse, dout,
+                                  causal=causal, g_lse=g_lse)
+    for got, ref in zip(grads, refs):
+        assert _rel(got, ref) <= 1e-5
+
+
+def test_decode_step_shape_launches_the_bhtd_forward(cuda):
+    """tq = 1 over a 1024-row cache (the serving decode step at max_len
+    1024): the bhtd forward kernel, against the plain version."""
+    q, k, v, bias, _, _ = _long_inputs(cuda, torch.float32, 4, 1, 1024,
+                                       "pad")
+    fa.reset_counts()
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[("bhtd", "fwd")] == 1
+    ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, bias)
+    assert _abs(out, ref_out) <= 5e-6 and _abs(lse, ref_lse) <= 5e-6
+
+
+def test_causal_long_call_builds_no_score_sized_tensor(cuda):
+    """A causal forward and backward at t = 8192 (bhtd route, bf16) rise
+    less than 32 MiB above their inputs and outputs: no [tq, tk] tensor
+    (a folded f32 bias would be 256 MiB)."""
+    q, k, v, _, _, dout = _long_inputs(cuda, torch.bfloat16, 1, 8192, 8192,
+                                       "none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, None, None, True)
+    grads = fa.flash_attention_bthd_bwd(q, k, v, None, None, out, lse, dout,
+                                        None, 0.0, True)
+    torch.cuda.synchronize()
+    made = sum(t.numel() * t.element_size() for t in (out, lse, *grads))
+    rise = torch.cuda.max_memory_allocated() - base - made
+    assert rise < 32 * 2**20, rise

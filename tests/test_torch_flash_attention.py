@@ -66,19 +66,36 @@ _GRID = (1, 7, 8, 9, 64, 100, 127, 128, 129, 192, 256, 384, 500, 512, 513,
          640, 768, 1000, 1024, 2048)
 
 
-def test_routing_predicates_match_jax():
+def _jax_route(tq, tk, h, dh, layout):
+    """The route the JAX package's functions take (interpret mode stands
+    in for the TPU backend): flash_attention_bthd_fwd/bwd's branches for
+    BTHD, flash_attention_fwd/bwd's ``_use_pallas`` for BHTD."""
+    def bhtd():
+        bq, bk = jfa._pick_blocks(h, tq, tk, jfa.DEFAULT_Q_BLOCK,
+                                  jfa.DEFAULT_K_BLOCK)
+        return "bhtd" if jfa._use_pallas(tq, tk, bq, bk) else "dense"
+
+    if layout == "bhtd":
+        return bhtd()
+    if jfa._use_bthd_small(tq, tk):
+        return "small"
+    if jfa._use_bthd_kblock(tq, tk, h, dh):
+        return "kblock"
+    return bhtd() if tk > jfa._SMALL_T_MAX else "dense"
+
+
+@pytest.mark.parametrize("h,dh", [(2, 64), (8, 64), (16, 128)])
+def test_routing_predicates_match_jax(h, dh):
+    """attention_route names the JAX package's route for every shape of
+    the grid, in both layouts: each TPU kernel's shapes reach its Hopper
+    counterpart, and the dense leftovers stay dense."""
     for tq in _GRID:
         for tk in _GRID:
             assert tfa._use_bthd_small(tq, tk) == jfa._use_bthd_small(tq, tk), \
                 (tq, tk)
-            if jfa._use_bthd_small(tq, tk):
-                continue
-            # the port raises on a CUDA tensor for tk > 512: exactly where
-            # the JAX package takes a kernel that has no Hopper port yet
-            for h, dh in ((2, 64), (8, 64), (16, 128)):
-                j_kernel = (jfa._use_bthd_kblock(tq, tk, h, dh)
-                            or tk > jfa._SMALL_T_MAX)
-                assert (tk > tfa._SMALL_T_MAX) == j_kernel, (tq, tk, h, dh)
+            for layout in ("bthd", "bhtd"):
+                assert tfa.attention_route(tq, tk, h, dh, layout) == \
+                    _jax_route(tq, tk, h, dh, layout), (tq, tk, layout)
 
 
 def test_decode_shape_takes_the_dense_path_on_cpu():
