@@ -6,9 +6,9 @@
 Phases (any failure raises and exits non-zero; no phase is caught):
 
 1. the card: name and power limit (nvidia-smi), torch's device name;
-2. build every CUDA source in csrc/ (one nvcc per source, all started
-   together) and print ptxas' register / shared-memory report and each
-   build's seconds (or that it was cached);
+2. build every CUDA source in csrc/ (five sources, one nvcc each, all
+   started together) and print ptxas' register / shared-memory report and
+   each build's seconds (or that it was cached);
 3. hold each kernel against its plain PyTorch version on the card, with
    stated tolerances, and time kernel, plain version and the one PyTorch
    library call that computes the same function (the yardstick, never
@@ -19,7 +19,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    with an lse cotangent; the decode step tq = 1 over 1024 keys; each
    backward pass launched and checked on its own), a causal forward and
    backward at t = 8192 whose memory rise shows no [tq, tk] tensor, and
-   the dropout-mask dump, bit for bit;
+   the dropout-mask dump, bit for bit; then (3c) the three kernel
+   studies of paddle_tpu_torch/benchmarks: the combined 1x1-conv backward
+   at ResNet-50's three expand-conv shapes (batch 128), the grouped 3x3
+   convolution at SE-ResNeXt-50's two c1 shapes, and the attention
+   ablation in all four variants at h8/dh64 and two at h4/dh128, each
+   against its plain version and timed beside its library call;
 4. serve Transformer-base (base() widths, random weights from a seeded
    generator) through ServingEngine on CUDAPlace(0): 16 requests on 8
    slots at src_len = max_len = 128, then (4b) 8 requests on 4 slots at
@@ -38,7 +43,22 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    on the CPU: full widths and depth at batch 2 x seq 32, and (6b) 2+2
    layers at seq 768 (kblock route) and 1280 (bhtd route): loss and a
    named set of parameter gradients;
-7. print the kernels' JSON line, the card line, and the result line.
+7. train ResNet-50 and (7b) SE-ResNeXt-50 at ImageNet shape (3 x 224 x
+   224, 1000 classes, bf16 AMP, Momentum(0.1, 0.9), batch 128, synthetic
+   batches from dataset/imagenet.py staged on the card) through
+   Executor.run_steps: finite loss every step, lower loss after the
+   repeated-batch steps, moving mean / variance moved off 0 / 1, step
+   wall and device-busy ms, images/s, peak memory, device ms by kernel
+   family, top device kernels;
+   (7c) walk both Programs and count the conv2d ops whose backward and
+   forward shapes are the ones phase 3c ran at;
+8. one f32 training step (TF32 off) of ResNet-50 and of SE-ResNeXt-50 (a
+   head without dropout) at batch 4, 3 x 64 x 64 on the card against the
+   same step on the CPU: the loss and the classifier head's gradients
+   held, a named set of gradients printed; and the same step in f64,
+   which holds every named gradient tightly (the f32 step of a 50-layer
+   net at initialization cannot: see TOL_VISION_F32);
+9. print the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a result when CUDA is unavailable or when the
 package is not next to this script.
@@ -90,6 +110,40 @@ PEAK_BYTES_PER_S = 3.35e12
 # long-context rows at constant tokens per step (bench.py:199)
 TRAIN_B, TRAIN_T = 64, 256
 LONG_TRAIN = ((1024, 8, "kblock"), (4096, 2, "bhtd"))
+
+# Phase 3c, kernel vs plain version (max abs error). Both sum the same
+# bf16 products in f32, in other orders, and round the result to bf16
+# once, so they differ by at most one bf16 ulp (2^-7 relative) of the
+# largest output. Read on an H100: conv1x1 dx 0.25-0.5 at |dx| <= 99-164
+# (2.5e-3 to 3.9e-3 of the largest), grouped conv 7.8e-3 at |y| <= 3.3,
+# attention ablation 6.1e-5 at |out| <= 0.027: half the limit each.
+TOL_BF16_ULP_REL = 2.0 ** -7
+# conv1x1 dW (f32, never rounded) relative to its largest element: read
+# 1.9e-6 on an H100 (tensor-core f32 accumulation against cuBLAS f32);
+# the JAX script asserts 1e-3.
+TOL_DW_REL = 1e-5
+# the vision training runs (phases 7, 7b): bench_resnet.py's batch,
+# optimizer and learning rate
+VISION_BATCH = 128
+VISION_LR, VISION_MOMENTUM = 0.1, 0.9
+# the rate the falling-loss check falls back to (read on an H100:
+# ResNet-50 at 0.1 goes 7.46, 5.83, 5.51, 6.30, 7.27, 7.51 on a repeated
+# batch; at 0.01 it falls every step, 7.46 to 5.56)
+VISION_FALL_LR = 0.01
+# One vision training step on the card vs on the CPU (phase 8), TF32 off:
+# (loss abs, gradient relative to its largest element). A freshly
+# initialized 50-layer batch-normalized ReLU net amplifies a perturbation
+# layer by layer: on the CPU alone, a 1e-6 relative change of the images
+# moves ResNet-50's early-layer gradients by 2-14% (f32 and f64 alike),
+# and the f32 step differs from the f64 step by 2-6%. So the f32 step
+# holds the loss (read 3.3e-5 / 6.5e-5 and 3.3e-6 on an H100) and the
+# gradients of the classifier head, which depend on the forward pass alone
+# (read 1.2e-4 and 2.4e-5), and prints the others (read up to 3.3e-1 for
+# ResNet-50, 1.2e-1 for SE-ResNeXt-50). The same step in f64, where
+# rounding starts 1e9 times smaller, holds every named gradient tightly
+# (read: loss within 1.7e-14, gradients within 4.6e-13).
+TOL_VISION_F32 = (5e-4, 2e-3)
+TOL_VISION_F64 = (1e-11, 1e-10)
 
 _SRC_FWD = "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu"
 _SRC_BWD = "paddle_tpu_torch/csrc/flash_attention_bthd_bwd.cu"
@@ -779,6 +833,358 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
             "loss_err": loss_err, "grad_rel_err": rel}
 
 
+def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
+               nbytes, iters):
+    """Times of one kernel study case: events, profiler, plain version,
+    library call (None when there is none), and the bound at the bf16
+    tensor-core peak."""
+    bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+    return {
+        "case": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
+        "ms": _time_ms(launch, iters, warmup=3),
+        "device_ms": _device_ms(launch, match, iters=min(iters, 10)),
+        "plain_ms": _time_ms(plain, 3, warmup=1),
+        "library_ms": (None if library is None
+                       else _time_ms(library, iters, warmup=3)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_conv1x1_bwd(cb, n, ci, co):
+    """Phase 3c: the combined 1x1-conv backward kernel against its plain
+    version at one shape. Bound: x, dy, W read once, dx (bf16) and dW
+    (f32) written once; 4*n*ci*co operations."""
+    import torch
+
+    x, dy, w = cb.make_inputs(n, ci, co, seed=SEED, device="cuda")
+    before = cb.launches
+    dx, dw = cb.combined_conv1x1_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    assert cb.launches == before + 1
+    ref_dx, ref_dw = cb.combined_conv1x1_bwd_plain(x, dy, w)
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16
+    assert dw.shape == w.shape and dw.dtype == torch.float32
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw).all()
+    err = (dx.float() - ref_dx.float()).abs().max().item()
+    tol = TOL_BF16_ULP_REL * ref_dx.float().abs().max().item()
+    dw_rel = ((dw - ref_dw).abs().max() / ref_dw.abs().max()).item()
+    assert err <= tol and dw_rel <= TOL_DW_REL, (
+        f"conv1x1_bwd {n}x{ci}x{co}: dx err {err} (tol {tol}), dW rel err "
+        f"{dw_rel} (tol {TOL_DW_REL})")
+    del ref_dx, ref_dw
+    row = _study_row(
+        f"conv1x1_bwd n{n} ci{ci} co{co}", (n, ci, co),
+        lambda: cb.combined_conv1x1_bwd(x, dy, w),
+        lambda: cb.combined_conv1x1_bwd_plain(x, dy, w),
+        lambda: cb.matmul_pair(x, dy, w), "conv1x1_bwd", err, tol,
+        4.0 * n * ci * co,
+        2 * (n * ci + n * co + ci * co) + 2 * n * ci + 4 * ci * co, 20)
+    row["dw_rel_err"], row["tol_dw_rel"] = dw_rel, TOL_DW_REL
+    row["plan_cs_tn_parts_tiles"] = list(cb.plan(
+        n, ci, co, torch.cuda.get_device_properties(0).multi_processor_count))
+    return row
+
+
+def check_grouped_conv(gc, tag, n, h, w, c):
+    """Phase 3c: the grouped 3x3 convolution kernel against its plain
+    version at one shape. Bound: x read once, y written once, the weights
+    read once; 2*9*cg operations an output."""
+    import torch
+
+    x, wg = gc.make_inputs(n, h, w, c, seed=SEED, device="cuda")
+    cg = c // gc.GROUPS
+    before = gc.launches
+    y = gc.grouped_conv(x, wg, gc.GROUPS)
+    torch.cuda.synchronize()
+    assert gc.launches == before + 1
+    ref = gc.grouped_conv_plain(x, wg, gc.GROUPS)
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    assert torch.isfinite(y.float()).all()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = TOL_BF16_ULP_REL * ref.float().abs().max().item()
+    assert err <= tol, f"grouped_conv {tag}: err {err} (tol {tol})"
+    del ref
+    return _study_row(
+        f"grouped_conv {tag}", (n, h, w, c),
+        lambda: gc.grouped_conv(x, wg, gc.GROUPS),
+        lambda: gc.grouped_conv_plain(x, wg, gc.GROUPS),
+        lambda: gc.conv_ref(x, wg, gc.GROUPS), "grouped_conv", err, tol,
+        18.0 * cg * n * h * w * c, 2 * (2 * n * h * w * c + 9 * cg * c), 20)
+
+
+def check_attn_ablate(aa, name, b, h, t, dh, variant):
+    """Phase 3c: one variant of the attention ablation kernel against its
+    plain version (bq = t, bk = t as the study runs it). Bound:
+    4*b*h*t^2*dh operations; q, k, v read once, out written once. The
+    library call exists for the full variant only."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = aa.make_inputs(b, h, t, dh, seed=SEED, device="cuda")
+    fwd = aa.make_fwd(variant, b, h, t, dh, t, t)
+    before = aa.launches
+    out = fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert aa.launches == before + 1
+    ref = aa.attn_ablate_plain(q, k, v, variant, t)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL_BF16_ULP_REL * ref.float().abs().max().item()
+    assert err <= tol, f"attn_ablate {name}/{variant}: err {err} (tol {tol})"
+    del ref
+    library = ((lambda: F.scaled_dot_product_attention(q, k, v))
+               if variant == "full" else None)
+    return _study_row(
+        f"attn_ablate {name} {variant}", (b, h, t, dh),
+        lambda: fwd(q, k, v),
+        lambda: aa.attn_ablate_plain(q, k, v, variant, t), library,
+        "attn_ablate", err, tol, 4.0 * b * h * t * t * dh,
+        2 * 4 * b * h * t * dh, 50)
+
+
+def _se_resnext_no_dropout(fluid, S, data_shape, class_dim):
+    """SE-ResNeXt-50 from the model's public pieces with the head's
+    dropout left out (its mask differs between devices), for phase 8."""
+    layers = fluid.layers
+    img = layers.data("data", shape=list(data_shape), dtype="float32")
+    label = layers.data("label", shape=[1], dtype="int64")
+    x = S.conv_bn_layer(img, 64, 7, stride=2, act="relu", prefix="stem")
+    x = layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1,
+                      pool_type="max")
+    for block, (n, filters) in enumerate(zip([3, 4, 6, 3],
+                                             [128, 256, 512, 1024])):
+        for i in range(n):
+            x = S.bottleneck_block(
+                x, filters, stride=2 if i == 0 and block != 0 else 1,
+                cardinality=32, reduction_ratio=16, is_test=False,
+                prefix=f"b{block}_{i}")
+    pool = layers.pool2d(x, pool_type="avg", global_pooling=True)
+    pool = layers.reshape(pool, [-1, pool.shape[1]])
+    logits = layers.fc(pool, class_dim,
+                       param_attr=fluid.ParamAttr(name="fc_out.w"),
+                       bias_attr=fluid.ParamAttr(name="fc_out.b"))
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+    return {"feeds": [img, label], "loss": loss, "logits": logits}
+
+
+def _build_vision(fluid, build, lr, amp):
+    """(main, startup, model); ``model["lr"]`` names the learning-rate
+    var the optimizer made."""
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup):
+        with fluid.unique_name.guard():
+            model = build()
+            opt = fluid.optimizer.Momentum(lr, VISION_MOMENTUM)
+            opt.minimize(model["loss"])
+    if amp:
+        fluid.amp.enable_amp(main_prog)
+    startup.random_seed = main_prog.random_seed = SEED
+    model["lr"] = opt.learning_rate.name
+    return main_prog, startup, model
+
+
+# Device kernels of a vision step by family: the first family with a
+# pattern that a kernel's name contains takes it (cuDNN's layout copies
+# before the convolutions they serve).
+_KERNEL_FAMILIES = (
+    ("layout copies (cuDNN)", ("nchwToNhwc", "nhwcToNchw")),
+    ("pooling", ("pool",)),
+    ("convolution and matmul (cuDNN, cuBLAS)",
+     ("cudnn", "cutlass", "xmma", "gemm", "gemv", "nvjet", "conv", "wgrad",
+      "dgrad", "sm90", "sm80")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset")),
+)
+
+
+def _kernel_families(times):
+    """{family: device ms a step} of a {kernel name: ms} trace."""
+    out = {family: 0.0 for family, _ in _KERNEL_FAMILIES}
+    out["other"] = 0.0
+    for kernel, ms in times.items():
+        out[next((family for family, patterns in _KERNEL_FAMILIES
+                  if any(p in kernel for p in patterns)), "other")] += ms
+    return out
+
+
+def train_vision(torch, np, fluid, imagenet, name, build, *, batch, lr,
+                 fall_lr, repeated=6, window=6):
+    """Phases 7/7b: train one vision model at ImageNet shape through
+    Executor.run_steps (bf16 AMP, Momentum). The synthetic batches are
+    made on the host from a seed and staged on the card once, so a step's
+    wall time holds no host-to-device copy of the images. The loss must
+    fall over ``repeated`` steps on one batch at ``lr``; where it does not
+    (momentum 0.9 at rate 0.1 overshoots on a single repeated batch), what
+    was read is kept in the row and the check is held from a fresh start
+    at ``fall_lr``. The timed window runs at ``lr``."""
+    main_prog, startup, model = _build_vision(fluid, build, lr, amp=True)
+    loss = model["loss"]
+    dev = torch.device("cuda", 0)
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+             for f in imagenet.batched(batch, 3, seed=SEED)()]
+    bn = next(op for op in main_prog.global_block().ops
+              if op.type == "batch_norm")
+    mean_name, var_name = bn.inputs["Mean"][0], bn.inputs["Variance"][0]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fluid.scope_guard(scope):
+        def repeat(rate):
+            """Losses of ``repeated`` steps on one batch from a fresh
+            start at learning rate ``rate``."""
+            exe.run(startup)
+            assert float(scope.find_var(mean_name).abs().max()) == 0.0
+            assert float((scope.find_var(var_name) - 1).abs().max()) == 0.0
+            scope.set(model["lr"], torch.full((1,), rate, device=dev))
+            out = []
+            for _ in range(repeated):
+                (value,) = exe.run_steps(main_prog, feeds[:1], 1, [loss])
+                out.append(float(value))
+            assert all(np.isfinite(out)), (name, rate, out)
+            return out
+
+        losses = {str(lr): repeat(lr)}
+        if not losses[str(lr)][-1] < losses[str(lr)][0]:
+            print(f"train_{name}: the loss did not fall at lr {lr}: "
+                  f"{losses[str(lr)]}; holding the check at lr {fall_lr}",
+                  flush=True)
+            losses[str(fall_lr)] = repeat(fall_lr)
+            assert losses[str(fall_lr)][-1] < losses[str(fall_lr)][0], (
+                name, losses)
+            scope.set(model["lr"], torch.full((1,), lr, device=dev))
+        moved = {
+            "moving_mean_max_abs": float(scope.find_var(mean_name).abs()
+                                         .max()),
+            "moving_var_max_dev": float((scope.find_var(var_name) - 1).abs()
+                                        .max())}
+        assert min(moved.values()) > 0.0, (name, moved)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (value, acc) = exe.run_steps(main_prog, feeds, window,
+                                     [loss, model["acc"]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert np.isfinite(value), (name, value)
+        assert all(torch.isfinite(scope.find_var(p.name)).all()
+                   for p in main_prog.all_parameters()), "non-finite weights"
+        times = _device_times(
+            lambda: exe.run_steps(main_prog, feeds[:1], 1, [loss]), iters=2)
+    device_ms = sum(times.values()) or None
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    step_ms = wall / window * 1e3
+    ops = main_prog.global_block().ops
+    return main_prog, {
+        "model": name, "batch": batch, "image": [3, 224, 224],
+        "classes": 1000, "amp": True, "lr": lr, "momentum": VISION_MOMENTUM,
+        "ops_per_step": len(ops),
+        "repeated_batch_losses": losses, "window_steps": window,
+        "last_loss": float(value), "last_acc": float(acc), **moved,
+        "step_ms": step_ms, "step_device_ms": device_ms,
+        "idle_share": None if device_ms is None else 1 - device_ms / step_ms,
+        "images_per_s": batch * window / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "device_ms_by_family": _kernel_families(times),
+        "top_kernels_ms": [[k[:80], ms] for k, ms in top],
+    }
+
+
+def _conv_ops(program, batch):
+    """(filter shape, input shape, output shape, attrs) of every conv2d op
+    of a Program, with the batch dim filled in."""
+    block = program.global_block()
+    for op in block.ops:
+        if op.type != "conv2d":
+            continue
+        shapes = [tuple(batch if d == -1 else d for d in block.var(n).shape)
+                  for n in (op.inputs["Filter"][0], op.inputs["Input"][0],
+                            op.outputs["Output"][0])]
+        yield (*shapes, op.attrs)
+
+
+def live_shapes(resnet_prog, se_prog, batch, conv_shapes, gconv_shapes):
+    """Phase 7c: how many conv2d ops a step of each trained Program have
+    the shapes the kernel studies ran at. A 1x1, stride-1, ungrouped conv
+    over [N, ci, H, W] has the backward (N*H*W, ci, co); a 3x3, stride-1
+    conv with 32 groups and as many output as input channels has the
+    forward (N, H, W, C). Fails when a studied shape is live in neither."""
+    counts = {}
+    for n, ci, co in conv_shapes:
+        counts[f"conv1x1_bwd {n}x{ci}x{co}"] = sum(
+            1 for f, i, o, a in _conv_ops(resnet_prog, batch)
+            if f[2:] == (1, 1) and a["strides"] == [1, 1]
+            and a["groups"] == 1
+            and (i[0] * i[2] * i[3], i[1], o[1]) == (n, ci, co))
+    for tag, n, h, w, c in gconv_shapes:
+        counts[f"grouped_conv {tag} {n}x{h}x{w}x{c}"] = sum(
+            1 for f, i, o, a in _conv_ops(se_prog, batch)
+            if f[2:] == (3, 3) and a["strides"] == [1, 1]
+            and a["groups"] == 32 and a["paddings"] == [1, 1]
+            and (i[0], i[2], i[3], i[1]) == (n, h, w, c) and o[1] == c)
+    assert all(v > 0 for v in counts.values()), counts
+    return counts
+
+
+def vision_vs_cpu(torch, np, fluid, name, build, names, head, *, double,
+                  batch=4, image=64, classes=1000):
+    """Phase 8: one training step (TF32 off, Momentum) of a vision model
+    on the card against the same step, from the same state and batch, on
+    the CPU: the loss and the named gradients, each relative to its
+    largest element. ``double``: state and images cast to float64 (every
+    op of the path follows its inputs' dtype), and every named gradient is
+    held; in f32 only those of ``head`` (the classifier's) are."""
+    main_prog, startup, model = _build_vision(fluid, build, VISION_LR,
+                                              amp=False)
+    rng = np.random.RandomState(SEED)
+    wide = np.float64 if double else np.float32
+    feed = {"data": rng.uniform(-1, 1, (batch, 3, image, image)).astype(wide),
+            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
+    fetch = [model["loss"]] + [n + "@GRAD" for n in names]
+    from paddle_tpu_torch import io as tio
+
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    state = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+    state = {n: v.astype(wide) if v.dtype == np.float32 else v
+             for n, v in state.items()}
+    results = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        with fluid.scope_guard(tio.scope_from_numpy(state, place)):
+            results.append(fluid.Executor(place).run(main_prog, feed=feed,
+                                                     fetch_list=fetch))
+    gpu, cpu = results
+    assert gpu[1].dtype == wide, gpu[1].dtype
+    loss_err = abs(float(gpu[0]) - float(cpu[0]))
+    rel = {}
+    for n, g, c in zip(names, gpu[1:], cpu[1:]):
+        assert g.shape == c.shape and np.isfinite(g).all(), n
+        rel[n] = float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
+    tol_loss, tol_grad = TOL_VISION_F64 if double else TOL_VISION_F32
+    row = {"model": name, "dtype": np.dtype(wide).name, "batch": batch,
+           "image": image, "loss_gpu": float(gpu[0]),
+           "loss_cpu": float(cpu[0]), "loss_err": loss_err,
+           "grad_rel_err": rel, "tol_loss": tol_loss,
+           "tol_grad_rel": tol_grad,
+           "grads_held": list(names if double else head)}
+    held = names if double else head
+    assert loss_err <= tol_loss and max(rel[n] for n in held) <= tol_grad, row
+    return row
+
+
+def _study_entry(name, source, replaces, launches, first, rows):
+    """A kernels-line entry for a kernel study: the times of the case
+    ``first``, the largest error over all its cases ``rows``."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]}
+
+
 def _kernel_entry(name, source, replaces, launches, row, err):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -859,6 +1265,12 @@ def main() -> int:
 
         import paddle_tpu_torch as fluid
         from paddle_tpu_torch import kernels, serving
+        from paddle_tpu_torch.benchmarks import attn_ablate as aa
+        from paddle_tpu_torch.benchmarks import conv_bwd as cb
+        from paddle_tpu_torch.benchmarks import grouped_conv as gc
+        from paddle_tpu_torch.dataset import imagenet
+        from paddle_tpu_torch.models import resnet as R
+        from paddle_tpu_torch.models import se_resnext as S
         from paddle_tpu_torch.models import transformer as T
         from paddle_tpu_torch.parallel import flash_attention as fa
     except ImportError as e:
@@ -880,7 +1292,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build every kernel source, one nvcc each, all started together
-    sources = [fa._FWD_SOURCE, fa._BWD_SOURCE]
+    sources = [fa._FWD_SOURCE, fa._BWD_SOURCE, cb.SOURCE, gc.SOURCE,
+               aa.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(kernels.build, sources))
     for source, built in zip(sources, builds):
@@ -919,6 +1332,25 @@ def main() -> int:
             "pass_a": c_b["device_ms_pass_a"] / n_b["device_ms_pass_a"],
             "pass_b": c_b["device_ms_pass_b"] / n_b["device_ms_pass_b"]}
     print("causal_skip " + json.dumps(skip), flush=True)
+
+    # 3c. the kernel studies against their plain versions, then each
+    # study's own entry point with its launch count read from that run
+    conv_rows = [check_conv1x1_bwd(cb, *shape) for shape in cb.SHAPES]
+    gconv_rows = [check_grouped_conv(gc, *shape) for shape in gc.SHAPES]
+    ablate_rows = [check_attn_ablate(aa, name, 64, h, 256, dh, variant)
+                   for name, (h, dh), variants in aa.head_shapes()
+                   for variant in variants]
+    for r in conv_rows + gconv_rows + ablate_rows:
+        print("study " + json.dumps(r), flush=True)
+        torch.cuda.empty_cache()
+    cb.launches = gc.launches = aa.launches = 0
+    for study in (cb, gc, aa):
+        study.main()
+    study_launches = {"conv_bwd": cb.launches, "grouped_conv": gc.launches,
+                      "attn_ablate": aa.launches}
+    assert min(study_launches.values()) > 0, study_launches
+    print("study_launches " + json.dumps(study_launches), flush=True)
+    torch.cuda.empty_cache()
 
     # 4. the serving path, at src_len 128 and (4b) 1024
     s = serve(torch, np, fluid, T, fa, serving, cfg=T.base(), slots=8,
@@ -968,6 +1400,46 @@ def main() -> int:
                           batch=1, max_length=seq + 2)
         print(f"train_vs_cpu_t{seq} " + json.dumps(c6), flush=True)
 
+    # 7. the vision training path: ResNet-50, (7b) SE-ResNeXt-50, and
+    # (7c) the studied shapes among their conv2d ops
+    shape = dict(data_shape=(3, 224, 224), class_dim=1000, depth=50)
+    vision_progs = {}
+    for name, build in (("resnet50", lambda: R.get_model(**shape)),
+                        ("se_resnext50", lambda: S.get_model(**shape))):
+        vision_progs[name], v = train_vision(
+            torch, np, fluid, imagenet, name, build, batch=VISION_BATCH,
+            lr=VISION_LR, fall_lr=VISION_FALL_LR)
+        print(f"train_{name} " + json.dumps(v), flush=True)
+        print(f"training {name} on {card}: step {v['step_ms']:.1f} ms wall, "
+              f"{v['step_device_ms']} ms device busy, "
+              f"{v['images_per_s']:.0f} images/s, peak "
+              f"{v['peak_mem_gib']:.2f} GiB", flush=True)
+        torch.cuda.empty_cache()
+    live = live_shapes(vision_progs["resnet50"], vision_progs["se_resnext50"],
+                       VISION_BATCH, cb.SHAPES, gc.SHAPES)
+    print("live_shapes " + json.dumps(live), flush=True)
+    del vision_progs
+
+    # 8. one f32 vision training step on the card against the CPU
+    small = dict(data_shape=(3, 64, 64), class_dim=1000)
+    for name, build, names, head in (
+            ("resnet50", lambda: R.get_model(depth=50, **small),
+             ["conv2d_0.w_0", "conv2d_1.w_0", "conv2d_3.w_0",
+              "conv2d_26.w_0", "conv2d_52.w_0", "batch_norm_0.w_0",
+              "batch_norm_52.b_0", "fc_0.w_0", "fc_0.b_0"],
+             ["fc_0.w_0", "fc_0.b_0"]),
+            ("se_resnext50 (no dropout)",
+             lambda: _se_resnext_no_dropout(fluid, S, **small),
+             ["stem_conv.w", "b0_0_c1_conv.w", "b0_0_se_sqz.w",
+              "b0_0_se_exc.b", "b1_0_sc_conv.w", "b2_3_c1_conv.w",
+              "b3_2_c2_conv.w", "stem_bn.scale", "b3_2_c2_bn.offset",
+              "fc_out.w", "fc_out.b"], ["fc_out.w", "fc_out.b"])):
+        for double in (False, True):
+            c8 = vision_vs_cpu(torch, np, fluid, name, build, names, head,
+                               double=double)
+            print("vision_vs_cpu " + json.dumps(c8), flush=True)
+        torch.cuda.empty_cache()
+
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
     bwd_main = bwd_results["train bf16 pad drop"]
@@ -1010,6 +1482,20 @@ def main() -> int:
             "flash_attention_bthd_bwd (kblock route)", _SRC_BWD,
             f"{_TPU_FA}:1028", t1k["launches"]["kblock/bwd"], kb_bwd,
             max(kb_bwd["err_dq_dk_dv"])),
+        _study_entry(
+            "attn_ablate make_fwd (four variants)",
+            "paddle_tpu_torch/csrc/attn_ablate.cu",
+            "benchmarks/attn_ablate.py:41", study_launches["attn_ablate"],
+            next(r for r in ablate_rows if r["library_ms"] is not None),
+            ablate_rows),
+        _study_entry(
+            "combined_conv1x1_bwd", "paddle_tpu_torch/csrc/conv1x1_bwd.cu",
+            "benchmarks/conv_bwd_pallas.py:80", study_launches["conv_bwd"],
+            conv_rows[0], conv_rows),
+        _study_entry(
+            "grouped_conv", "paddle_tpu_torch/csrc/grouped_conv.cu",
+            "benchmarks/grouped_conv_pallas.py:42",
+            study_launches["grouped_conv"], gconv_rows[0], gconv_rows),
     ]}
     print(json.dumps(kernels_line))
     print(card)

@@ -77,3 +77,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` (built and loaded on
+    first use), taking ``argtypes`` and returning a ``cudaError_t``."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise when a C entry of ``csrc/<name>.cu`` returned a CUDA error."""
+    if rc != 0:
+        describe = load(name).pt_cuda_error_string
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what} launch failed: {describe(rc).decode()} "
+                           f"(cudaError {rc})")

@@ -1,4 +1,4 @@
-"""Layers API: the graph-building functions the served transformer uses."""
+"""Layers API: the graph-building functions the ported models use."""
 
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403

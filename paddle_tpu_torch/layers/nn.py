@@ -3,15 +3,16 @@
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 from paddle_tpu_torch.framework import Variable, convert_np_dtype_to_dtype_
-from paddle_tpu_torch.initializer import ConstantInitializer
+from paddle_tpu_torch.initializer import ConstantInitializer, NormalInitializer
 from paddle_tpu_torch.layer_helper import LayerHelper
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "relu", "abs",
+    "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+    "dropout", "relu", "sigmoid", "abs", "mean", "accuracy", "topk",
     "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
     "elementwise_add", "elementwise_mul", "elementwise_div",
     "elementwise_max", "reduce_sum", "reduce_max", "scale", "cast",
@@ -91,6 +92,172 @@ def embedding(
     return out
 
 
+def _two(v):
+    return [v] * 2 if isinstance(v, int) else list(v)
+
+
+def conv2d(
+    input: Variable,
+    num_filters: int,
+    filter_size: Union[int, Sequence[int]],
+    stride: Union[int, Sequence[int]] = 1,
+    padding: Union[int, Sequence[int]] = 0,
+    dilation: Union[int, Sequence[int]] = 1,
+    groups: int = 1,
+    param_attr=None,
+    bias_attr=None,
+    use_cudnn: bool = True,
+    act: Optional[str] = None,
+    name: Optional[str] = None,
+):
+    """2D convolution, NCHW (reference: layers/nn.py conv2d). The filter
+    defaults to Normal(0, sqrt(2 / fan_in)); ``groups == c_in`` emits
+    ``depthwise_conv2d``."""
+    helper = LayerHelper("conv2d", name=name, bias_attr=bias_attr, act=act)
+    c_in = input.shape[1]
+    fs = _two(filter_size)
+    groups = groups or 1
+    fan_in = (c_in // groups) * math.prod(fs)
+    w = helper.create_parameter(
+        ParamAttr._to_attr(param_attr),
+        shape=[num_filters, c_in // groups] + fs,
+        dtype=input.dtype,
+        default_initializer=NormalInitializer(0.0, math.sqrt(2.0 / fan_in)),
+    )
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "conv2d" if groups == 1 or c_in != groups else "depthwise_conv2d",
+        inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={
+            "strides": _two(stride),
+            "paddings": _two(padding),
+            "dilations": _two(dilation),
+            "groups": groups,
+        },
+    )
+    pre_act = _conv_bias(helper, out)
+    return helper.append_activation(pre_act)
+
+
+def _conv_bias(helper, out):
+    """Add a per-channel bias (axis 1) unless ``bias_attr`` is False."""
+    bias_attr = helper.kwargs.get("bias_attr")
+    if bias_attr is False:
+        return out
+    num_filters = out.shape[1] if out.shape else 1
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr), shape=[num_filters], dtype=out.dtype,
+        is_bias=True,
+    )
+    if b is None:
+        return out
+    res = helper.create_variable_for_type_inference(dtype=out.dtype)
+    helper.append_op(
+        "elementwise_add",
+        inputs={"X": out, "Y": b},
+        outputs={"Out": res},
+        attrs={"axis": 1},
+    )
+    return res
+
+
+def pool2d(
+    input,
+    pool_size=2,
+    pool_type="max",
+    pool_stride=1,
+    pool_padding=0,
+    global_pooling=False,
+    use_cudnn=True,
+    ceil_mode=False,
+    exclusive=True,
+    name=None,
+):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "pool2d",
+        inputs={"X": input},
+        outputs={"Out": out},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": _two(pool_size),
+            "strides": _two(pool_stride),
+            "paddings": _two(pool_padding),
+            "global_pooling": global_pooling,
+            "exclusive": exclusive,
+        },
+    )
+    return out
+
+
+def batch_norm(
+    input,
+    act=None,
+    is_test=False,
+    momentum=0.9,
+    epsilon=1e-5,
+    param_attr=None,
+    bias_attr=None,
+    data_layout="NCHW",
+    in_place=False,
+    name=None,
+    moving_mean_name=None,
+    moving_variance_name=None,
+    do_model_average_for_mean_and_var=False,
+    use_global_stats=False,
+):
+    """Batch normalization (reference: layers/nn.py batch_norm). The
+    moving mean and variance are non-trainable parameters that the op
+    writes back through MeanOut / VarianceOut under their own names."""
+    helper = LayerHelper("batch_norm", name=name, act=act)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = input.dtype
+
+    scale = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0),
+    )
+    bias = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr), shape=[c], dtype=dtype, is_bias=True,
+    )
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, initializer=ConstantInitializer(0.0),
+                  trainable=False),
+        shape=[c], dtype=dtype,
+    )
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name,
+                  initializer=ConstantInitializer(1.0), trainable=False),
+        shape=[c], dtype=dtype,
+    )
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": var},
+        outputs={
+            "Y": out,
+            "MeanOut": mean,
+            "VarianceOut": var,
+            "SavedMean": saved_mean,
+            "SavedVariance": saved_var,
+        },
+        attrs={
+            "momentum": momentum,
+            "epsilon": epsilon,
+            "is_test": is_test or use_global_stats,
+            "data_layout": data_layout,
+        },
+    )
+    return helper.append_activation(out)
+
+
 def layer_norm(
     input,
     scale=True,
@@ -157,6 +324,10 @@ def relu(x, name=None):
     return _single_op("relu", x, name=name)
 
 
+def sigmoid(x, name=None):
+    return _single_op("sigmoid", x, name=name)
+
+
 def abs(x, name=None):
     return _single_op("abs", x, name=name)
 
@@ -193,7 +364,44 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None
     return out
 
 
+# --- metrics ---
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference(
+        dtype="float32", stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        dtype="int32", stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        dtype="int32", stop_gradient=True)
+    helper.append_op(
+        "accuracy",
+        inputs={"Out": topk_out, "Indices": topk_indices, "Label": label},
+        outputs={"Accuracy": acc, "Correct": correct, "Total": total},
+    )
+    return acc
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    vals = helper.create_variable_for_type_inference(dtype=input.dtype)
+    idx = helper.create_variable_for_type_inference(
+        dtype="int64", stop_gradient=True)
+    helper.append_op(
+        "top_k", inputs={"X": input}, outputs={"Out": vals, "Indices": idx},
+        attrs={"k": k},
+    )
+    return vals, idx
+
+
 # --- math wrappers ---
+
+
+def mean(x, name=None):
+    return _single_op("mean", x, name=name)
+
 
 
 def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):

@@ -1,1 +1,2 @@
-"""Model zoo: the transformer served by serving.py."""
+"""Model zoo: the Transformer (trained and served), ResNet and
+SE-ResNeXt."""

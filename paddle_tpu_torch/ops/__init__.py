@@ -1,4 +1,4 @@
-"""Operator library: the op types the transformer's training and serving
+"""Operator library: the op types the ported models' training and serving
 programs use, each a plain PyTorch function (see core/registry.py)."""
 
 from paddle_tpu_torch.ops import (  # noqa: F401

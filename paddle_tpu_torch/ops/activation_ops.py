@@ -15,3 +15,4 @@ def _unary(name, fn):
 
 _unary("relu", torch.relu)
 _unary("abs", torch.abs)
+_unary("sigmoid", torch.sigmoid)

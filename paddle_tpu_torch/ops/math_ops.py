@@ -85,6 +85,11 @@ def _sum(ins, attrs, device):
     return {"Out": [out]}
 
 
+@register_op("mean", doc="mean over all elements (mean_op.cc)")
+def _mean(ins, attrs, device):
+    return {"Out": [torch.mean(_x(ins))]}
+
+
 def _reduce_dims(x, attrs):
     if attrs.get("reduce_all", False):
         return tuple(range(x.dim())), attrs.get("keep_dim", False)

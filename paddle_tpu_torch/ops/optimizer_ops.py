@@ -1,5 +1,5 @@
 """Optimizer update ops (reference kernels: paddle/fluid/operators/
-optimizers/{sgd_op.cc, adam_op.cc}). Updates are functional: the op
+optimizers/{sgd_op.cc, momentum_op.cc, adam_op.cc}). Updates are functional: the op
 returns the new parameter and accumulator values under the same
 variable names, and the executor commits them to the scope."""
 
@@ -19,6 +19,22 @@ def _g(ins, slot):
 def _sgd(ins, attrs, device):
     p, g, lr = _g(ins, "Param"), _g(ins, "Grad"), _g(ins, "LearningRate")
     return {"ParamOut": [p - lr.reshape(()).to(p.dtype) * g.to(p.dtype)]}
+
+
+@register_op("momentum", no_grad=True)
+def _momentum(ins, attrs, device):
+    """v' = mu * v + g; p' = p - lr * v', or with ``use_nesterov``
+    p' = p - (g + mu * v') * lr."""
+    p, g, v = _g(ins, "Param"), _g(ins, "Grad"), _g(ins, "Velocity")
+    lr = _g(ins, "LearningRate").reshape(()).to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    g = g.to(p.dtype)
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": [p_new], "VelocityOut": [v_new]}
 
 
 @register_op("adam", no_grad=True)

@@ -147,6 +147,14 @@ def _lookup_table(ins, attrs, device):
     return {"Out": [out]}
 
 
+@register_op("top_k", no_grad=True)
+def _top_k(ins, attrs, device):
+    """The k largest entries of the last dim, largest first, and their
+    int64 indices (the order among equal entries is torch.topk's)."""
+    vals, idx = torch.topk(_x(ins), attrs["k"], dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
+
+
 @register_op("arg_max", no_grad=True)
 def _arg_max(ins, attrs, device):
     return {"Out": [torch.argmax(_x(ins), dim=attrs.get("axis", -1))]}

@@ -2,7 +2,8 @@
 
 ``minimize`` = ``append_backward`` + one update op per parameter, with
 per-parameter accumulators created as persistable vars initialized by
-the startup program. Ported: the ``Optimizer`` base, SGD and Adam.
+the startup program. Ported: the ``Optimizer`` base, SGD, Momentum and
+Adam.
 """
 
 from __future__ import annotations
@@ -122,6 +123,29 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super().__init__(learning_rate, regularization, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        block.append_op(
+            "momentum",
+            inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p.name, "VelocityOut": v.name},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, regularization=None, name=None):
@@ -155,4 +179,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -56,6 +56,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import kernels
+
 _NEG_INF = -1e30
 
 # --- routing (the JAX package's predicates, without its backend test) ---
@@ -85,7 +87,6 @@ dense_calls = 0     # calls on the dense route (plain composition)
 
 _FWD_SOURCE = "flash_attention_bthd_fwd"
 _BWD_SOURCE = "flash_attention_bthd_bwd"
-_libs = {}
 
 _U32 = 0xFFFFFFFF
 
@@ -237,11 +238,10 @@ def dropout_keep_mask(seed, b, h, tq, tk, p_drop, device):
         raise ValueError(f"dropout_keep_mask: p_drop={p_drop}")
     key, thresh, keep_scale = _dropout_params(seed, p_drop)
     out = torch.empty((b, tq, h, tk), dtype=torch.float32, device=device)
-    lib = _load(_FWD_SOURCE)
-    rc = lib.pt_dropout_keep_mask(
-        out.data_ptr(), b, tq, h, tk, key, thresh, keep_scale,
-        torch.cuda.current_stream(device).cuda_stream)
-    _check(lib, rc, "dropout_keep_mask")
+    entry = kernels.function(_FWD_SOURCE, "pt_dropout_keep_mask", _MASK_ARGS)
+    rc = entry(out.data_ptr(), b, tq, h, tk, key, thresh, keep_scale,
+               torch.cuda.current_stream(device).cuda_stream)
+    kernels.check(_FWD_SOURCE, rc, "dropout_keep_mask")
     mask_launches += 1
     return out
 
@@ -616,42 +616,18 @@ def _bias_strides(bias, b, h, tq, tk):
     return strides
 
 
-def _load(source):
-    lib = _libs.get(source)
-    if lib is None:
-        from paddle_tpu_torch import kernels
-
-        lib = kernels.load(source)
-        tail = ([ctypes.c_longlong] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
-                + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float])
-        if source == _FWD_SOURCE:
-            lib.pt_flash_attention_bthd_fwd.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                + [ctypes.POINTER(ctypes.c_longlong)] + tail
-                + [ctypes.c_void_p])
-            lib.pt_flash_attention_bthd_fwd.restype = ctypes.c_int
-            lib.pt_dropout_keep_mask.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_int] * 4
-                + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                   ctypes.c_void_p])
-            lib.pt_dropout_keep_mask.restype = ctypes.c_int
-        else:
-            lib.pt_flash_attention_bthd_bwd.argtypes = (
-                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                + [ctypes.POINTER(ctypes.c_longlong)] + tail
-                + [ctypes.c_int, ctypes.c_void_p])
-            lib.pt_flash_attention_bthd_bwd.restype = ctypes.c_int
-        lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pt_cuda_error_string.restype = ctypes.c_char_p
-        _libs[source] = lib
-    return lib
-
-
-def _check(lib, rc, fn):
-    if rc != 0:
-        raise RuntimeError(
-            f"{fn} launch failed: {lib.pt_cuda_error_string(rc).decode()} "
-            f"(cudaError {rc})")
+# ctypes signatures of the C entries (``kernels.function`` binds them)
+_ARGS_TAIL = ([ctypes.c_longlong] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
+              + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float])
+_FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
+             + [ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+             + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
+             + [ctypes.c_int, ctypes.c_void_p])
+_MASK_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+              + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                 ctypes.c_void_p])
 
 
 def _check_qkv(fn, q, k, v):
@@ -720,15 +696,16 @@ def _launch_fwd(route, q, k, v, bias, scale, seed, p_drop, causal, out, lse):
     _check_qkv(fn, q, k, v)
     b, tq, h, dh = q.shape
     bias = _bias_tensor(bias, q)
-    lib = _load(_FWD_SOURCE)
-    rc = lib.pt_flash_attention_bthd_fwd(
+    entry = kernels.function(_FWD_SOURCE, "pt_flash_attention_bthd_fwd",
+                             _FWD_ARGS)
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
         b, tq, k.shape[1], h, dh, _strides(q, k, v, out, lse),
         *_common_args(q, k, bias, scale, seed, p_drop, causal),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _check(lib, rc, fn)
+    kernels.check(_FWD_SOURCE, rc, fn)
     launches += 1
     launch_counts[(route, "fwd")] += 1
 
@@ -758,8 +735,9 @@ def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
     if g_lse is not None:
         g_lse = _rows(g_lse, torch.float32, q.device)
     delta = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
-    lib = _load(_BWD_SOURCE)
-    rc = lib.pt_flash_attention_bthd_bwd(
+    entry = kernels.function(_BWD_SOURCE, "pt_flash_attention_bthd_bwd",
+                             _BWD_ARGS)
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), g.data_ptr(), lse.data_ptr(),
@@ -769,6 +747,6 @@ def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
         _strides(q, k, v, out, g, lse, g_lse, dq, dk, dv),
         *_common_args(q, k, bias, scale, seed, p_drop, causal), passes,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _check(lib, rc, fn)
+    kernels.check(_BWD_SOURCE, rc, fn)
     bwd_launches += 1
     launch_counts[(route, "bwd")] += 1

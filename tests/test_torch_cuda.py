@@ -10,7 +10,8 @@ Tolerances as in chip_smoke.py: out 5e-6 in f32 (both sum in f32, in
 different orders) and 8e-3 in bf16 (one bf16 ulp of outputs below 2);
 lse, f32 in both dtypes, 5e-6; dq/dk/dv relative to the largest
 |gradient|, 1e-5 in f32 and 8e-3 (one bf16 ulp) in bf16. The dropout
-mask is compared bit for bit."""
+mask is compared bit for bit. The kernel studies' tolerances stand above
+their tests."""
 
 import pytest
 import torch
@@ -285,3 +286,181 @@ def test_causal_long_call_builds_no_score_sized_tensor(cuda):
     made = sum(t.numel() * t.element_size() for t in (out, lse, *grads))
     rise = torch.cuda.max_memory_allocated() - base - made
     assert rise < 32 * 2**20, rise
+
+
+# --- the kernel studies (paddle_tpu_torch/benchmarks) ---
+#
+# bf16 outputs within one bf16 ulp (2^-7 relative) of the largest output
+# (kernel and plain version sum the same bf16 products in f32, in other
+# orders, and round once); the f32 dW of the 1x1-conv backward within 1e-5
+# of its largest element (read 2e-6 on an H100).
+
+_ULP = 2.0 ** -7
+
+
+@pytest.mark.parametrize("n,ci,co", [
+    (4096, 64, 256),    # whole tiles, one slice
+    (3000, 128, 512),   # ragged: n is no multiple of the n-tile
+    (77, 64, 1024),     # fewer rows than one n-range; 16-channel slices
+    (5000, 48, 16),     # the narrowest co; a 48-channel slice
+    (1000, 32, 48),
+])
+def test_conv1x1_bwd_kernel_matches_plain(cuda, n, ci, co):
+    """Ragged n is handled (the JAX function asserts n % tn == 0): rows
+    past n are masked in the kernel's last tile."""
+    from paddle_tpu_torch.benchmarks import conv_bwd as cb
+
+    x, dy, w = cb.make_inputs(n, ci, co, seed=1, device=cuda)
+    before = cb.launches
+    dx, dw = cb.combined_conv1x1_bwd(x, dy, w)
+    dx2, dw2 = cb.combined_conv1x1_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    assert cb.launches == before + 2
+    ref_dx, ref_dw = cb.combined_conv1x1_bwd_plain(x, dy, w)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert (dx.float() - ref_dx.float()).abs().max() <= \
+        _ULP * ref_dx.float().abs().max()
+    assert (dw - ref_dw).abs().max() <= 1e-5 * ref_dw.abs().max()
+    # the partial sums are added in a fixed order: the same bits every run
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
+
+
+def test_conv1x1_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.benchmarks import conv_bwd as cb
+
+    x, dy, w = cb.make_inputs(64, 24, 32, device=cuda)  # ci % 16 != 0
+    with pytest.raises(NotImplementedError, match="multiples of 16"):
+        cb.combined_conv1x1_bwd(x, dy, w)
+    x, dy, w = cb.make_inputs(64, 32, 2048, device=cuda)
+    with pytest.raises(NotImplementedError, match="co <= 1024"):
+        cb.combined_conv1x1_bwd(x, dy, w)
+    x, dy, w = cb.make_inputs(64, 32, 32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.combined_conv1x1_bwd(x, dy, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="is on"):
+        cb.combined_conv1x1_bwd(x, dy.cpu(), w)
+
+
+@pytest.mark.parametrize("n,h,w,c,groups", [
+    (4, 56, 56, 128, 32),   # 4 channels a group, whole tiles
+    (2, 28, 28, 256, 32),   # 8 channels a group
+    (3, 13, 17, 96, 12),    # ragged H, W and a last chunk of 32 channels
+    (2, 5, 30, 64, 16),
+    (1, 1, 1, 8, 2),        # a single pixel: every tap but one is padding
+])
+def test_grouped_conv_kernel_matches_plain_and_library(cuda, n, h, w, c,
+                                                       groups):
+    from paddle_tpu_torch.benchmarks import grouped_conv as gc
+
+    x, wg = gc.make_inputs(n, h, w, c, groups=groups, seed=1, device=cuda)
+    before = gc.launches
+    y = gc.grouped_conv(x, wg, groups)
+    torch.cuda.synchronize()
+    assert gc.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    for ref in (gc.grouped_conv_plain(x, wg, groups),
+                gc.conv_ref(x, wg, groups)):
+        assert (y.float() - ref.float()).abs().max() <= \
+            _ULP * ref.float().abs().max()
+
+
+def test_grouped_conv_refuses_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.benchmarks import grouped_conv as gc
+
+    x, wg = gc.make_inputs(1, 4, 4, 32, groups=2, device=cuda)  # cg = 16
+    with pytest.raises(NotImplementedError, match="channels a group"):
+        gc.grouped_conv(x, wg, 2)
+    x, wg = gc.make_inputs(1, 4, 4, 32, groups=8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gc.grouped_conv(x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3),
+                        wg, 8)
+
+
+@pytest.mark.parametrize("variant", ["matmul-floor", "full", "no-rowmax",
+                                     "bf16-exp"])
+@pytest.mark.parametrize("b,h,t,dh,bk", [
+    (4, 8, 256, 64, 256),   # the study's head shape, one key block
+    (2, 4, 256, 128, 64),   # the wide head, four key blocks
+    (2, 3, 128, 32, 64),    # a head width below the template bound
+    (1, 2, 512, 96, 128),
+])
+def test_attn_ablate_kernel_matches_plain(cuda, variant, b, h, t, dh, bk):
+    from paddle_tpu_torch.benchmarks import attn_ablate as aa
+
+    q, k, v = aa.make_inputs(b, h, t, dh, seed=1, device=cuda)
+    fwd = aa.make_fwd(variant, b, h, t, dh, t, bk)
+    before = aa.launches
+    out = fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert aa.launches == before + 1
+    ref = aa.attn_ablate_plain(q, k, v, variant, bk)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max() <= \
+        _ULP * ref.float().abs().max()
+
+
+def test_attn_ablate_refuses_what_the_kernel_does_not_take(cuda):
+    """A ragged key block (bk no multiple of 64) raises: the JAX script
+    runs only t % bk == 0, and the kernel's key tiles are 64 wide."""
+    from paddle_tpu_torch.benchmarks import attn_ablate as aa
+
+    q, k, v = aa.make_inputs(1, 2, 96, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="multiple of 64"):
+        aa.make_fwd("full", 1, 2, 96, 64, 96, 48)(q, k, v)
+    q, k, v = aa.make_inputs(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        aa.make_fwd("full", 1, 2, 64, 64, 64, 64)(
+            q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+def test_vision_ops_run_on_the_card(cuda):
+    """One AMP training step of a two-block SE-ResNeXt through the
+    executor on the card: finite loss, moving statistics updated, and the
+    f32 step within 1e-4 of the CPU's."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.models import se_resnext as S
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        with fluid.unique_name.guard():
+            img = fluid.layers.data("data", shape=[3, 32, 32])
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            x = S.conv_bn_layer(img, 16, 3, act="relu", prefix="stem")
+            x = S.bottleneck_block(x, 16, 1, 4, 4, False, "b0")
+            x = S.bottleneck_block(x, 32, 2, 4, 4, False, "b1")
+            x = fluid.layers.pool2d(x, pool_type="avg", global_pooling=True)
+            logits = fluid.layers.fc(x, 10)
+            loss = fluid.layers.mean(
+                fluid.layers.softmax_with_cross_entropy(logits, label))
+            fluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    startup.random_seed = 3
+    r = np.random.RandomState(0)
+    feed = {"data": r.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32),
+            "label": r.randint(0, 10, (4, 1)).astype(np.int64)}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup)
+            state = {n: scope.find_var(n).cpu().numpy()
+                     for n in scope.var_names()}
+            (gpu,) = exe.run(main, feed=feed, fetch_list=[loss])
+            assert float(scope.find_var("stem_bn.mean").abs().max()) > 0
+        with fluid.scope_guard(tio.scope_from_numpy(state,
+                                                    fluid.CPUPlace())):
+            (cpu,) = fluid.Executor(fluid.CPUPlace()).run(
+                main, feed=feed, fetch_list=[loss])
+        assert abs(float(gpu) - float(cpu)) <= 1e-4
+        fluid.amp.enable_amp(main)
+        with fluid.scope_guard(tio.scope_from_numpy(state,
+                                                    fluid.CUDAPlace(0))):
+            (amp_loss,) = fluid.Executor(fluid.CUDAPlace(0)).run(
+                main, feed=feed, fetch_list=[loss])
+        assert np.isfinite(amp_loss) and abs(float(amp_loss) - float(cpu)) < 0.1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -1,6 +1,7 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor any module of
-the JAX package (paddle_tpu), and neither does chip_smoke.py, which runs
-on machines that have no JAX."""
+the JAX package (paddle_tpu) or of its benchmark scripts (benchmarks/),
+and neither does chip_smoke.py, which runs on machines that have no
+JAX."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "paddle_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "paddle_tpu", "benchmarks"}
 
 
 def _port_sources():
@@ -19,6 +20,19 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_every_module_of_the_port_is_scanned():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("paddle_tpu_torch/benchmarks/conv_bwd.py",
+                "paddle_tpu_torch/benchmarks/grouped_conv.py",
+                "paddle_tpu_torch/benchmarks/attn_ablate.py",
+                "paddle_tpu_torch/benchmarks/timing.py",
+                "paddle_tpu_torch/dataset/imagenet.py",
+                "paddle_tpu_torch/models/resnet.py",
+                "paddle_tpu_torch/models/se_resnext.py",
+                "paddle_tpu_torch/ops/nn_ops.py", "chip_smoke.py"):
+        assert rel in scanned, rel
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -47,8 +61,13 @@ for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 leaked = sorted(n for n in sys.modules
-                if n == "paddle_tpu" or n.startswith("paddle_tpu."))
+                if n in ("paddle_tpu", "benchmarks")
+                or n.startswith(("paddle_tpu.", "benchmarks.")))
 assert not leaked, leaked
+for name in ("benchmarks.conv_bwd", "benchmarks.grouped_conv",
+             "benchmarks.attn_ablate", "dataset.imagenet", "models.resnet",
+             "models.se_resnext"):
+    assert "paddle_tpu_torch." + name in sys.modules, name
 print("isolated", len([n for n in sys.modules
                        if n.startswith("paddle_tpu_torch")]))
 """

@@ -216,9 +216,17 @@ CASES = [
 ]
 
 
+# the op types the vision path added; test_torch_vision_ops.py holds
+# their cases
+VISION_OP_TYPES = [
+    "accuracy", "batch_norm", "conv2d", "depthwise_conv2d", "mean",
+    "momentum", "pool2d", "sigmoid", "top_k",
+]
+
+
 def test_cases_cover_exactly_the_path_op_types():
     assert sorted({c[0] for c in CASES}) == PATH_OP_TYPES
-    assert registered_ops() == PATH_OP_TYPES
+    assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):
