@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    t = 256 training shapes), the kblock route (t = 1024, b = 8), the
    bhtd route (t = 4096, b = 2; dropout at t = 2048; BHTD-layout inputs
    with an lse cotangent; the decode step tq = 1 over 1024 keys; each
-   backward pass launched and checked on its own), a causal forward and
+   backward pass launched and checked on its own; bf16 backward rows read
+   the tensor-core kernels, f32 rows the CUDA-core ones, and two bf16
+   launches give equal bits), a causal forward and
    backward at t = 8192 whose memory rise shows no [tq, tk] tensor, and
    the dropout-mask dump, bit for bit; then (3c) the three kernel
    studies of paddle_tpu_torch/benchmarks: the combined 1x1-conv backward
@@ -38,7 +40,7 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    every step, lower loss after a few steps on a repeated batch, 18
    forward and 18 backward launches a step of the shape's route and none
    of any other, the step wall / device-busy ms, target tokens/s and peak
-   memory;
+   memory, the device ms a step of the two backward passes;
 6. one f32 training step (dropout 0) on the card against the same step
    on the CPU: full widths and depth at batch 2 x seq 32, and (6b) 2+2
    layers at seq 768 (kblock route) and 1280 (bhtd route): loss and a
@@ -145,6 +147,12 @@ VISION_FALL_LR = 0.01
 TOL_VISION_F32 = (5e-4, 2e-3)
 TOL_VISION_F64 = (1e-11, 1e-10)
 
+# The backward's two kernel families (csrc/flash_attention_bthd_bwd.cu):
+# (pass A, pass B) by input dtype, bf16 on the tensor cores, f32 on the
+# CUDA cores
+BWD_KERNELS = {"bfloat16": ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"),
+               "float32": ("bwd_dkdv_kernel", "bwd_dq_kernel")}
+
 _SRC_FWD = "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu"
 _SRC_BWD = "paddle_tpu_torch/csrc/flash_attention_bthd_bwd.cu"
 _TPU_FA = "paddle_tpu/parallel/flash_attention.py"
@@ -156,6 +164,18 @@ def _card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _ptxas_report(log):
+    """ptxas' report with its repeated C7519 notes (a fence it injected
+    before a wgmma) counted on one line."""
+    lines = log.strip().splitlines()
+    notes = [ln for ln in lines if "(C7519)" in ln]
+    kept = [ln for ln in lines if "(C7519)" not in ln]
+    if notes:
+        kept.append(f"ptxas info: {len(notes)} x (C7519) warpgroup.arrive "
+                    f"injected by the compiler before a wgmma")
+    return "\n".join(kept)
 
 
 def _time_ms(fn, iters=100, warmup=10):
@@ -208,7 +228,7 @@ def _iters(b, h, tq, tk):
 
 
 def _case(name, dtype, b, tq, tk, bias, fused=False, p_drop=0.0,
-          layout="bthd", h=8, dh=64, split=False, g_lse=False):
+          layout="bthd", h=8, dh=64, split=False, g_lse=False, repeat=False):
     """One kernel comparison. ``bias``: none; pad ([1, 1, 1, tk], the
     last tk/8 keys padded); pad_b ([b, 1, 1, tk], per-row lengths in
     [tk/2, tk], as make_batch pads); causal; causal_pad (causal over
@@ -216,10 +236,11 @@ def _case(name, dtype, b, tq, tk, bias, fused=False, p_drop=0.0,
     fused [b, t, 3*h*dh] projection, as the encoder's self-attention gives
     them. ``layout="bhtd"``: [b, h, t, dh] inputs through the BHTD
     functions. ``split``: also launch and check the backward's passes one
-    at a time. ``g_lse``: a nonzero lse cotangent (BHTD)."""
+    at a time. ``g_lse``: a nonzero lse cotangent (BHTD). ``repeat``: the
+    backward launched twice gives equal bits."""
     return dict(name=name, dtype=dtype, b=b, tq=tq, tk=tk, h=h, dh=dh,
                 bias=bias, fused=fused, p_drop=p_drop, layout=layout,
-                split=split, g_lse=g_lse)
+                split=split, g_lse=g_lse, repeat=repeat)
 
 
 def _attention_inputs(c, gen):
@@ -408,6 +429,10 @@ def check_attention_bwd(fa, c, gen):
     grads = kernel()
     torch.cuda.synchronize()
     assert fa.launch_counts[(route, "bwd")] == 1, (c["name"], route)
+    if c["repeat"]:
+        # no atomics: a second launch on the same inputs gives equal bits
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, kernel())), (
+            c["name"], "backward launches differ")
     refs = plain()
     dname = str(c["dtype"]).split(".")[-1]
     errs, rels = _grad_errs(c["name"], grads, refs, (q, k, v))
@@ -460,10 +485,17 @@ def check_attention_bwd(fa, c, gen):
         "err_dq_dk_dv": errs, "rel_err_dq_dk_dv": rels, "tol_rel": tol,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "device_ms_pass_a": _device_ms(None, "bwd_dkdv_kernel", times=times),
-        "device_ms_pass_b": _device_ms(None, "bwd_dq_kernel", times=times),
+        "kernels": list(BWD_KERNELS[dname]),
+        "device_ms_pass_a": _device_ms(None, BWD_KERNELS[dname][0],
+                                       times=times),
+        "device_ms_pass_b": _device_ms(None, BWD_KERNELS[dname][1],
+                                       times=times),
         "device_ms_delta": _device_ms(None, "bwd_delta_kernel", times=times),
+        "bit_equal": True if c["repeat"] else None,
     }
+    # both passes launched: the trace holds each one's kernel of the dtype
+    assert row["device_ms_pass_a"] and row["device_ms_pass_b"], (
+        c["name"], sorted(times))
     if c["split"]:
         row["passes"] = _check_passes(fa, c, route, q, k, v, bias, seed, out,
                                       lse, g, scale, causal, refs, iters,
@@ -486,8 +518,8 @@ def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
     grads = [torch.zeros_like(x) for x in (q, k, v)]
     rows = {}
     for name, passes, idx, nops, kname in (
-            ("pass_a", 1, (1, 2), 8.0, "bwd_dkdv_kernel"),
-            ("pass_b", 2, (0,), 6.0, "bwd_dq_kernel")):
+            ("pass_a", 1, (1, 2), 8.0, BWD_KERNELS[dname][0]),
+            ("pass_b", 2, (0,), 6.0, BWD_KERNELS[dname][1])):
         def launch():
             fa._launch_bwd(route, q, k, v, bias, seed, out, lse, g, None,
                            scale, c["p_drop"], causal, *grads,
@@ -509,12 +541,13 @@ def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
         bound_ms, bound_by = _bound(nops * b * h * dh * live,
                                     in_bytes + out_bytes, dname)
         rows[name] = {
-            "max_abs_err": max(errs), "rel_err": rels,
+            "kernel": kname, "max_abs_err": max(errs), "rel_err": rels,
             "ms": _time_ms(launch, iters, warmup=min(10, iters)),
             "device_ms": _device_ms(launch, kname, iters=min(iters, 20)),
             "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        assert rows[name]["device_ms"], (c["name"], name, kname)
     return rows
 
 
@@ -764,6 +797,8 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         times = _device_times(
             lambda: exe.run_steps(main_prog, feeds[:1], 1, [loss]), iters=2)
     device_ms = sum(times.values()) or None
+    bwd_passes_ms = sum(ms for name, ms in times.items()
+                        if "bwd_dkdv" in name or "bwd_dq" in name)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
     peak = torch.cuda.max_memory_allocated()
     tokens = sum(float(feeds[i % len(feeds)]["trg_pad_mask"].sum())
@@ -775,6 +810,7 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         "startup_s": startup_s, "repeated_batch_losses": losses,
         "window_steps": window, "last_loss": float(value),
         "step_ms": step_ms, "step_device_ms": device_ms,
+        "bwd_passes_device_ms": bwd_passes_ms,
         "idle_share": None if device_ms is None else 1 - device_ms / step_ms,
         "target_tokens_per_s": tokens / wall,
         "peak_mem_gib": peak / 2**30,
@@ -829,6 +865,7 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
         rel[n] = float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
     assert max(rel.values()) <= TOL_STEP_GRAD_REL, rel
     return {"n_layer": n_layer, "seq": seq, "batch": batch, "route": route,
+            "launches": launches[f"{route}/bwd"],
             "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
             "loss_err": loss_err, "grad_rel_err": rel}
 
@@ -1209,7 +1246,8 @@ def _phase3_cases(torch):
         _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32),
         # the training step's three attentions (encoder self, decoder
         # self, cross), with its dropout
-        _case("train bf16 pad drop", bf16, tb, tt, tt, "pad_b", True, 0.1),
+        _case("train bf16 pad drop", bf16, tb, tt, tt, "pad_b", True, 0.1,
+              repeat=True),
         _case("train bf16 causal+pad drop", bf16, tb, tt, tt, "causal_pad",
               True, 0.1),
         _case("train bf16 cross drop", bf16, tb, tt, tt, "pad_b", False,
@@ -1235,7 +1273,7 @@ def _phase3_cases(torch):
     # and the serving decode step over 1024 keys
     fwd += [
         _case("t4096 bf16 causal+pad", bf16, 2, 4096, 4096, "causal_pad",
-              True, split=True),
+              True, split=True, repeat=True),
         _case("t4096 bf16 pad", bf16, 2, 4096, 4096, "pad_b", True,
               split=True),
         _case("t2048 bf16 causal+pad drop", bf16, 1, 2048, 2048,
@@ -1250,8 +1288,14 @@ def _phase3_cases(torch):
         _case("ragged f32", f32, 2, 100, 77, "none"),
         _case("dh128 f32 drop", f32, 2, 128, 128, "pad", p_drop=0.2, h=4,
               dh=128),
-        _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32),
+        _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32, split=True),
         _case("bf16 causal", bf16, 8, 256, 256, "causal"),
+        # the bf16 kernels' padded head widths and ragged edges
+        _case("dh72 bf16 drop", bf16, 2, 128, 128, "pad", p_drop=0.1, h=4,
+              dh=72, split=True),
+        _case("dh128 bf16 drop", bf16, 2, 128, 128, "pad", p_drop=0.2, h=4,
+              dh=128, split=True),
+        _case("ragged bf16", bf16, 2, 100, 77, "none", split=True),
     ]
     return fwd, bwd
 
@@ -1301,7 +1345,7 @@ def main() -> int:
             print(f"build {source}: cached", flush=True)
         else:
             log, seconds = built
-            print(f"build {source}: {seconds:.2f} s\n{log.strip()}",
+            print(f"build {source}: {seconds:.2f} s\n{_ptxas_report(log)}",
                   flush=True)
 
     # 3. kernels vs plain versions
@@ -1332,6 +1376,12 @@ def main() -> int:
             "pass_a": c_b["device_ms_pass_a"] / n_b["device_ms_pass_a"],
             "pass_b": c_b["device_ms_pass_b"] / n_b["device_ms_pass_b"]}
     print("causal_skip " + json.dumps(skip), flush=True)
+    print("bwd_bf16 " + json.dumps({
+        name: {"ms": r["ms"], "library_ms": r["library_ms"],
+               "ms_over_library": r["ms"] / r["library_ms"],
+               "max_rel_err": max(r["rel_err_dq_dk_dv"])}
+        for name, r in bwd_results.items() if r["dtype"] == "bfloat16"}),
+        flush=True)
 
     # 3c. the kernel studies against their plain versions, then each
     # study's own entry point with its launch count read from that run
@@ -1395,10 +1445,13 @@ def main() -> int:
     # 6. one training step on the card against the CPU
     c = train_vs_cpu(torch, np, fluid, T, fa, n_layer=6, seq=32, batch=2)
     print("train_vs_cpu " + json.dumps(c), flush=True)
+    # f32 backward launches (the CUDA-core family) over the three f32 steps
+    f32_bwd_launches = c["launches"]
     for seq in (768, 1280):
         c6 = train_vs_cpu(torch, np, fluid, T, fa, n_layer=2, seq=seq,
                           batch=1, max_length=seq + 2)
         print(f"train_vs_cpu_t{seq} " + json.dumps(c6), flush=True)
+        f32_bwd_launches += c6["launches"]
 
     # 7. the vision training path: ResNet-50, (7b) SE-ResNeXt-50, and
     # (7c) the studied shapes among their conv2d ops
@@ -1443,6 +1496,7 @@ def main() -> int:
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
     bwd_main = bwd_results["train bf16 pad drop"]
+    bwd_f32 = bwd_results["train f32 pad drop"]
     kb_fwd, kb_bwd = (fwd_results["t1024 bf16 pad drop"],
                       bwd_results["t1024 bf16 pad drop"])
     bh_fwd = fwd_results["t4096 bf16 causal+pad"]
@@ -1453,9 +1507,14 @@ def main() -> int:
             s["launches"]["small/fwd"] + t["launches"]["small/fwd"],
             fwd_main, max(fwd_main["err_out"], fwd_main["err_lse"])),
         _kernel_entry(
-            "flash_attention_bthd_bwd", _SRC_BWD, f"{_TPU_FA}:861",
+            "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
+            "bwd_dq_wgmma_kernel)", _SRC_BWD, f"{_TPU_FA}:861",
             t["launches"]["small/bwd"], bwd_main,
             max(bwd_main["err_dq_dk_dv"])),
+        _kernel_entry(
+            "flash_attention_bthd_bwd (f32: bwd_dkdv_kernel + bwd_dq_kernel, "
+            "CUDA cores)", _SRC_BWD, f"{_TPU_FA}:861", f32_bwd_launches,
+            bwd_f32, max(bwd_f32["err_dq_dk_dv"])),
         _kernel_entry(
             "dropout_keep_mask", _SRC_FWD,
             "tests/test_flash_attention_tpu.py:26", mask_launches, mask,
@@ -1466,11 +1525,13 @@ def main() -> int:
             t4k["launches"]["bhtd/fwd"] + sl["launches"]["bhtd/fwd"],
             bh_fwd, max(bh_fwd["err_out"], bh_fwd["err_lse"])),
         _kernel_entry(
-            "flash_attention_bwd pass B, dq (bhtd route, causal)", _SRC_BWD,
+            "flash_attention_bwd pass B, dq, bwd_dq_wgmma_kernel (bhtd route, "
+            "causal)", _SRC_BWD,
             f"{_TPU_FA}:181", t4k["launches"]["bhtd/bwd"],
             passes["pass_b"], passes["pass_b"]["max_abs_err"]),
         _kernel_entry(
-            "flash_attention_bwd pass A, dk/dv (bhtd route, causal)",
+            "flash_attention_bwd pass A, dk/dv, bwd_dkdv_wgmma_kernel (bhtd "
+            "route, causal)",
             _SRC_BWD, f"{_TPU_FA}:233", t4k["launches"]["bhtd/bwd"],
             passes["pass_a"], passes["pass_a"]["max_abs_err"]),
         _kernel_entry(

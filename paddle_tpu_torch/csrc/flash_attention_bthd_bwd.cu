@@ -1,9 +1,9 @@
 // Attention backward for Hopper (sm_90a), with an optional in-kernel
 // causal mask and the forward's dropout mask regenerated in-kernel.
 //
-// One kernel family replaces the TPU's backward kernels
-// (paddle_tpu/parallel/flash_attention.py), one per route of
-// `attention_route` in parallel/flash_attention.py:
+// Two kernel families replace the TPU's backward kernels
+// (paddle_tpu/parallel/flash_attention.py), one pass A and one pass B for
+// every route of `attention_route` in parallel/flash_attention.py:
 //   small  `_dqdkv_small_kernel` (:861), 8 <= tq, tk <= 512: passes A, B;
 //   kblock `_dqdkv_kb_kernel` (:1028), 512 < tk <= 1024: passes A, B;
 //   bhtd   `_dkv_kernel` (:233): pass A, and `_dq_kernel` (:181): pass B.
@@ -24,32 +24,63 @@
 // causal attention into the bias; on the other two the kernels mask it.
 // tk has no bound, and every offset that can pass 2^31 is 64-bit.
 //
-// What bounds it on the H100: 10*b*h*tq*tk*dh FLOP (5 matrix products;
-// under the causal mask only the live scores count) over the bytes of q,
-// k, v, dout, out, lse, dq, dk, dv and the bias: operations at every
-// shape of the repo's paths. This version runs them on the f32 CUDA
-// cores from shared memory, not on the tensor cores.
+// The work is split into two deterministic passes (the TPU kernels carry
+// dk and dv in scratch across a sequential grid; blocks on a GPU run in no
+// order, and there are no atomics, so a run's gradients are
+// bit-reproducible): pass A owns a key tile and walks the query tiles
+// (dk, dv); pass B owns a query tile and walks the key tiles (dq). Both
+// recompute s and dp, 7 matrix products in all instead of a fused
+// kernel's 5. Under the causal mask both skip the (query tile, key tile)
+// pairs with no live score through the forward's own test
+// (causal_tile_live). The keep mask is a hash of absolute (batch, head,
+// row, column) (attention_common.cuh), so both passes regenerate exactly
+// the forward's bits.
 //
-// What the design does: the TPU kernels accumulate dk and dv in scratch
-// across their sequential grid steps; blocks on a GPU run in no order, so
-// the work is split into two deterministic passes (no atomics, so a run's
-// gradients are bit-reproducible):
-//   pass A, one block per (64-key tile, head, batch): K and V of the tile
-//     stay in shared memory while the block walks every 32-row query
-//     tile, recomputing s and dp there; dk and dv accumulate in
-//     registers and are written once;
-//   pass B, one block per (32-row query tile, head, batch): Q and dout
-//     stay in shared memory while the block walks every 64-key tile,
-//     recomputing s and dp; dq accumulates in registers.
-// Under the causal mask both passes skip the (query tile, key tile) pairs
-// with no live score through the forward's own test (causal_tile_live):
-// pass B stops after its last live key tile, pass A starts at the first
-// query tile that reaches its keys. Recomputing s and dp in pass B costs
-// two matrix products more than a fused kernel (7 instead of 5) and buys
-// the absence of atomics. The keep mask is a hash of absolute (batch,
-// head, row, column) (attention_common.cuh), so both passes regenerate
-// exactly the forward's bits. All arithmetic is f32 on CUDA cores from
-// shared memory; tensor cores (wgmma) and TMA are left to a later version.
+// What bounds it on the H100: pass A does 8 and pass B 6 b*h*dh FLOP per
+// live score (4 and 3 products), against the bytes of q, k, v, dout, lse,
+// delta, the bias and the outputs: operations at every shape the repo
+// runs. (The bf16 kernels run the three products that take P o M or dS
+// once per bf16 term: 10 on the tensor cores.)
+//
+// bf16 inputs (the main path: AMP training) run the tensor-core kernels
+// bwd_dkdv_wgmma_kernel (pass A) and bwd_dq_wgmma_kernel (pass B):
+//   - every product is a `wgmma.mma_async` (bf16 x bf16 -> f32) on bf16
+//     tiles in shared memory, in the 128-byte-swizzled layout the wgmma
+//     descriptors read; a head dim that is not a multiple of 64 is padded
+//     with zeros there (dh <= 64 as 64, else 128), which adds nothing to
+//     any product;
+//   - pass A: a block holds 64 keys per warpgroup (two warpgroups, 128
+//     keys, at dh <= 64; one at dh <= 128) and their K and V for the whole
+//     walk; query tiles (64 rows; 32 at dh > 64, for registers) of Q and
+//     dout, with their lse and delta, stream through a two-stage ring of
+//     16-byte cp.async copies, the next tile in flight while the current
+//     one computes. It computes S^T = K Q^T and dP^T = V dout^T with the
+//     keys in wgmma's M, so P^T o M and dS^T stay in registers: in bf16
+//     they are the register A operand of dV += (P^T o M) dout and dK +=
+//     dS^T Q, whose B (Q, dout) is read through transposed (MN-major)
+//     descriptors;
+//   - pass B: a block of one warpgroup holds 64 query rows with their Q,
+//     dout, lse and delta (two blocks share an SM, so one block's
+//     exponentials run under the other's products); K and V tiles of 64
+//     keys stream through the same kind of ring. S = Q K^T and dP = dout
+//     V^T, then dS in registers as the A operand of dQ += dS K, K read
+//     through a transposed descriptor;
+//   - P o M and dS enter the tensor cores as two bf16 terms each, hi =
+//     bf16(x) and lo = bf16(x - hi), 16 bits in all (one bf16 rounding
+//     left too little room under the bf16 gradient limit); every sum is
+//     f32, and dq, dk, dv are rounded once when written;
+//   - a bias that varies by query row (the small route's folded causal
+//     mask) streams through the ring beside its tiles;
+//   - causal blocks: the grid is one-dimensional with the tile index
+//     varying slowest, counted from the heaviest end (pass A: key tile 0,
+//     which every query tile reaches; pass B: the last query tile), so the
+//     longest blocks start first across all heads and batches; only the
+//     tiles that cross the diagonal or the ragged edge are masked;
+//   - rows that are not 16-byte aligned (dh not a multiple of 8, or odd
+//     strides) are copied element by element into the same ring.
+// f32 inputs keep the CUDA-core kernels bwd_dkdv_kernel and bwd_dq_kernel
+// (f32 FMAs from shared memory): TF32 products could not hold an f32
+// training step to the f32 reference, so the kernel is chosen by dtype.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +92,7 @@ namespace {
 
 using namespace pt_attn;
 
+// f32 (CUDA-core) kernels
 constexpr int kBQ = 32;  // query rows per tile
 constexpr int kBK = 64;  // keys per tile
 constexpr int kThreadsA = 256;
@@ -81,6 +113,9 @@ struct Args {
   long long sb, sh, sq;  // bias strides over (batch, head, query row)
   float scale;
   Dropout drop;
+  // bf16: every row of q, k, v, dout, dq, dk, dv (of the bias) 16-byte
+  // aligned
+  int vec, bias_vec;
 };
 
 size_t smem_a(int dh) {
@@ -399,63 +434,871 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
   }
 }
 
-template <typename T, int kDhMax, bool kDrop, bool kCausal>
-cudaError_t launch_cfg(const Args& a, int b, int passes,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  if (passes & 1) {
-    const size_t sa = smem_a(a.dh);
-    err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, kDhMax, kDrop, kCausal>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sa);
-    if (err != cudaSuccess) return err;
-    dim3 grid_a((a.tk + kBK - 1) / kBK, a.nh, b);
-    bwd_dkdv_kernel<T, kDhMax, kDrop, kCausal>
-        <<<grid_a, kThreadsA, sa, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (passes & 2) {
-    const size_t sbytes = smem_b(a.dh);
-    err = cudaFuncSetAttribute(bwd_dq_kernel<T, kDhMax, kDrop, kCausal>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sbytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid_b((a.tq + kBQ - 1) / kBQ, a.nh, b);
-    bwd_dq_kernel<T, kDhMax, kDrop, kCausal>
-        <<<grid_b, kThreadsB, sbytes, stream>>>(a);
-    err = cudaGetLastError();
-  }
-  return err;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (wgmma, cp.async)
+
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kKeysB = 64;       // pass B: keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;  // ring stages of the streamed tiles
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int kDhMax, bool kDrop>
-cudaError_t launch_causal(const Args& a, int b, bool causal, int passes,
-                          cudaStream_t stream) {
-  return causal ? launch_cfg<T, kDhMax, kDrop, true>(a, b, passes, stream)
-                : launch_cfg<T, kDhMax, kDrop, false>(a, b, passes, stream);
+// 16 (4) bytes global -> shared, asynchronously: the first `bytes` from
+// src, zeros after them
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of this thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// shared-memory writes of this thread become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <typename T, int kDhMax>
-cudaError_t launch_drop(const Args& a, int b, bool drop, bool causal,
-                        int passes, cudaStream_t stream) {
-  return drop ? launch_causal<T, kDhMax, true>(a, b, causal, passes, stream)
-              : launch_causal<T, kDhMax, false>(a, b, causal, passes,
-                                                stream);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+// Orders every use of `d` after the preceding wgmma_wait: the compiler
+// takes the asm outputs of wgmma as ready the moment wgmma starts.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Pins register A fragments before the wgmma_fence that precedes their
+// products, so that no conversion lands between those wgmmas.
+template <int kT, int kK>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[kT][kK][4]) {
+#pragma unroll
+  for (int t = 0; t < kT; ++t)
+#pragma unroll
+    for (int k = 0; k < kK; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        asm volatile("" : "+r"(a[t][k][r])::"memory");
+}
+
+// 2^x, one MUFU instruction (flushes subnormal results to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A bf16 tile of kRows rows x (64 * panels) columns in shared memory, the
+// layout wgmma reads with 128-byte swizzling: panels of [kRows][64]
+// (kRows * 128 bytes each, 1024-byte aligned), 16-byte chunk c of row r
+// at byte ((c ^ r) % 8) * 16 of its 128-byte row. Byte offset of chunk c
+// (columns 8c .. 8c + 7) of row r:
+template <int kRows>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)((c >> 3) * (kRows * 128) + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (the reduction runs along the tile's columns), rows
+// [row0, row0 + 64 or N) of the tile, reduction step kk (columns 16kk ..
+// 16kk + 15): 8-row groups 1024 bytes apart, panels kRows * 128 apart.
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  return gmma_desc(tile + (kk >> 2) * (kRows * 128) + row0 * 128 +
+                       (kk & 3) * 32,
+                   16, 1024);
+}
+// MN-major operand (the reduction runs along the tile's rows; its columns
+// are the product's N), reduction step kk (rows 16kk .. 16kk + 15): the
+// 64-column panels kRows * 128 bytes apart, 8-row groups 1024 apart.
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 2048, kRows * 128, 1024);
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (bf16 pairs),
+// B MN-major (its 64 columns contiguous) in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (bf16 pairs),
+// B MN-major (its 128 columns contiguous) in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// P o M and dS enter their products as two bf16 terms, hi = bf16(x) and
+// lo = bf16(x - hi), each the A operand of its own wgmma into the same f32
+// accumulator: x to 16 bits instead of 8. A single bf16 rounding left the
+// gradients within 7.4e-3 of the 8e-3 limit against the f32 version.
+constexpr int kTerms = 2;
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulator of a 64 x (2 kHalf) product as the register A operand
+// (hi and lo terms) of a product that reduces over its 2 kHalf columns:
+// k-step kk takes columns 16kk .. 16kk + 15, as mma's A fragment.
+template <int kHalf>
+__device__ __forceinline__ void to_a_frags(
+    const float (&d)[kHalf], uint32_t (&a)[kTerms][kHalf / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kHalf / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      a[0][kk][r] = bits(hi);
+      a[1][kk][r] = bits(__floats2bfloat162_rn(x0 - __low2float(hi),
+                                               x1 - __high2float(hi)));
+    }
+}
+
+// Copies rows [row0, row0 + kRows) x [0, dh) of a strided bf16 source into
+// a swizzled tile; rows at or past `limit` become zeros, columns past dh
+// are left alone (the kernels zero them once). `vec`: 16-byte cp.async
+// (rows 16-byte aligned, dh a multiple of 8); else element by element.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void copy_tile(char* tile,
+                                          const __nv_bfloat16* src,
+                                          long long rstride, int row0,
+                                          int limit, int dh, bool vec) {
+  if (vec) {
+    const int nch = dh >> 3;
+    const uint32_t base = smem_addr(tile);
+    for (int i = threadIdx.x; i < kRows * nch; i += kThreads) {
+      const int r = i / nch, c = i - r * nch;
+      const bool ok = row0 + r < limit;
+      cp_async16(base + swz<kRows>(r, c),
+                 src + (ok ? (long long)(row0 + r) * rstride + 8 * c : 0),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * dh; i += kThreads) {
+      const int r = i / dh, c = i - r * dh;
+      __nv_bfloat16 x = __float2bfloat16(0.f);
+      if (row0 + r < limit) x = src[(long long)(row0 + r) * rstride + c];
+      *reinterpret_cast<__nv_bfloat16*>(tile + swz<kRows>(r, c >> 3) +
+                                        2 * (c & 7)) = x;
+    }
+  }
+}
+
+// n f32 values src[(row0 + i) * stride] into shared memory, zeros at or
+// past `limit`
+template <int kThreads>
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* src,
+                                              long long stride, int row0,
+                                              int n, int limit) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool ok = row0 + i < limit;
+    cp_async4(smem_addr(dst + i),
+              src + (ok ? (long long)(row0 + i) * stride : 0), ok);
+  }
+}
+
+// Rows [row0, row0 + kR) x columns [col0, col0 + kC) of the f32 bias (row
+// stride sq) into shared memory at row stride kC + 4 (rows land 4 banks
+// apart); elements past rlimit or climit become zeros (they are masked).
+// `vec`: 16-byte copies (bias rows 16-byte aligned); else 4-byte ones.
+template <int kR, int kC, int kThreads>
+__device__ __forceinline__ void copy_bias_tile(float* dst, const float* src,
+                                               long long sq, int row0,
+                                               int rlimit, int col0,
+                                               int climit, bool vec) {
+  constexpr int kS = kC + 4;
+  if (vec) {
+    constexpr int kChunks = kC / 4;
+    for (int i = threadIdx.x; i < kR * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = 4 * (i % kChunks), col = col0 + c;
+      const int n = row0 + r < rlimit ? max(0, min(4, climit - col)) : 0;
+      cp_async16(smem_addr(dst + r * kS + c),
+                 src + (n > 0 ? (long long)(row0 + r) * sq + col : 0), 4 * n);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kR * kC; i += kThreads) {
+      const int r = i / kC, c = i % kC;
+      const bool ok = row0 + r < rlimit && col0 + c < climit;
+      cp_async4(smem_addr(dst + r * kS + c),
+                src + (ok ? (long long)(row0 + r) * sq + col0 + c : 0), ok);
+    }
+  }
+}
+
+template <int kThreads>
+__device__ __forceinline__ void zero_shared(char* p, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Columns c, c + 1 of an output row, from f32 accumulators
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int dh,
+                                           float x0, float x1, bool vec) {
+  if (vec) {
+    if (c < dh)
+      *reinterpret_cast<__nv_bfloat162*>(row + c) =
+          __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (c < dh) row[c] = __float2bfloat16(x0);
+    if (c + 1 < dh) row[c + 1] = __float2bfloat16(x1);
+  }
+}
+
+// Pass A shape: dh padded to kDhPad (64 or 128).
+template <int kDhPad>
+struct PassA {
+  static constexpr int kWG = kDhPad <= 64 ? 2 : 1;   // warpgroups
+  static constexpr int kKeys = 64 * kWG;              // keys of a block
+  static constexpr int kBq = kDhPad <= 64 ? 64 : 32;  // query rows a tile
+  static constexpr int kThreads = kWgThreads * kWG;
+  static constexpr int kTileKV = kKeys * kDhPad * 2;  // K (or V), bytes
+  static constexpr int kTileQ = kBq * kDhPad * 2;     // Q (or dout), bytes
+  // a ring stage: Q, dout, then lse and delta [kBq] f32 (1024 bytes)
+  static constexpr int kStage = 2 * kTileQ + 1024;
+  static constexpr int kTiles = 2 * kTileKV + kStages * kStage;
+  // a bias that varies by query row: a [kBq][kKeys + 4] f32 tile a stage
+  static constexpr int kBiasStage = kBq * (kKeys + 4) * 4;
+  static constexpr int smem(bool bias_rows) {  // + alignment of the base
+    return kTiles + (bias_rows ? kStages * kBiasStage : 0) + 1024;
+  }
+};
+
+// Pass B shape: one warpgroup and 64 query rows a block, so that two
+// blocks share an SM and one's exponentials run under the other's
+// products (two warpgroups of one block meet at every tile's barriers).
+template <int kDhPad>
+struct PassB {
+  static constexpr int kRows = 64;  // query rows of a block
+  static constexpr int kThreads = kWgThreads;
+  static constexpr int kTileQ = kRows * kDhPad * 2;
+  static constexpr int kTileK = kKeysB * kDhPad * 2;
+  static constexpr int kStage = 2 * kTileK;  // K, V
+  static constexpr int kTiles = 2 * kTileQ + kStages * kStage;
+  static constexpr int kBiasStage = kRows * (kKeysB + 4) * 4;
+  static constexpr int smem(bool bias_rows) {
+    return kTiles + (bias_rows ? kStages * kBiasStage : 0) + 1024;
+  }
+};
+
+__device__ __forceinline__ char* align1024(char* p) {
+  return reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+// Pass A on the tensor cores: dk and dv of one key tile.
+template <int kDhPad, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
+    bwd_dkdv_wgmma_kernel(Args a, int b) {
+  using P = PassA<kDhPad>;
+  constexpr int kBq = P::kBq;
+  extern __shared__ char smem_raw[];
+  char* Ks = align1024(smem_raw);
+  char* Vs = Ks + P::kTileKV;
+  char* ring = Vs + P::kTileKV;
+
+  const int nh = a.nh, tq = a.tq, tk = a.tk, dh = a.dh;
+  const int nbh = b * nh;
+  // the key tile varies slowest: tile 0, the heaviest under the causal
+  // mask, starts first in every (batch, head)
+  const int tile = blockIdx.x / nbh;
+  const int hh = (blockIdx.x - tile * nbh) % nh;
+  const int bb = (blockIdx.x - tile * nbh) / nh;
+  const int k0 = tile * P::kKeys;
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
+  const bool vec = a.vec != 0;
+  typedef __nv_bfloat16 bf;
+  const bf* qb = static_cast<const bf*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
+  const bf* kb = static_cast<const bf*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
+  const bf* vb = static_cast<const bf*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
+  const bf* dob =
+      static_cast<const bf*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
+  const float* lsb = a.lse + bb * a.ls[0] + hh * a.ls[2];
+  const float* dlb = a.delta + (long long)bb * tq * nh + hh;
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
+  const bool bias_rows = biasb != nullptr && a.sq != 0;
+  float* bias_ring = reinterpret_cast<float*>(Ks + P::kTiles);
+  const int bh = bb * nh + hh;
+
+  // causal: the first query tile is the one that holds row k0
+  const int q_first = kCausal ? (k0 / kBq) * kBq : 0;
+  const int n_tiles = q_first < tq ? (tq - q_first + kBq - 1) / kBq : 0;
+
+  zero_shared<P::kThreads>(Ks, P::kTiles);  // columns past dh stay zero
+  __syncthreads();
+  copy_tile<P::kKeys, P::kThreads>(Ks, kb, a.ks[1], k0, tk, dh, vec);
+  copy_tile<P::kKeys, P::kThreads>(Vs, vb, a.vs[1], k0, tk, dh, vec);
+  auto load_stage = [&](int it) {
+    char* st = ring + (it % kStages) * P::kStage;
+    const int q0 = q_first + it * kBq;
+    copy_tile<kBq, P::kThreads>(st, qb, a.qs[1], q0, tq, dh, vec);
+    copy_tile<kBq, P::kThreads>(st + P::kTileQ, dob, a.dos[1], q0, tq, dh,
+                                vec);
+    float* ld = reinterpret_cast<float*>(st + 2 * P::kTileQ);
+    copy_rows_f32<P::kThreads>(ld, lsb, a.ls[1], q0, kBq, tq);
+    copy_rows_f32<P::kThreads>(ld + kBq, dlb, nh, q0, kBq, tq);
+    if (bias_rows)
+      copy_bias_tile<kBq, P::kKeys, P::kThreads>(
+          bias_ring + (it % kStages) * (P::kBiasStage / 4), biasb, a.sq, q0,
+          tq, k0, tk, a.bias_vec != 0);
+  };
+  if (n_tiles > 0) load_stage(0);
+  cp_async_commit();
+
+  // accumulator rows (keys) of this thread, and their bias when the bias
+  // does not vary by query row
+  const int krow[2] = {kw0 + 16 * warp + lane / 4,
+                       kw0 + 16 * warp + lane / 4 + 8};
+  float bkey[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (biasb != nullptr && !bias_rows && krow[i] < tk)
+      bkey[i] = biasb[krow[i]];
+  const int c0 = 2 * (lane & 3);
+  const float scale = a.scale;
+  const uint32_t k_addr = smem_addr(Ks), v_addr = smem_addr(Vs);
+
+  float dk[kDhPad / 2], dv[kDhPad / 2];
+#pragma unroll
+  for (int i = 0; i < kDhPad / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_stage(it + 1);  // in flight meanwhile
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const int q0 = q_first + it * kBq;
+    const bool live =
+        kw0 < tk && (!kCausal || causal_tile_live(q0, kBq, tq, kw0));
+    if (live) {
+      char* st = ring + (it % kStages) * P::kStage;
+      const uint32_t q_addr = smem_addr(st), do_addr = q_addr + P::kTileQ;
+      const float* Ls = reinterpret_cast<const float*>(st + 2 * P::kTileQ);
+      const float* Ds = Ls + kBq;
+      // this stage's bias tile, [query][key - k0]
+      const float* Bs = bias_ring + (it % kStages) * (P::kBiasStage / 4);
+      float s[kBq / 2], dp[kBq / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDhPad / 16; ++kk)
+        if (kk == 0 || 16 * kk < dh)
+          wgmma_ss(s, desc_k<P::kKeys>(k_addr, 64 * wg, kk),
+                   desc_k<kBq>(q_addr, 0, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kDhPad / 16; ++kk)
+        if (kk == 0 || 16 * kk < dh)
+          wgmma_ss(dp, desc_k<P::kKeys>(v_addr, 64 * wg, kk),
+                   desc_k<kBq>(do_addr, 0, kk), kk);
+      wgmma_commit();
+
+      // s^T holds (key, query) pairs: element 4*n8 + 2*i + j is key
+      // krow[i], query column 8*n8 + c0 + j. Mask only edge tiles.
+      const bool edge = q0 + kBq > tq || kw0 + 64 > tk ||
+                        (kCausal && q0 < kw0 + 63);
+      wgmma_wait<1>();
+      reg_fence(s);
+#pragma unroll
+      for (int n8 = 0; n8 < kBq / 8; ++n8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * n8 + c0 + j, qr = q0 + col;
+          const float lq = Ls[col];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * n8 + 2 * i + j, key = krow[i];
+            float p = 0.f;
+            if (!edge ||
+                (qr < tq && key < tk && (!kCausal || key <= qr))) {
+              const float bv =
+                  bias_rows ? Bs[col * (P::kKeys + 4) + key - k0] : bkey[i];
+              p = exp2_approx((fmaf(s[e], scale, bv) - lq) * kLog2e);
+            }
+            s[e] = p;
+          }
+        }
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int n8 = 0; n8 < kBq / 8; ++n8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * n8 + c0 + j;
+          const float delta_q = Ds[col];
+          uint32_t hrow = 0;
+          if (kDrop) hrow = drop_row_hash(a.drop.key, bh, q0 + col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * n8 + 2 * i + j;
+            const float m =
+                kDrop ? drop_scale(hrow, krow[i], a.drop.thresh,
+                                   a.drop.keep_scale)
+                      : 1.f;
+            const float p = s[e];
+            dp[e] = p * (dp[e] * m - delta_q) * scale;  // ds
+            s[e] = p * m;                              // p o M
+          }
+        }
+      uint32_t ap[kTerms][kBq / 16][4], as[kTerms][kBq / 16][4];
+      to_a_frags(s, ap);
+      to_a_frags(dp, as);
+      reg_fence(ap);
+      reg_fence(as);
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < kBq / 16; ++kq)
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t)
+          wgmma_rs(dv, ap[t][kq], desc_mn<kBq>(do_addr, kq));
+#pragma unroll
+      for (int kq = 0; kq < kBq / 16; ++kq)
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t)
+          wgmma_rs(dk, as[t][kq], desc_mn<kBq>(q_addr, kq));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dv);
+      reg_fence(dk);
+    }
+    __syncthreads();  // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = krow[i];
+    if (key >= tk) continue;
+    bf* dkr = static_cast<bf*>(a.dk) + bb * a.dks[0] + key * a.dks[1] +
+              hh * a.dks[2];
+    bf* dvr = static_cast<bf*>(a.dv) + bb * a.dvs[0] + key * a.dvs[1] +
+              hh * a.dvs[2];
+#pragma unroll
+    for (int n8 = 0; n8 < kDhPad / 8; ++n8) {
+      const int e = 4 * n8 + 2 * i;
+      store_pair(dkr, 8 * n8 + c0, dh, dk[e], dk[e + 1], vec);
+      store_pair(dvr, 8 * n8 + c0, dh, dv[e], dv[e + 1], vec);
+    }
+  }
+}
+
+// Pass B on the tensor cores: dq of one query tile.
+template <int kDhPad, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
+    bwd_dq_wgmma_kernel(Args a, int b) {
+  using P = PassB<kDhPad>;
+  extern __shared__ char smem_raw[];
+  char* Qs = align1024(smem_raw);
+  char* dOs = Qs + P::kTileQ;
+  char* ring = dOs + P::kTileQ;
+
+  const int nh = a.nh, tq = a.tq, tk = a.tk, dh = a.dh;
+  const int nbh = b * nh;
+  const int n_qtiles = (tq + P::kRows - 1) / P::kRows;
+  // the query tile varies slowest; under the causal mask the last (the
+  // heaviest) starts first
+  const int order = blockIdx.x / nbh;
+  const int tile = kCausal ? n_qtiles - 1 - order : order;
+  const int hh = (blockIdx.x - order * nbh) % nh;
+  const int bb = (blockIdx.x - order * nbh) / nh;
+  const int q0 = tile * P::kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool vec = a.vec != 0;
+  typedef __nv_bfloat16 bf;
+  const bf* qb = static_cast<const bf*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
+  const bf* kb = static_cast<const bf*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
+  const bf* vb = static_cast<const bf*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
+  const bf* dob =
+      static_cast<const bf*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
+  const bool bias_rows = biasb != nullptr && a.sq != 0;
+  float* bias_ring = reinterpret_cast<float*>(Qs + P::kTiles);
+
+  // causal: key tiles past the block's last row are dead
+  int n_tiles = (tk + kKeysB - 1) / kKeysB;
+  if (kCausal)
+    n_tiles = min(n_tiles, (min(q0 + P::kRows, tq) - 1) / kKeysB + 1);
+
+  zero_shared<P::kThreads>(Qs, P::kTiles);
+  __syncthreads();
+  copy_tile<P::kRows, P::kThreads>(Qs, qb, a.qs[1], q0, tq, dh, vec);
+  copy_tile<P::kRows, P::kThreads>(dOs, dob, a.dos[1], q0, tq, dh, vec);
+  auto load_stage = [&](int it) {
+    char* st = ring + (it % kStages) * P::kStage;
+    const int k0 = it * kKeysB;
+    copy_tile<kKeysB, P::kThreads>(st, kb, a.ks[1], k0, tk, dh, vec);
+    copy_tile<kKeysB, P::kThreads>(st + P::kTileK, vb, a.vs[1], k0, tk, dh,
+                                   vec);
+    if (bias_rows)
+      copy_bias_tile<P::kRows, kKeysB, P::kThreads>(
+          bias_ring + (it % kStages) * (P::kBiasStage / 4), biasb, a.sq, q0,
+          tq, k0, tk, a.bias_vec != 0);
+  };
+  load_stage(0);
+  cp_async_commit();
+
+  // accumulator rows (query rows) of this thread
+  const int rrow[2] = {q0 + 16 * warp + lane / 4,
+                       q0 + 16 * warp + lane / 4 + 8};
+  float lrow[2], drow[2];
+  uint32_t hrow[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rrow[i];
+    lrow[i] = r < tq ? a.lse[bb * a.ls[0] + r * a.ls[1] + hh * a.ls[2]] : 0.f;
+    drow[i] = r < tq ? a.delta[((long long)bb * tq + r) * nh + hh] : 0.f;
+    if (kDrop) hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, r);
+  }
+  const int c0 = 2 * (lane & 3);
+  const float scale = a.scale;
+  const uint32_t q_addr = smem_addr(Qs), do_addr = smem_addr(dOs);
+
+  float dq[kDhPad / 2];
+#pragma unroll
+  for (int i = 0; i < kDhPad / 2; ++i) dq[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    // every tile of the walk holds a live score (n_tiles stops there)
+    const int k0 = it * kKeysB;
+    const uint32_t k_addr = smem_addr(ring + (it % kStages) * P::kStage);
+    const uint32_t v_addr = k_addr + P::kTileK;
+    // this stage's bias tile, [row - q0][key - k0]
+    const float* Bs = bias_ring + (it % kStages) * (P::kBiasStage / 4);
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDhPad / 16; ++kk)
+      if (kk == 0 || 16 * kk < dh)
+        wgmma_ss(s, desc_k<P::kRows>(q_addr, 0, kk),
+                 desc_k<kKeysB>(k_addr, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kDhPad / 16; ++kk)
+      if (kk == 0 || 16 * kk < dh)
+        wgmma_ss(dp, desc_k<P::kRows>(do_addr, 0, kk),
+                 desc_k<kKeysB>(v_addr, 0, kk), kk);
+    wgmma_commit();
+
+    // element 4*n8 + 2*i + j is row rrow[i], key k0 + 8*n8 + c0 + j
+    const bool edge = q0 + P::kRows > tq || k0 + kKeysB > tk ||
+                      (kCausal && k0 + kKeysB - 1 > q0);
+    wgmma_wait<1>();
+    reg_fence(s);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = k0 + 8 * n8 + c0 + j;
+        const float bkey =
+            biasb != nullptr && !bias_rows && key < tk ? biasb[key] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n8 + 2 * i + j, r = rrow[i];
+          float p = 0.f;
+          if (!edge || (r < tq && key < tk && (!kCausal || key <= r))) {
+            const float bv =
+                bias_rows ? Bs[(r - q0) * (kKeysB + 4) + key - k0] : bkey;
+            p = exp2_approx((fmaf(s[e], scale, bv) - lrow[i]) * kLog2e);
+          }
+          s[e] = p;
+        }
+      }
+    wgmma_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = k0 + 8 * n8 + c0 + j;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n8 + 2 * i + j;
+          const float m =
+              kDrop ? drop_scale(hrow[i], key, a.drop.thresh,
+                                 a.drop.keep_scale)
+                    : 1.f;
+          dp[e] = s[e] * (dp[e] * m - drow[i]) * scale;  // ds
+        }
+      }
+    uint32_t as[kTerms][4][4];
+    to_a_frags(dp, as);
+    reg_fence(as);
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+      for (int t = 0; t < kTerms; ++t)
+        wgmma_rs(dq, as[t][kq], desc_mn<kKeysB>(k_addr, kq));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rrow[i];
+    if (r >= tq) continue;
+    bf* dqr = static_cast<bf*>(a.dq) + bb * a.dqs[0] + r * a.dqs[1] +
+              hh * a.dqs[2];
+#pragma unroll
+    for (int n8 = 0; n8 < kDhPad / 8; ++n8) {
+      const int e = 4 * n8 + 2 * i;
+      store_pair(dqr, 8 * n8 + c0, dh, dq[e], dq[e + 1], vec);
+    }
+  }
+}
+
+// One launch configuration of each family, for the dispatch below.
+template <int kDh, bool kDrop, bool kCausal>
+struct CudaCoreF32 {
+  static cudaError_t run(const Args& a, int b, int passes,
+                         cudaStream_t stream) {
+    cudaError_t err = cudaSuccess;
+    if (passes & 1) {
+      const size_t sa = smem_a(a.dh);
+      err = cudaFuncSetAttribute(bwd_dkdv_kernel<float, kDh, kDrop, kCausal>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)sa);
+      if (err != cudaSuccess) return err;
+      dim3 grid_a((a.tk + kBK - 1) / kBK, a.nh, b);
+      bwd_dkdv_kernel<float, kDh, kDrop, kCausal>
+          <<<grid_a, kThreadsA, sa, stream>>>(a);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    if (passes & 2) {
+      const size_t sbytes = smem_b(a.dh);
+      err = cudaFuncSetAttribute(bwd_dq_kernel<float, kDh, kDrop, kCausal>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)sbytes);
+      if (err != cudaSuccess) return err;
+      dim3 grid_b((a.tq + kBQ - 1) / kBQ, a.nh, b);
+      bwd_dq_kernel<float, kDh, kDrop, kCausal>
+          <<<grid_b, kThreadsB, sbytes, stream>>>(a);
+      err = cudaGetLastError();
+    }
+    return err;
+  }
+};
+
+template <int kDh, bool kDrop, bool kCausal>
+struct TensorCoreBf16 {
+  static cudaError_t run(const Args& a, int b, int passes,
+                         cudaStream_t stream) {
+    cudaError_t err = cudaSuccess;
+    const long long nbh = (long long)b * a.nh;
+    const bool bias_rows = a.bias != nullptr && a.sq != 0;
+    if (passes & 1) {
+      typedef PassA<kDh> P;
+      const long long blocks = (a.tk + P::kKeys - 1) / P::kKeys * nbh;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+      const int smem = P::smem(bias_rows);
+      err = cudaFuncSetAttribute(
+          bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>
+          <<<(unsigned int)blocks, P::kThreads, smem, stream>>>(a, b);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    if (passes & 2) {
+      typedef PassB<kDh> P;
+      const long long blocks = (a.tq + P::kRows - 1) / P::kRows * nbh;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+      const int smem = P::smem(bias_rows);
+      err = cudaFuncSetAttribute(
+          bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>
+          <<<(unsigned int)blocks, P::kThreads, smem, stream>>>(a, b);
+      err = cudaGetLastError();
+    }
+    return err;
+  }
+};
+
+template <template <int, bool, bool> class L, int kDh>
+cudaError_t dispatch(const Args& a, int b, bool drop, bool causal,
+                     int passes, cudaStream_t s) {
+  if (drop)
+    return causal ? L<kDh, true, true>::run(a, b, passes, s)
+                  : L<kDh, true, false>::run(a, b, passes, s);
+  return causal ? L<kDh, false, true>::run(a, b, passes, s)
+                : L<kDh, false, false>::run(a, b, passes, s);
 }
 
 template <typename T>
 cudaError_t launch(const Args& a, int b, bool drop, bool causal, int passes,
-                   cudaStream_t stream) {
+                   cudaStream_t stream);
+
+template <>
+cudaError_t launch<float>(const Args& a, int b, bool drop, bool causal,
+                          int passes, cudaStream_t s) {
+  return a.dh <= 64 ? dispatch<CudaCoreF32, 64>(a, b, drop, causal, passes, s)
+                    : dispatch<CudaCoreF32, kMaxDh>(a, b, drop, causal,
+                                                    passes, s);
+}
+
+template <>
+cudaError_t launch<__nv_bfloat16>(const Args& a, int b, bool drop,
+                                  bool causal, int passes, cudaStream_t s) {
+  return a.dh <= 64
+             ? dispatch<TensorCoreBf16, 64>(a, b, drop, causal, passes, s)
+             : dispatch<TensorCoreBf16, kMaxDh>(a, b, drop, causal, passes,
+                                                s);
+}
+
+template <typename T>
+cudaError_t launch_all(const Args& a, int b, bool drop, bool causal,
+                       int passes, cudaStream_t stream) {
   const long long lanes = (long long)b * a.tq * a.nh * kDeltaLanes;
   const long long blocks = (lanes + kThreadsDelta - 1) / kThreadsDelta;
   bwd_delta_kernel<T><<<(unsigned int)blocks, kThreadsDelta, 0, stream>>>(
       a, b);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return a.dh <= 64
-             ? launch_drop<T, 64>(a, b, drop, causal, passes, stream)
-             : launch_drop<T, kMaxDh>(a, b, drop, causal, passes, stream);
+  return launch<T>(a, b, drop, causal, passes, stream);
+}
+
+// 16-byte aligned base and (batch, time, head) strides in multiples of 8
+// elements: every row of the tensor starts on 16 bytes
+bool rows_aligned(const void* p, const long long* s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 &&
+         s[1] % 8 == 0 && s[2] % 8 == 0;
 }
 
 }  // namespace
@@ -470,7 +1313,8 @@ extern "C" {
 // array. With `causal`, keys past the query row are masked in-kernel.
 // `passes`: bit 1 runs pass A (dk, dv), bit 2 pass B (dq); the delta
 // pre-pass always runs. The dropout arguments are the forward's.
-// `stream` is a cudaStream_t.
+// `stream` is a cudaStream_t. bf16 runs the tensor-core kernels, f32 the
+// CUDA-core ones.
 int pt_flash_attention_bthd_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* out, const void* dout, const void* lse, const void* g_lse,
@@ -508,11 +1352,17 @@ int pt_flash_attention_bthd_bwd(
   a.sq = sq;
   a.scale = scale;
   a.drop = pt_attn::Dropout{drop_key, drop_thresh, keep_scale};
+  a.vec = dh % 8 == 0 && rows_aligned(q, a.qs) && rows_aligned(k, a.ks) &&
+          rows_aligned(v, a.vs) && rows_aligned(dout, a.dos) &&
+          rows_aligned(dq, a.dqs) && rows_aligned(dk, a.dks) &&
+          rows_aligned(dv, a.dvs);
+  a.bias_vec = reinterpret_cast<uintptr_t>(bias) % 16 == 0 && sb % 4 == 0 &&
+               sh % 4 == 0 && sq % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = use_dropout != 0, cz = causal != 0;
-  cudaError_t err = is_bf16
-                        ? launch<__nv_bfloat16>(a, b, drop, cz, passes, s)
-                        : launch<float>(a, b, drop, cz, passes, s);
+  cudaError_t err =
+      is_bf16 ? launch_all<__nv_bfloat16>(a, b, drop, cz, passes, s)
+              : launch_all<float>(a, b, drop, cz, passes, s);
   return (int)err;
 }
 

@@ -25,9 +25,11 @@ the shape and names the route the JAX package takes, shape for shape:
   here it is the plain composition on any device, and each such call adds
   one to ``dense_calls``.
 
-On Hopper the three kernel routes share one kernel family,
-``csrc/flash_attention_bthd_fwd.cu`` and ``csrc/flash_attention_bthd_bwd.cu``
-(pass A: dk and dv; pass B: dq). It takes (batch, time, head) element
+On Hopper the three kernel routes share one forward,
+``csrc/flash_attention_bthd_fwd.cu``, and one backward,
+``csrc/flash_attention_bthd_bwd.cu`` (pass A: dk and dv; pass B: dq),
+whose kernels are chosen by dtype: bf16 runs them on the tensor cores
+(``wgmma``), f32 on the CUDA cores. Both take (batch, time, head) element
 strides for every tensor, so BHTD tensors run with no transpose. On the
 ``kblock`` and ``bhtd`` routes causal attention is a template flag: the
 kernels mask ``q_pos >= k_pos`` themselves and skip every tile with no
@@ -263,7 +265,7 @@ def _scores(qf, kf, bias, scale, causal):
     _NEG_INF (a where, as the TPU kernels mask, not an addition)."""
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     if bias is not None:
-        s = s + bias.to(torch.float32)
+        s = s + bias.to(s.dtype)
     if causal:
         tq, tk = s.shape[-2:]
         live = (torch.arange(tq, device=s.device)[:, None]
@@ -296,7 +298,8 @@ def attention_bthd_plain(q, k, v, bias=None, scale=None, seed=None,
 
 def attention_bthd_bwd_plain(q, k, v, bias, seed, out, lse, g, scale=None,
                              p_drop=0.0, causal=False, g_lse=None):
-    """The plain backward, the formula written out (all f32): s and p =
+    """The plain backward, the formula written out (all f32, or all f64
+    for f64 inputs, a reference for the kernels' rounding): s and p =
     exp(s - lse) recomputed (causal mask included), dP = g v^T, M the
     scaled keep mask (1 without dropout), delta = rowsum(g o out) - g_lse
     (``g_lse``: the lse cotangent [b, tq, h, 1], 0 when None), dS = p o
@@ -307,13 +310,14 @@ def attention_bthd_bwd_plain(q, k, v, bias, seed, out, lse, g, scale=None,
     tk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf, gf = (x.to(wide) for x in (q, k, v, g))
     s = _scores(qf, kf, bias, scale, causal)
-    p = torch.exp(s - lse.permute(0, 2, 1, 3))
+    p = torch.exp(s - lse.permute(0, 2, 1, 3).to(wide))
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    delta = (gf * out.float()).sum(-1, keepdim=True)
+    delta = (gf * out.to(wide)).sum(-1, keepdim=True)
     if g_lse is not None:
-        delta = delta - g_lse.float()
+        delta = delta - g_lse.to(wide)
     delta = delta.permute(0, 2, 1, 3)
     pd = p
     if p_drop > 0.0:

@@ -288,6 +288,151 @@ def test_causal_long_call_builds_no_score_sized_tensor(cuda):
     assert rise < 32 * 2**20, rise
 
 
+# --- bf16 backward on the tensor cores (bwd_dkdv_wgmma_kernel, pass A;
+# bwd_dq_wgmma_kernel, pass B); f32 keeps the CUDA-core kernels ---
+
+
+def _bf16_bwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
+              bhtd=False, g_lse=False):
+    """(kernel grads, plain grads, launches on each route) of one bf16
+    backward call, fed the kernel forward's (out, lse)."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, torch.bfloat16, b, tq, tk,
+                                          kind, bhtd=bhtd, h=h, dh=dh)
+    seed = 23 if p_drop else None
+    if bhtd:
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, seed, None, p_drop,
+                                          causal=causal)
+        gl = (torch.randn(lse.shape, device=cuda,
+                          generator=torch.Generator(device=cuda)
+                          .manual_seed(4)) if g_lse else None)
+        fa.reset_counts()
+        grads = fa.flash_attention_bwd(q, k, v, bias, seed, out, lse, dout,
+                                       None, p_drop, causal=causal, g_lse=gl)
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)
+        refs = fa.attention_bwd_plain(q, k, v, bias, seed, out, lse, dout,
+                                      None, p_drop, causal, gl)
+        return grads, refs, counts
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
+                                           seed=seed, p_drop=p_drop)
+    fa.reset_counts()
+    grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
+                                        None, p_drop, causal)
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    route, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
+    refs = fa.attention_bthd_bwd_plain(q, k, v, rbias, seed, out, lse, dout,
+                                       None, p_drop, rcausal)
+    return grads, refs, counts
+
+
+def _assert_bf16_grads(grads, refs):
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, ref) <= 8e-3, _rel(got, ref)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 72, 128])
+def test_bf16_bwd_head_widths(cuda, dh):
+    """Every head width the wrapper takes runs in bf16: dh <= 64 in the
+    64-column tiles (two warpgroups), 72 and 128 in the 128-column ones,
+    the columns past dh zero-padded."""
+    grads, refs, counts = _bf16_bwd(cuda, 2, 128, 128, 4, dh, "pad",
+                                    p_drop=0.1)
+    assert counts[("small", "bwd")] == 1
+    _assert_bf16_grads(grads, refs)
+
+
+@pytest.mark.parametrize("dh,causal", [(64, False), (64, True), (20, False)])
+def test_bf16_bwd_ragged(cuda, dh, causal):
+    """Ragged tq = 100 and tk = 77 are masked in both passes (causal folded
+    into the bias, whose rows then stream through shared memory); dh = 20
+    copies rows that are not 16-byte aligned element by element."""
+    grads, refs, counts = _bf16_bwd(cuda, 2, 100, 77, 8, dh, "none",
+                                    causal=causal)
+    assert counts[("small", "bwd")] == 1
+    _assert_bf16_grads(grads, refs)
+
+
+@pytest.mark.parametrize("route,tq,tk,p_drop", [
+    ("kblock", 256, 1024, 0.1), ("bhtd", 1024, 2048, 0.0),
+])
+def test_bf16_bwd_causal_in_kernel(cuda, route, tq, tk, p_drop):
+    grads, refs, counts = _bf16_bwd(cuda, 1, tq, tk, 8, 64, "causal_pad",
+                                    p_drop=p_drop, causal=True)
+    assert counts[(route, "bwd")] == 1
+    _assert_bf16_grads(grads, refs)
+
+
+@pytest.mark.parametrize("tq,tk,route", [(256, 256, "small"),
+                                         (1024, 1024, "kblock")])
+def test_bf16_bwd_dropout(cuda, tq, tk, route):
+    grads, refs, counts = _bf16_bwd(cuda, 2, tq, tk, 8, 64, "pad",
+                                    p_drop=0.1)
+    assert counts[(route, "bwd")] == 1
+    _assert_bf16_grads(grads, refs)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_bwd_bhtd_layout_with_lse_cotangent(cuda, causal):
+    grads, refs, counts = _bf16_bwd(cuda, 2, 512, 512, 8, 64, "pad",
+                                    causal=causal, bhtd=True, g_lse=True)
+    assert counts[("bhtd", "bwd")] == 1
+    _assert_bf16_grads(grads, refs)
+
+
+@pytest.mark.parametrize("tq,kind,p_drop,causal", [
+    (2048, "causal_pad", 0.0, True), (256, "pad", 0.1, False),
+])
+def test_bf16_bwd_bit_equal_over_two_launches(cuda, tq, kind, p_drop,
+                                              causal):
+    """No atomics: two launches on the same inputs give equal bits."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, torch.bfloat16, 2, tq, tq,
+                                          kind)
+    seed = 29 if p_drop else None
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
+                                           seed=seed, p_drop=p_drop)
+    first, second = (fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out,
+                                                 lse, dout, None, p_drop,
+                                                 causal) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bwd_kernel_family_follows_the_dtype(cuda):
+    """bf16 launches the wgmma kernels, f32 the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias, _, dout = _long_inputs(cuda, dtype, 1, 256, 256,
+                                              "pad")
+        out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention_bthd_bwd(q, k, v, bias, None, out, lse, dout)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    for dtype, wgmma in ((torch.bfloat16, True), (torch.float32, False)):
+        for kernel in ("bwd_dkdv", "bwd_dq"):
+            assert (f"{kernel}_wgmma_kernel" in names[dtype]) == wgmma
+            assert (f"{kernel}_kernel<" in names[dtype]) == (not wgmma)
+
+
+def test_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    """A head dim past 128 and float16 raise before any launch."""
+    for dtype, dh, err in ((torch.bfloat16, 136, NotImplementedError),
+                           (torch.float16, 64, TypeError)):
+        q = torch.randn(1, 256, 2, dh, device=cuda).to(dtype)
+        before = fa.bwd_launches
+        with pytest.raises(err):
+            fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
+                                        torch.zeros(1, 256, 2, 1,
+                                                    device=cuda), q)
+        assert fa.bwd_launches == before
+
+
 # --- the kernel studies (paddle_tpu_torch/benchmarks) ---
 #
 # bf16 outputs within one bf16 ulp (2^-7 relative) of the largest output
