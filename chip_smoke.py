@@ -17,11 +17,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    t = 256 training shapes), the kblock route (t = 1024, b = 8), the
    bhtd route (t = 4096, b = 2; dropout at t = 2048; BHTD-layout inputs
    with an lse cotangent; the decode step tq = 1 over 1024 keys; each
-   backward pass launched and checked on its own; bf16 backward rows read
-   the tensor-core kernels, f32 rows the CUDA-core ones, and two bf16
-   launches give equal bits), a causal forward and
-   backward at t = 8192 whose memory rise shows no [tq, tk] tensor, and
-   the dropout-mask dump, bit for bit; then (3c) the three kernel
+   backward pass launched and checked on its own; bf16 rows, forward and
+   backward, read the tensor-core kernels, f32 rows the CUDA-core ones,
+   and two bf16 launches give equal bits; dh = 256, the widest head the
+   kernels take, on the small and kblock routes, with no dense call), a
+   causal forward and backward at t = 8192 whose memory rise shows no
+   [tq, tk] tensor, and the dropout-mask dump, bit for bit; then (3c) the three kernel
    studies of paddle_tpu_torch/benchmarks: the combined 1x1-conv backward
    at ResNet-50's three expand-conv shapes (batch 128), the grouped 3x3
    convolution at SE-ResNeXt-50's two c1 shapes, and the attention
@@ -40,7 +41,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    every step, lower loss after a few steps on a repeated batch, 18
    forward and 18 backward launches a step of the shape's route and none
    of any other, the step wall / device-busy ms, target tokens/s and peak
-   memory, the device ms a step of the two backward passes;
+   memory, the device ms a step of the forward kernel and of the two
+   backward passes;
 6. one f32 training step (dropout 0) on the card against the same step
    on the CPU: full widths and depth at batch 2 x seq 32, and (6b) 2+2
    layers at seq 768 (kblock route) and 1280 (bhtd route): loss and a
@@ -147,9 +149,10 @@ VISION_FALL_LR = 0.01
 TOL_VISION_F32 = (5e-4, 2e-3)
 TOL_VISION_F64 = (1e-11, 1e-10)
 
-# The backward's two kernel families (csrc/flash_attention_bthd_bwd.cu):
-# (pass A, pass B) by input dtype, bf16 on the tensor cores, f32 on the
-# CUDA cores
+# The attention kernel families by input dtype, bf16 on the tensor cores,
+# f32 on the CUDA cores: the forward (csrc/flash_attention_bthd_fwd.cu)
+# and the backward's (pass A, pass B) (csrc/flash_attention_bthd_bwd.cu)
+FWD_KERNELS = {"bfloat16": "fwd_wgmma_kernel", "float32": "fwd_kernel"}
 BWD_KERNELS = {"bfloat16": ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"),
                "float32": ("bwd_dkdv_kernel", "bwd_dq_kernel")}
 
@@ -306,8 +309,8 @@ def _fns(fa, c, q, k, v, bias, causal, scale, seed):
                                                causal=causal),
                 lambda: fa.attention_plain(q, k, v, bias, scale, seed, p,
                                            causal))
-    return (lambda: fa.flash_attention_bthd_fwd(q, k, v, bias, scale, causal,
-                                                seed=seed, p_drop=p),
+    return (lambda: fa.flash_attention_bthd_fwd(q, k, v, bias, seed, scale,
+                                                p, causal),
             lambda: fa.attention_bthd_plain(q, k, v, bias, scale, seed, p,
                                             causal))
 
@@ -330,6 +333,7 @@ def check_attention_kernel(fa, c, gen):
     out, lse = kernel()
     torch.cuda.synchronize()
     assert fa.launch_counts[(route, "fwd")] == 1, (c["name"], route)
+    assert fa.dense_calls == 0, c["name"]
     ref_out, ref_lse = plain()
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
@@ -353,7 +357,10 @@ def check_attention_kernel(fa, c, gen):
         qh, kh, vh, attn_mask=mask, dropout_p=c["p_drop"],
         is_causal=is_causal, scale=scale), iters, warmup=2)
     del mask
-    device_ms = _device_ms(kernel, "fwd_kernel", iters=min(iters, 20))
+    # the kernel of the input dtype, read from the trace by its name
+    device_ms = _device_ms(kernel, FWD_KERNELS[dname],
+                           iters=min(iters, 20))
+    assert device_ms, (c["name"], FWD_KERNELS[dname])
 
     # bound: each input read once, each output written once (HBM), and
     # 4*b*h*dh operations per live score at the input dtype's peak. A
@@ -369,6 +376,7 @@ def check_attention_kernel(fa, c, gen):
         "tol_out": tol, "tol_lse": TOL_LSE,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "kernel": FWD_KERNELS[dname],
     }
 
 
@@ -429,6 +437,7 @@ def check_attention_bwd(fa, c, gen):
     grads = kernel()
     torch.cuda.synchronize()
     assert fa.launch_counts[(route, "bwd")] == 1, (c["name"], route)
+    assert fa.dense_calls == 0, c["name"]
     if c["repeat"]:
         # no atomics: a second launch on the same inputs gives equal bits
         assert all(torch.equal(a, b_) for a, b_ in zip(grads, kernel())), (
@@ -564,7 +573,7 @@ def check_long_causal_memory(fa, gen):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     fa.reset_counts()
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, None, None, causal)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, causal=causal)
     grads = fa.flash_attention_bthd_bwd(q, k, v, None, None, out, lse, g,
                                         None, 0.0, causal)
     torch.cuda.synchronize()
@@ -799,6 +808,8 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
     device_ms = sum(times.values()) or None
     bwd_passes_ms = sum(ms for name, ms in times.items()
                         if "bwd_dkdv" in name or "bwd_dq" in name)
+    fwd_ms = sum(ms for name, ms in times.items()
+                 if any(k in name for k in FWD_KERNELS.values()))
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
     peak = torch.cuda.max_memory_allocated()
     tokens = sum(float(feeds[i % len(feeds)]["trg_pad_mask"].sum())
@@ -810,6 +821,7 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         "startup_s": startup_s, "repeated_batch_losses": losses,
         "window_steps": window, "last_loss": float(value),
         "step_ms": step_ms, "step_device_ms": device_ms,
+        "fwd_kernel_device_ms": fwd_ms,
         "bwd_passes_device_ms": bwd_passes_ms,
         "idle_share": None if device_ms is None else 1 - device_ms / step_ms,
         "target_tokens_per_s": tokens / wall,
@@ -1244,6 +1256,18 @@ def _phase3_cases(torch):
         # both head-width instantiations of the kernel (dh <= 64, <= 128)
         _case("dh128 f32", f32, 2, 128, 128, "pad", h=4, dh=128),
         _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32),
+        # the bf16 kernel's padded head widths and ragged edges
+        _case("dh72 bf16 drop", bf16, 2, 128, 128, "pad", p_drop=0.1, h=4,
+              dh=72),
+        _case("dh128 bf16 drop", bf16, 2, 128, 128, "pad", p_drop=0.2, h=4,
+              dh=128),
+        _case("ragged bf16", bf16, 2, 100, 77, "none"),
+        # the widest head the kernels take (the JAX small kernel takes any)
+        _case("dh256 bf16 causal drop", bf16, 2, 256, 256, "causal",
+              p_drop=0.1, h=2, dh=256, split=True),
+        _case("dh256 f32 pad", f32, 2, 256, 256, "pad_b", h=2, dh=256),
+        _case("dh256 bf16 t1024 causal+pad", bf16, 1, 1024, 1024,
+              "causal_pad", h=2, dh=256),
         # the training step's three attentions (encoder self, decoder
         # self, cross), with its dropout
         _case("train bf16 pad drop", bf16, tb, tt, tt, "pad_b", True, 0.1,
@@ -1284,7 +1308,7 @@ def _phase3_cases(torch):
     ]
     bwd = [c for c in fwd if c["name"].startswith(("train", "t1024",
                                                    "t4096", "t2048",
-                                                   "bhtd"))] + [
+                                                   "bhtd", "dh256"))] + [
         _case("ragged f32", f32, 2, 100, 77, "none"),
         _case("dh128 f32 drop", f32, 2, 128, 128, "pad", p_drop=0.2, h=4,
               dh=128),
@@ -1376,6 +1400,13 @@ def main() -> int:
             "pass_a": c_b["device_ms_pass_a"] / n_b["device_ms_pass_a"],
             "pass_b": c_b["device_ms_pass_b"] / n_b["device_ms_pass_b"]}
     print("causal_skip " + json.dumps(skip), flush=True)
+    print("fwd_bf16 " + json.dumps({
+        name: {"device_ms": r["device_ms"], "ms": r["ms"],
+               "library_ms": r["library_ms"],
+               "ms_over_library": r["ms"] / r["library_ms"],
+               "err_out": r["err_out"]}
+        for name, r in fwd_results.items() if r["dtype"] == "bfloat16"}),
+        flush=True)
     print("bwd_bf16 " + json.dumps({
         name: {"ms": r["ms"], "library_ms": r["library_ms"],
                "ms_over_library": r["ms"] / r["library_ms"],
@@ -1495,17 +1526,28 @@ def main() -> int:
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
+    fwd_prefill = fwd_results["prefill f32 pad"]
     bwd_main = bwd_results["train bf16 pad drop"]
     bwd_f32 = bwd_results["train f32 pad drop"]
     kb_fwd, kb_bwd = (fwd_results["t1024 bf16 pad drop"],
                       bwd_results["t1024 bf16 pad drop"])
+    kb_fwd_f32 = fwd_results["t1024 f32 pad drop"]
     bh_fwd = fwd_results["t4096 bf16 causal+pad"]
+    bh_decode = fwd_results["decode f32 tq1 tk1024"]
     passes = bwd_results["t4096 bf16 causal+pad"]["passes"]
+
+    def err(row):
+        return max(row["err_out"], row["err_lse"])
+
     kernels_line = {"kernels": [
         _kernel_entry(
-            "flash_attention_bthd_fwd", _SRC_FWD, f"{_TPU_FA}:808",
-            s["launches"]["small/fwd"] + t["launches"]["small/fwd"],
-            fwd_main, max(fwd_main["err_out"], fwd_main["err_lse"])),
+            "flash_attention_bthd_fwd, bf16 fwd_wgmma_kernel (small route)",
+            _SRC_FWD, f"{_TPU_FA}:808", t["launches"]["small/fwd"],
+            fwd_main, err(fwd_main)),
+        _kernel_entry(
+            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores; small "
+            "route, serving prefill)", _SRC_FWD, f"{_TPU_FA}:808",
+            s["launches"]["small/fwd"], fwd_prefill, err(fwd_prefill)),
         _kernel_entry(
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
             "bwd_dq_wgmma_kernel)", _SRC_BWD, f"{_TPU_FA}:861",
@@ -1520,10 +1562,13 @@ def main() -> int:
             "tests/test_flash_attention_tpu.py:26", mask_launches, mask,
             0.0),
         _kernel_entry(
-            "flash_attention_fwd (bhtd route, causal)", _SRC_FWD,
-            f"{_TPU_FA}:126",
-            t4k["launches"]["bhtd/fwd"] + sl["launches"]["bhtd/fwd"],
-            bh_fwd, max(bh_fwd["err_out"], bh_fwd["err_lse"])),
+            "flash_attention_fwd, bf16 fwd_wgmma_kernel (bhtd route, "
+            "causal)", _SRC_FWD, f"{_TPU_FA}:126",
+            t4k["launches"]["bhtd/fwd"], bh_fwd, err(bh_fwd)),
+        _kernel_entry(
+            "flash_attention_fwd, f32 fwd_kernel (CUDA cores; bhtd route, "
+            "decode step)", _SRC_FWD, f"{_TPU_FA}:126",
+            sl["launches"]["bhtd/fwd"], bh_decode, err(bh_decode)),
         _kernel_entry(
             "flash_attention_bwd pass B, dq, bwd_dq_wgmma_kernel (bhtd route, "
             "causal)", _SRC_BWD,
@@ -1535,10 +1580,13 @@ def main() -> int:
             _SRC_BWD, f"{_TPU_FA}:233", t4k["launches"]["bhtd/bwd"],
             passes["pass_a"], passes["pass_a"]["max_abs_err"]),
         _kernel_entry(
-            "flash_attention_bthd_fwd (kblock route)", _SRC_FWD,
-            f"{_TPU_FA}:964",
-            t1k["launches"]["kblock/fwd"] + sl["launches"]["kblock/fwd"],
-            kb_fwd, max(kb_fwd["err_out"], kb_fwd["err_lse"])),
+            "flash_attention_bthd_fwd, bf16 fwd_wgmma_kernel (kblock route)",
+            _SRC_FWD, f"{_TPU_FA}:964", t1k["launches"]["kblock/fwd"],
+            kb_fwd, err(kb_fwd)),
+        _kernel_entry(
+            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores; kblock "
+            "route, serving prefill at 1024)", _SRC_FWD, f"{_TPU_FA}:964",
+            sl["launches"]["kblock/fwd"], kb_fwd_f32, err(kb_fwd_f32)),
         _kernel_entry(
             "flash_attention_bthd_bwd (kblock route)", _SRC_BWD,
             f"{_TPU_FA}:1028", t1k["launches"]["kblock/bwd"], kb_bwd,
@@ -1558,6 +1606,9 @@ def main() -> int:
             "benchmarks/grouped_conv_pallas.py:42",
             study_launches["grouped_conv"], gconv_rows[0], gconv_rows),
     ]}
+    # every kernel of the paths ran in them
+    assert all(e["launches"] > 0 for e in kernels_line["kernels"]), [
+        (e["name"], e["launches"]) for e in kernels_line["kernels"]]
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

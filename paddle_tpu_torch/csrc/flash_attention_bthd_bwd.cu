@@ -47,10 +47,14 @@
 //   - every product is a `wgmma.mma_async` (bf16 x bf16 -> f32) on bf16
 //     tiles in shared memory, in the 128-byte-swizzled layout the wgmma
 //     descriptors read; a head dim that is not a multiple of 64 is padded
-//     with zeros there (dh <= 64 as 64, else 128), which adds nothing to
-//     any product;
+//     with zeros there (dh <= 64 as 64, <= 128 as 128, else 256), which
+//     adds nothing to any product;
+//   - a block writes at most 128 columns of its gradients (the registers
+//     of one warpgroup hold no more): at dh 256 each pass runs two blocks
+//     per tile (blockIdx.y), which both compute S and dP over the whole
+//     head and then take one half of the columns of dk, dv or dq;
 //   - pass A: a block holds 64 keys per warpgroup (two warpgroups, 128
-//     keys, at dh <= 64; one at dh <= 128) and their K and V for the whole
+//     keys, at dh <= 64; one above) and their K and V for the whole
 //     walk; query tiles (64 rows; 32 at dh > 64, for registers) of Q and
 //     dout, with their lse and delta, stream through a two-stage ring of
 //     16-byte cp.async copies, the next tile in flight while the current
@@ -87,10 +91,12 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using namespace pt_attn;
+using namespace pt_wgmma;
 
 // f32 (CUDA-core) kernels
 constexpr int kBQ = 32;  // query rows per tile
@@ -99,7 +105,7 @@ constexpr int kThreadsA = 256;
 constexpr int kThreadsB = 128;
 constexpr int kThreadsDelta = 256;
 constexpr int kDeltaLanes = 8;  // threads that share one delta row
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;
 
 struct Args {
   const void *q, *k, *v, *out, *dout;
@@ -437,274 +443,13 @@ __global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernels (wgmma, cp.async)
 
-constexpr int kWgThreads = 128;  // one warpgroup
-constexpr int kKeysB = 64;       // pass B: keys per tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kStages = 2;  // ring stages of the streamed tiles
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes global -> shared, asynchronously: the first `bytes` from
-// src, zeros after them
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most kPending of this thread's copy groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-// shared-memory writes of this thread become visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-// Orders every use of `d` after the preceding wgmma_wait: the compiler
-// takes the asm outputs of wgmma as ready the moment wgmma starts.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Pins register A fragments before the wgmma_fence that precedes their
-// products, so that no conversion lands between those wgmmas.
-template <int kT, int kK>
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[kT][kK][4]) {
-#pragma unroll
-  for (int t = 0; t < kT; ++t)
-#pragma unroll
-    for (int k = 0; k < kK; ++k)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        asm volatile("" : "+r"(a[t][k][r])::"memory");
-}
-
-// 2^x, one MUFU instruction (flushes subnormal results to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A bf16 tile of kRows rows x (64 * panels) columns in shared memory, the
-// layout wgmma reads with 128-byte swizzling: panels of [kRows][64]
-// (kRows * 128 bytes each, 1024-byte aligned), 16-byte chunk c of row r
-// at byte ((c ^ r) % 8) * 16 of its 128-byte row. Byte offset of chunk c
-// (columns 8c .. 8c + 7) of row r:
-template <int kRows>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)((c >> 3) * (kRows * 128) + r * 128 +
-                    (((c & 7) ^ (r & 7)) << 4));
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-// K-major operand (the reduction runs along the tile's columns), rows
-// [row0, row0 + 64 or N) of the tile, reduction step kk (columns 16kk ..
-// 16kk + 15): 8-row groups 1024 bytes apart, panels kRows * 128 apart.
-template <int kRows>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
-  return gmma_desc(tile + (kk >> 2) * (kRows * 128) + row0 * 128 +
-                       (kk & 3) * 32,
-                   16, 1024);
-}
-// MN-major operand (the reduction runs along the tile's rows; its columns
-// are the product's N), reduction step kk (rows 16kk .. 16kk + 15): the
-// 64-column panels kRows * 128 bytes apart, 8-row groups 1024 apart.
-template <int kRows>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return gmma_desc(tile + kk * 2048, kRows * 128, 1024);
-}
-
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (bf16 pairs),
-// B MN-major (its 64 columns contiguous) in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (bf16 pairs),
-// B MN-major (its 128 columns contiguous) in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+constexpr int kKeysB = 64;  // pass B: keys per tile
 
 // P o M and dS enter their products as two bf16 terms, hi = bf16(x) and
 // lo = bf16(x - hi), each the A operand of its own wgmma into the same f32
 // accumulator: x to 16 bits instead of 8. A single bf16 rounding left the
 // gradients within 7.4e-3 of the 8e-3 limit against the f32 version.
 constexpr int kTerms = 2;
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The accumulator of a 64 x (2 kHalf) product as the register A operand
-// (hi and lo terms) of a product that reduces over its 2 kHalf columns:
-// k-step kk takes columns 16kk .. 16kk + 15, as mma's A fragment.
-template <int kHalf>
-__device__ __forceinline__ void to_a_frags(
-    const float (&d)[kHalf], uint32_t (&a)[kTerms][kHalf / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kHalf / 8; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      a[0][kk][r] = bits(hi);
-      a[1][kk][r] = bits(__floats2bfloat162_rn(x0 - __low2float(hi),
-                                               x1 - __high2float(hi)));
-    }
-}
-
-// Copies rows [row0, row0 + kRows) x [0, dh) of a strided bf16 source into
-// a swizzled tile; rows at or past `limit` become zeros, columns past dh
-// are left alone (the kernels zero them once). `vec`: 16-byte cp.async
-// (rows 16-byte aligned, dh a multiple of 8); else element by element.
-template <int kRows, int kThreads>
-__device__ __forceinline__ void copy_tile(char* tile,
-                                          const __nv_bfloat16* src,
-                                          long long rstride, int row0,
-                                          int limit, int dh, bool vec) {
-  if (vec) {
-    const int nch = dh >> 3;
-    const uint32_t base = smem_addr(tile);
-    for (int i = threadIdx.x; i < kRows * nch; i += kThreads) {
-      const int r = i / nch, c = i - r * nch;
-      const bool ok = row0 + r < limit;
-      cp_async16(base + swz<kRows>(r, c),
-                 src + (ok ? (long long)(row0 + r) * rstride + 8 * c : 0),
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * dh; i += kThreads) {
-      const int r = i / dh, c = i - r * dh;
-      __nv_bfloat16 x = __float2bfloat16(0.f);
-      if (row0 + r < limit) x = src[(long long)(row0 + r) * rstride + c];
-      *reinterpret_cast<__nv_bfloat16*>(tile + swz<kRows>(r, c >> 3) +
-                                        2 * (c & 7)) = x;
-    }
-  }
-}
 
 // n f32 values src[(row0 + i) * stride] into shared memory, zeros at or
 // past `limit`
@@ -719,60 +464,17 @@ __device__ __forceinline__ void copy_rows_f32(float* dst, const float* src,
   }
 }
 
-// Rows [row0, row0 + kR) x columns [col0, col0 + kC) of the f32 bias (row
-// stride sq) into shared memory at row stride kC + 4 (rows land 4 banks
-// apart); elements past rlimit or climit become zeros (they are masked).
-// `vec`: 16-byte copies (bias rows 16-byte aligned); else 4-byte ones.
-template <int kR, int kC, int kThreads>
-__device__ __forceinline__ void copy_bias_tile(float* dst, const float* src,
-                                               long long sq, int row0,
-                                               int rlimit, int col0,
-                                               int climit, bool vec) {
-  constexpr int kS = kC + 4;
-  if (vec) {
-    constexpr int kChunks = kC / 4;
-    for (int i = threadIdx.x; i < kR * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = 4 * (i % kChunks), col = col0 + c;
-      const int n = row0 + r < rlimit ? max(0, min(4, climit - col)) : 0;
-      cp_async16(smem_addr(dst + r * kS + c),
-                 src + (n > 0 ? (long long)(row0 + r) * sq + col : 0), 4 * n);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kR * kC; i += kThreads) {
-      const int r = i / kC, c = i % kC;
-      const bool ok = row0 + r < rlimit && col0 + c < climit;
-      cp_async4(smem_addr(dst + r * kS + c),
-                src + (ok ? (long long)(row0 + r) * sq + col0 + c : 0), ok);
-    }
-  }
-}
-
-template <int kThreads>
-__device__ __forceinline__ void zero_shared(char* p, int bytes) {
-  for (int i = threadIdx.x; i < bytes / 16; i += kThreads)
-    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Columns c, c + 1 of an output row, from f32 accumulators
-__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int dh,
-                                           float x0, float x1, bool vec) {
-  if (vec) {
-    if (c < dh)
-      *reinterpret_cast<__nv_bfloat162*>(row + c) =
-          __floats2bfloat162_rn(x0, x1);
-  } else {
-    if (c < dh) row[c] = __float2bfloat16(x0);
-    if (c + 1 < dh) row[c + 1] = __float2bfloat16(x1);
-  }
-}
-
-// Pass A shape: dh padded to kDhPad (64 or 128).
+// Pass A shape: dh padded to kDhPad (64, 128 or 256).
 template <int kDhPad>
 struct PassA {
   static constexpr int kWG = kDhPad <= 64 ? 2 : 1;   // warpgroups
   static constexpr int kKeys = 64 * kWG;              // keys of a block
   static constexpr int kBq = kDhPad <= 64 ? 64 : 32;  // query rows a tile
   static constexpr int kThreads = kWgThreads * kWG;
+  // dk and dv columns of a block (at most 128: registers); blockIdx.y
+  // picks which of the kHalves
+  static constexpr int kOut = kDhPad < 128 ? kDhPad : 128;
+  static constexpr int kHalves = kDhPad / kOut;
   static constexpr int kTileKV = kKeys * kDhPad * 2;  // K (or V), bytes
   static constexpr int kTileQ = kBq * kDhPad * 2;     // Q (or dout), bytes
   // a ring stage: Q, dout, then lse and delta [kBq] f32 (1024 bytes)
@@ -792,6 +494,8 @@ template <int kDhPad>
 struct PassB {
   static constexpr int kRows = 64;  // query rows of a block
   static constexpr int kThreads = kWgThreads;
+  static constexpr int kOut = kDhPad < 128 ? kDhPad : 128;  // as in PassA
+  static constexpr int kHalves = kDhPad / kOut;
   static constexpr int kTileQ = kRows * kDhPad * 2;
   static constexpr int kTileK = kKeysB * kDhPad * 2;
   static constexpr int kStage = 2 * kTileK;  // K, V
@@ -802,10 +506,6 @@ struct PassB {
   }
 };
 
-__device__ __forceinline__ char* align1024(char* p) {
-  return reinterpret_cast<char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
-}
 
 // Pass A on the tensor cores: dk and dv of one key tile.
 template <int kDhPad, bool kDrop, bool kCausal>
@@ -829,6 +529,7 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
   const int tid = threadIdx.x, wg = tid / kWgThreads;
   const int warp = (tid % kWgThreads) / 32, lane = tid % 32;
   const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
+  const int col0 = blockIdx.y * P::kOut;  // first dk, dv column
   const bool vec = a.vec != 0;
   typedef __nv_bfloat16 bf;
   const bf* qb = static_cast<const bf*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
@@ -882,9 +583,9 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
   const float scale = a.scale;
   const uint32_t k_addr = smem_addr(Ks), v_addr = smem_addr(Vs);
 
-  float dk[kDhPad / 2], dv[kDhPad / 2];
+  float dk[P::kOut / 2], dv[P::kOut / 2];
 #pragma unroll
-  for (int i = 0; i < kDhPad / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < P::kOut / 2; ++i) dk[i] = dv[i] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles) load_stage(it + 1);  // in flight meanwhile
@@ -974,12 +675,14 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
       for (int kq = 0; kq < kBq / 16; ++kq)
 #pragma unroll
         for (int t = 0; t < kTerms; ++t)
-          wgmma_rs(dv, ap[t][kq], desc_mn<kBq>(do_addr, kq));
+          wgmma_rs(dv, ap[t][kq],
+                   desc_mn<kBq>(do_addr + (col0 / 64) * kBq * 128, kq));
 #pragma unroll
       for (int kq = 0; kq < kBq / 16; ++kq)
 #pragma unroll
         for (int t = 0; t < kTerms; ++t)
-          wgmma_rs(dk, as[t][kq], desc_mn<kBq>(q_addr, kq));
+          wgmma_rs(dk, as[t][kq],
+                   desc_mn<kBq>(q_addr + (col0 / 64) * kBq * 128, kq));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dv);
@@ -998,10 +701,10 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
     bf* dvr = static_cast<bf*>(a.dv) + bb * a.dvs[0] + key * a.dvs[1] +
               hh * a.dvs[2];
 #pragma unroll
-    for (int n8 = 0; n8 < kDhPad / 8; ++n8) {
+    for (int n8 = 0; n8 < P::kOut / 8; ++n8) {
       const int e = 4 * n8 + 2 * i;
-      store_pair(dkr, 8 * n8 + c0, dh, dk[e], dk[e + 1], vec);
-      store_pair(dvr, 8 * n8 + c0, dh, dv[e], dv[e + 1], vec);
+      store_pair(dkr, col0 + 8 * n8 + c0, dh, dk[e], dk[e + 1], vec);
+      store_pair(dvr, col0 + 8 * n8 + c0, dh, dv[e], dv[e + 1], vec);
     }
   }
 }
@@ -1026,6 +729,7 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
   const int hh = (blockIdx.x - order * nbh) % nh;
   const int bb = (blockIdx.x - order * nbh) / nh;
   const int q0 = tile * P::kRows;
+  const int col0 = blockIdx.y * P::kOut;  // first dq column
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool vec = a.vec != 0;
   typedef __nv_bfloat16 bf;
@@ -1078,9 +782,9 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
   const float scale = a.scale;
   const uint32_t q_addr = smem_addr(Qs), do_addr = smem_addr(dOs);
 
-  float dq[kDhPad / 2];
+  float dq[P::kOut / 2];
 #pragma unroll
-  for (int i = 0; i < kDhPad / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < P::kOut / 2; ++i) dq[i] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles) load_stage(it + 1);
@@ -1158,7 +862,8 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
     for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
       for (int t = 0; t < kTerms; ++t)
-        wgmma_rs(dq, as[t][kq], desc_mn<kKeysB>(k_addr, kq));
+        wgmma_rs(dq, as[t][kq],
+                 desc_mn<kKeysB>(k_addr + (col0 / 64) * kKeysB * 128, kq));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(dq);
@@ -1173,9 +878,9 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
     bf* dqr = static_cast<bf*>(a.dq) + bb * a.dqs[0] + r * a.dqs[1] +
               hh * a.dqs[2];
 #pragma unroll
-    for (int n8 = 0; n8 < kDhPad / 8; ++n8) {
+    for (int n8 = 0; n8 < P::kOut / 8; ++n8) {
       const int e = 4 * n8 + 2 * i;
-      store_pair(dqr, 8 * n8 + c0, dh, dq[e], dq[e + 1], vec);
+      store_pair(dqr, col0 + 8 * n8 + c0, dh, dq[e], dq[e + 1], vec);
     }
   }
 }
@@ -1230,7 +935,8 @@ struct TensorCoreBf16 {
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
       bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>
-          <<<(unsigned int)blocks, P::kThreads, smem, stream>>>(a, b);
+          <<<dim3((unsigned int)blocks, P::kHalves), P::kThreads, smem,
+             stream>>>(a, b);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
@@ -1244,7 +950,8 @@ struct TensorCoreBf16 {
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
       bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>
-          <<<(unsigned int)blocks, P::kThreads, smem, stream>>>(a, b);
+          <<<dim3((unsigned int)blocks, P::kHalves), P::kThreads, smem,
+             stream>>>(a, b);
       err = cudaGetLastError();
     }
     return err;
@@ -1268,18 +975,20 @@ cudaError_t launch(const Args& a, int b, bool drop, bool causal, int passes,
 template <>
 cudaError_t launch<float>(const Args& a, int b, bool drop, bool causal,
                           int passes, cudaStream_t s) {
-  return a.dh <= 64 ? dispatch<CudaCoreF32, 64>(a, b, drop, causal, passes, s)
-                    : dispatch<CudaCoreF32, kMaxDh>(a, b, drop, causal,
-                                                    passes, s);
+  if (a.dh <= 64) return dispatch<CudaCoreF32, 64>(a, b, drop, causal, passes, s);
+  if (a.dh <= 128)
+    return dispatch<CudaCoreF32, 128>(a, b, drop, causal, passes, s);
+  return dispatch<CudaCoreF32, kMaxDh>(a, b, drop, causal, passes, s);
 }
 
 template <>
 cudaError_t launch<__nv_bfloat16>(const Args& a, int b, bool drop,
                                   bool causal, int passes, cudaStream_t s) {
-  return a.dh <= 64
-             ? dispatch<TensorCoreBf16, 64>(a, b, drop, causal, passes, s)
-             : dispatch<TensorCoreBf16, kMaxDh>(a, b, drop, causal, passes,
-                                                s);
+  if (a.dh <= 64)
+    return dispatch<TensorCoreBf16, 64>(a, b, drop, causal, passes, s);
+  if (a.dh <= 128)
+    return dispatch<TensorCoreBf16, 128>(a, b, drop, causal, passes, s);
+  return dispatch<TensorCoreBf16, kMaxDh>(a, b, drop, causal, passes, s);
 }
 
 template <typename T>
@@ -1294,12 +1003,6 @@ cudaError_t launch_all(const Args& a, int b, bool drop, bool causal,
   return launch<T>(a, b, drop, causal, passes, stream);
 }
 
-// 16-byte aligned base and (batch, time, head) strides in multiples of 8
-// elements: every row of the tensor starts on 16 bytes
-bool rows_aligned(const void* p, const long long* s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 &&
-         s[1] % 8 == 0 && s[2] % 8 == 0;
-}
 
 }  // namespace
 

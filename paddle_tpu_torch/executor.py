@@ -118,14 +118,18 @@ class Executor:
         feed: Optional[Dict[str, Any]] = None,
         fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
         scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+        use_program_cache: bool = True,
         async_fetch: bool = False,
     ):
         """Run block 0 of ``program``. Returns the fetches as numpy arrays,
-        or as the device tensors themselves when ``async_fetch`` (the
-        caller materializes them later, after it has queued more work).
-        A run of a program with random ops draws one base seed from the
-        executor's stream for ``program.random_seed``; each random op
-        derives its own seed from it (core/interp.py)."""
+        or as the device tensors themselves when ``return_numpy`` is False
+        or ``async_fetch`` (the caller materializes them later, after it
+        has queued more work). ``use_program_cache=False`` lowers the
+        program afresh and keeps nothing. The arguments come in the JAX
+        package's order. A run of a program with random ops draws one
+        base seed from the executor's stream for ``program.random_seed``;
+        each random op derives its own seed from it (core/interp.py)."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
@@ -135,11 +139,12 @@ class Executor:
         amp = bool(program._amp)
         key = (program._uid, program.version, amp, tuple(feed_names),
                tuple(fetch_names))
-        lowered = self._cache.get(key)
+        lowered = self._cache.get(key) if use_program_cache else None
         if lowered is None:
             lowered = lowering.lower_block(program, 0, feed_names,
                                            fetch_names, self.device, amp)
-            self._cache[key] = lowered
+            if use_program_cache:
+                self._cache[key] = lowered
         state = self._gather_state(scope, lowered)
         feeds = {k: as_tensor(feed[k], self.device) for k in feed_names}
         seed = self._next_seed(program) if lowered.needs_rng else None
@@ -151,7 +156,7 @@ class Executor:
         # package's buffer donation.
         for n, v in new_state.items():
             scope.set(n, v)
-        if async_fetch:
+        if async_fetch or not return_numpy:
             return list(fetches)
         return [to_numpy(t) for t in fetches]
 
@@ -176,13 +181,14 @@ class Executor:
         steps: int = 1,
         fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
         scope: Optional[Scope] = None,
+        return_numpy: bool = True,
         async_fetch: bool = False,
     ):
         """Run ``steps`` iterations of ``program``, rotating over
         ``feed_list`` (step i consumes feed ``i % len(feed_list)``), and
-        return the LAST step's fetches. Each step is one ``run``, so the
-        random streams equal those of ``steps`` successive ``run``
-        calls."""
+        return the LAST step's fetches, as ``run`` returns them. Each step
+        is one ``run``, so the random streams equal those of ``steps``
+        successive ``run`` calls."""
         if not feed_list:
             raise ValueError("run_steps needs a non-empty feed_list")
         if steps < 1:
@@ -190,7 +196,8 @@ class Executor:
         for i in range(steps - 1):
             self.run(program, feed_list[i % len(feed_list)], None, scope)
         return self.run(program, feed_list[(steps - 1) % len(feed_list)],
-                        fetch_list, scope, async_fetch)
+                        fetch_list, scope, return_numpy,
+                        async_fetch=async_fetch)
 
     def _next_seed(self, program) -> int:
         """The next base seed of ``program.random_seed``'s stream (drawn

@@ -69,8 +69,13 @@ def convert_np_dtype_to_dtype_(dtype) -> str:
     return np.dtype(dtype).name
 
 
+# VarDesc kinds of the JAX package's program proto (paddle_tpu/proto/
+# framework.proto): a var is a dense tensor unless it says otherwise
+DENSE_TENSOR = 0
+
+
 class Variable:
-    """A named tensor in a Block."""
+    """A named tensor in a Block; ``kind`` is its VarDesc kind."""
 
     def __init__(
         self,
@@ -82,6 +87,7 @@ class Variable:
         stop_gradient: bool = False,
         is_parameter: bool = False,
         trainable: bool = True,
+        kind: int = DENSE_TENSOR,
     ):
         self.block = block
         self.name = name
@@ -91,6 +97,7 @@ class Variable:
         self.stop_gradient = stop_gradient
         self.is_parameter = is_parameter
         self.trainable = trainable
+        self.kind = kind
 
     def __repr__(self):
         return (

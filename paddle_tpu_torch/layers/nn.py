@@ -44,9 +44,12 @@ def fc(
     param_attr=None,
     bias_attr=None,
     act: Optional[str] = None,
+    is_test: bool = False,
     name: Optional[str] = None,
 ):
-    """Fully-connected layer: ``mul`` + bias add + activation."""
+    """Fully-connected layer: ``mul`` + bias add + activation.
+    ``is_test`` is taken for the JAX package's signature and changes
+    nothing, as there."""
     helper = LayerHelper("fc", name=name, bias_attr=bias_attr, act=act)
     in_features = math.prod(input.shape[num_flatten_dims:])
     w = helper.create_parameter(
@@ -67,12 +70,23 @@ def fc(
 def embedding(
     input: Variable,
     size: Sequence[int],
+    is_sparse: bool = False,
+    is_distributed: bool = False,
     padding_idx: Optional[int] = None,
     param_attr=None,
     dtype: str = "float32",
     name: Optional[str] = None,
 ):
-    """Embedding lookup over padded [b, t] ids."""
+    """Embedding lookup over padded [b, t] ids, in the JAX package's
+    signature. ``is_distributed`` row-shards the table across devices
+    there; on one device the lookup is the same. ``is_sparse`` asks for
+    the row-sparse gradient and the optimizers' row-wise (lazy) updates,
+    which the port does not have: it raises rather than train with dense
+    updates."""
+    if is_sparse:
+        raise NotImplementedError(
+            "embedding(is_sparse=True): the row-sparse gradient and its "
+            "optimizer ops are not ported; use is_sparse=False")
     helper = LayerHelper("embedding", name=name)
     w = helper.create_parameter(
         ParamAttr._to_attr(param_attr), shape=list(size), dtype=dtype
@@ -336,7 +350,11 @@ def abs(x, name=None):
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
-                               ignore_index=-100, return_softmax=False):
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    """Softmax and cross entropy in one op (``numeric_stable_mode`` is
+    taken for the JAX package's signature; the op is always the stable
+    log-softmax form, as there)."""
     helper = LayerHelper("softmax_with_cross_entropy")
     softmax_out = helper.create_variable_for_type_inference(dtype=logits.dtype)
     loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
@@ -504,7 +522,9 @@ def equal(x, y, cond=None):
     return _compare("equal", x, y, cond)
 
 
-def less_than(x, y, cond=None):
+def less_than(x, y, cond=None, force_cpu=None):
+    """``force_cpu`` is taken for the JAX package's signature; the result
+    stays on the program's device, as there."""
     return _compare("less_than", x, y, cond)
 
 
@@ -533,7 +553,11 @@ def where(condition, x, y, name=None):
 # --- shape manipulation ---
 
 
-def reshape(x, shape, act=None, name=None):
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    """Reshape to ``shape``; ``actual_shape`` and ``inplace`` are taken
+    for the JAX package's signature and change nothing, as there (ops are
+    functional, and the static shape rules)."""
     helper = LayerHelper("reshape2", name=name, act=act)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(

@@ -16,8 +16,11 @@ from paddle_tpu_torch.layer_helper import LayerHelper
 __all__ = ["create_global_var", "fill_constant", "assign"]
 
 
-def create_global_var(shape, value, dtype, persistable=False, name=None):
-    """A persistable var initialized in the startup program."""
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A persistable var initialized in the startup program
+    (``force_cpu`` is taken for the JAX package's signature; the var lives
+    with the rest of the state, as there)."""
     name = name or unique_name.generate("global_var")
     dtype = convert_np_dtype_to_dtype_(dtype)
     sb = default_startup_program().global_block()

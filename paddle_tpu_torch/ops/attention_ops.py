@@ -84,9 +84,8 @@ def _sdpa(ins, attrs, device, generator=None):
     scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
     causal = bool(attrs.get("causal", False))
     if _bthd_layout(attrs):
-        out, lse = fa.flash_attention_bthd_fwd(
-            q, k, v, _x(ins, "Bias"), scale, causal, seed=seed,
-            p_drop=p_drop)
+        out, lse = fa.flash_attention_bthd_fwd(q, k, v, _x(ins, "Bias"),
+                                               seed, scale, p_drop, causal)
     else:
         out, lse = fa.flash_attention_fwd(q, k, v, _x(ins, "Bias"), seed,
                                           scale, p_drop, causal=causal)

@@ -23,13 +23,17 @@ the shape and names the route the JAX package takes, shape for shape:
 - ``dense``: everything else (tq < 8, or tq = 200 at tk = 256, or tk >
   512 that does not divide the blocks). The JAX package leaves it to XLA;
   here it is the plain composition on any device, and each such call adds
-  one to ``dense_calls``.
+  one to ``dense_calls``. The kernels take heads up to ``KERNEL_MAX_DH``
+  (256) wide; on the card a wider head on a kernel route raises (the JAX
+  package's kernels have no such bound).
 
 On Hopper the three kernel routes share one forward,
 ``csrc/flash_attention_bthd_fwd.cu``, and one backward,
 ``csrc/flash_attention_bthd_bwd.cu`` (pass A: dk and dv; pass B: dq),
 whose kernels are chosen by dtype: bf16 runs them on the tensor cores
-(``wgmma``), f32 on the CUDA cores. Both take (batch, time, head) element
+(``wgmma``: ``fwd_wgmma_kernel``, ``bwd_dkdv_wgmma_kernel``,
+``bwd_dq_wgmma_kernel``), f32 on the CUDA cores (``fwd_kernel``,
+``bwd_dkdv_kernel``, ``bwd_dq_kernel``). Both take (batch, time, head) element
 strides for every tensor, so BHTD tensors run with no transpose. On the
 ``kblock`` and ``bhtd`` routes causal attention is a template flag: the
 kernels mask ``q_pos >= k_pos`` themselves and skip every tile with no
@@ -77,6 +81,8 @@ _BK_CHOICES = (512, 256)
 _KB_T_MAX = 1024
 
 KERNEL_ROUTES = ("small", "kblock", "bhtd")
+# the widest head the kernels take; a wider one raises on the card
+KERNEL_MAX_DH = 256
 
 # Kernel launches made by the wrappers (each adds one per launch of its
 # CUDA kernel and nowhere else). chip_smoke.py resets them before driving
@@ -279,9 +285,10 @@ def attention_bthd_plain(q, k, v, bias=None, scale=None, seed=None,
     """The plain PyTorch version: scores in f32 from an einsum, an
     additive f32 bias, the causal mask (``causal``), softmax and
     logsumexp in f32, the normalized probabilities times the dropout keep
-    mask (``p_drop > 0``), the context einsum in f32, output cast to q's
-    dtype. Returns (out [b, tq, h, dh], lse [b, tq, h, 1] f32, of the
-    undropped softmax)."""
+    mask (``p_drop > 0``) cast to v's dtype, as the JAX package's
+    reference and kernels cast them, the context einsum summed in f32,
+    output cast to q's dtype. Returns (out [b, tq, h, dh], lse [b, tq, h,
+    1] f32, of the undropped softmax)."""
     _check_dropout(seed, p_drop)
     b, tq, h, dh = q.shape
     tk = k.shape[1]
@@ -292,7 +299,8 @@ def attention_bthd_plain(q, k, v, bias=None, scale=None, seed=None,
     p = torch.exp(s - lse)
     if p_drop > 0.0:
         p = p * dropout_keep_mask_plain(seed, b, h, tq, tk, p_drop, q.device)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                       v.float()).to(q.dtype)
     return out, lse.permute(0, 2, 1, 3).contiguous()
 
 
@@ -389,14 +397,15 @@ def _bthd_route(q, k, causal, bias):
     return route, bias, causal
 
 
-def flash_attention_bthd_fwd(q, k, v, bias=None, scale: Optional[float] = None,
-                             causal: bool = False, seed: Optional[int] = None,
-                             p_drop: float = 0.0) -> Tuple[torch.Tensor,
-                                                           torch.Tensor]:
+def flash_attention_bthd_fwd(q, k, v, bias=None, seed: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             p_drop: float = 0.0, causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [b, tq, h, dh], k/v [b, tk, h, dh] -> (out [b, tq, h, dh] in q's
-    dtype, lse [b, tq, h, 1] f32). ``bias``: additive f32 mask
-    broadcastable to [b, h, tq, tk] ([b|1, 1|h, 1|tq, tk]). ``p_drop``:
-    attention dropout keyed by ``seed`` (required when > 0)."""
+    dtype, lse [b, tq, h, 1] f32), taking the JAX package's arguments in
+    its order. ``bias``: additive f32 mask broadcastable to [b, h, tq, tk]
+    ([b|1, 1|h, 1|tq, tk]). ``p_drop``: attention dropout keyed by
+    ``seed`` (required when > 0)."""
     _check_dropout(seed, p_drop)
     b, tq, h, dh = q.shape
     if scale is None:
@@ -496,8 +505,8 @@ def _plain_vjp(fn, inputs, grads):
 class _BthdWithLse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p_drop, causal):
-        out, lse = flash_attention_bthd_fwd(q, k, v, bias, scale, causal,
-                                            seed=seed, p_drop=p_drop)
+        out, lse = flash_attention_bthd_fwd(q, k, v, bias, seed, scale,
+                                            p_drop, causal)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.seed, ctx.scale, ctx.p_drop, ctx.causal = (seed, scale, p_drop,
                                                        causal)
@@ -641,8 +650,8 @@ def _check_qkv(fn, q, k, v):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{fn}: dtype {q.dtype} (kernel takes float32 or "
                         f"bfloat16)")
-    if dh > 128:
-        raise NotImplementedError(f"{fn}: dh={dh} > 128")
+    if dh > KERNEL_MAX_DH:
+        raise NotImplementedError(f"{fn}: dh={dh} > {KERNEL_MAX_DH}")
     for name, t, shape in (("k", k, (b, tk, h, dh)), ("v", v, (b, tk, h, dh))):
         if t.dtype != q.dtype or tuple(t.shape) != shape:
             raise ValueError(

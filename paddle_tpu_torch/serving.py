@@ -109,9 +109,9 @@ class ServingEngine:
     drives ``step()`` — or ``run_until_idle()`` — to make progress;
     ``drain()`` stops admissions and finishes the in-flight set;
     ``close()`` drains and releases the device state. ``weights`` is a
-    Scope (``io.scope_from_numpy`` / ``io.load_params`` carry the JAX
-    package's weights into one); its tensors are shared, not copied, as
-    no op updates a weight in place. ``place`` defaults to
+    Scope (``io.scope_from_numpy`` / ``io.scope_from_params_file`` carry
+    the JAX package's weights into one); its tensors are shared, not
+    copied, as no op updates a weight in place. ``place`` defaults to
     ``CUDAPlace(0)`` (raising without CUDA); pass ``CPUPlace()`` for the
     CPU. ``queue_depth``, ``deadline_ms`` and ``admission_control``
     default to the JAX package's ``serve_queue_depth`` (64),

@@ -9,9 +9,9 @@ dS each carried into the tensor cores as two bf16 terms (hi = bf16(x), lo
 = bf16(x - hi)); dq, dk, dv summed in f32 and rounded to bf16 once. The
 model is held against ``attention_bthd_bwd_plain`` run in f64 on the same
 bf16 values, on small shapes of the three kernel routes, with causal
-masks, padding and dropout. The limit is the card's: 8e-3 of the largest
-|gradient| (``TOL_GRAD_REL["bfloat16"]`` in chip_smoke.py), one bf16 ulp
-of the largest element. Inputs come from numpy seeds."""
+masks, padding, dropout and dh 32 to 256. The limit is the card's: 8e-3
+of the largest |gradient| (``TOL_GRAD_REL["bfloat16"]`` in
+chip_smoke.py), one bf16 ulp of the largest element. Inputs come from numpy seeds."""
 
 import math
 
@@ -98,6 +98,7 @@ CASES = pytest.mark.parametrize("route,b,tq,tk,h,dh,kind,causal,p_drop", [
     ("small", 1, 96, 200, 2, 32, "pad", False, 0.0),
     ("small", 1, 128, 128, 2, 72, "pad", False, 0.1),
     ("small", 1, 128, 128, 2, 128, "pad", True, 0.0),
+    ("small", 1, 128, 128, 2, 256, "pad", True, 0.1),
     ("kblock", 1, 128, 768, 2, 64, "pad", True, 0.1),
     ("bhtd", 1, 256, 1280, 2, 64, "pad", False, 0.0),
     ("bhtd", 1, 1280, 1280, 1, 64, "pad", True, 0.1),

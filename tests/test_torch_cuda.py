@@ -47,7 +47,8 @@ def test_kernel_matches_plain(cuda, dtype, b, tq, tk, dh, causal, pad):
         bias = torch.where(torch.arange(tk, device=cuda) < tk - 5, 0.0,
                            -1e9)[None, None, None, :]
     before = fa.launches
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, None, 0.0,
+                                           causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     eff = fa._combined_causal_bias(bias, tq, tk, cuda) if causal else bias
@@ -106,8 +107,8 @@ def test_bwd_kernel_matches_plain(cuda, dtype, kind, tq, tk, p_drop):
     q, k, v, bias, causal, dout = _bwd_inputs(cuda, dtype, 4, tq, tk, 64,
                                               kind)
     seed = 77 if p_drop else None
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
-                                           seed=seed, p_drop=p_drop)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                           p_drop, causal)
     eff = fa._combined_causal_bias(bias, tq, tk, cuda) if causal else bias
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, eff, None, seed,
                                                p_drop)
@@ -215,8 +216,8 @@ def test_long_routes_match_plain(cuda, dtype, route, b, tq, tk, kind,
     assert fa.attention_route(tq, tk, 8, 64) == route
     seed = 31 if p_drop else None
     fa.reset_counts()
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
-                                           seed=seed, p_drop=p_drop)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                           p_drop, causal)
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
                                         None, p_drop, causal)
     torch.cuda.synchronize()
@@ -279,7 +280,7 @@ def test_causal_long_call_builds_no_score_sized_tensor(cuda):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, None, None, True)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, causal=True)
     grads = fa.flash_attention_bthd_bwd(q, k, v, None, None, out, lse, dout,
                                         None, 0.0, True)
     torch.cuda.synchronize()
@@ -313,8 +314,8 @@ def _bf16_bwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
         refs = fa.attention_bwd_plain(q, k, v, bias, seed, out, lse, dout,
                                       None, p_drop, causal, gl)
         return grads, refs, counts
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
-                                           seed=seed, p_drop=p_drop)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                           p_drop, causal)
     fa.reset_counts()
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
                                         None, p_drop, causal)
@@ -333,11 +334,12 @@ def _assert_bf16_grads(grads, refs):
         assert _rel(got, ref) <= 8e-3, _rel(got, ref)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 72, 128])
+@pytest.mark.parametrize("dh", [32, 64, 72, 128, 136, 256])
 def test_bf16_bwd_head_widths(cuda, dh):
     """Every head width the wrapper takes runs in bf16: dh <= 64 in the
     64-column tiles (two warpgroups), 72 and 128 in the 128-column ones,
-    the columns past dh zero-padded."""
+    136 and 256 in the 256-column ones (two blocks a tile, each writing
+    128 columns), the columns past dh zero-padded."""
     grads, refs, counts = _bf16_bwd(cuda, 2, 128, 128, 4, dh, "pad",
                                     p_drop=0.1)
     assert counts[("small", "bwd")] == 1
@@ -391,8 +393,8 @@ def test_bf16_bwd_bit_equal_over_two_launches(cuda, tq, kind, p_drop,
     q, k, v, bias, _, dout = _long_inputs(cuda, torch.bfloat16, 2, tq, tq,
                                           kind)
     seed = 29 if p_drop else None
-    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, causal,
-                                           seed=seed, p_drop=p_drop)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                           p_drop, causal)
     first, second = (fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out,
                                                  lse, dout, None, p_drop,
                                                  causal) for _ in range(2))
@@ -421,16 +423,166 @@ def test_bwd_kernel_family_follows_the_dtype(cuda):
 
 
 def test_bwd_refuses_what_the_kernel_does_not_take(cuda):
-    """A head dim past 128 and float16 raise before any launch."""
-    for dtype, dh, err in ((torch.bfloat16, 136, NotImplementedError),
-                           (torch.float16, 64, TypeError)):
-        q = torch.randn(1, 256, 2, dh, device=cuda).to(dtype)
-        before = fa.bwd_launches
-        with pytest.raises(err):
-            fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
-                                        torch.zeros(1, 256, 2, 1,
-                                                    device=cuda), q)
-        assert fa.bwd_launches == before
+    """float16 raises before any launch, and so does a head dim past 256,
+    which the kernels do not take."""
+    q = torch.randn(1, 256, 2, 64, device=cuda).to(torch.float16)
+    before = fa.bwd_launches
+    with pytest.raises(TypeError):
+        fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
+                                    torch.zeros(1, 256, 2, 1, device=cuda),
+                                    q)
+    assert fa.bwd_launches == before
+    q = torch.randn(1, 256, 2, 264, device=cuda).to(torch.bfloat16)
+    fa.reset_counts()
+    with pytest.raises(NotImplementedError, match="dh=264"):
+        fa.flash_attention_bthd_fwd(q, q, q)
+    with pytest.raises(NotImplementedError, match="dh=264"):
+        fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
+                                    torch.zeros(1, 256, 2, 1, device=cuda),
+                                    q)
+    assert fa.launches == fa.bwd_launches == fa.dense_calls == 0
+
+
+# --- bf16 forward on the tensor cores (fwd_wgmma_kernel); f32 keeps the
+# CUDA-core fwd_kernel ---
+
+
+def _bf16_fwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
+              bhtd=False, fused=False):
+    """(kernel out, lse; plain out, lse; launches on each route) of one
+    bf16 forward call. ``fused``: q, k, v are strided views of one [b, t,
+    3 h dh] projection."""
+    q, k, v, bias, _, _ = _long_inputs(cuda, torch.bfloat16, b, tq, tk,
+                                       kind, bhtd=bhtd, h=h, dh=dh)
+    if fused:
+        qkv = torch.cat([x.reshape(b, tq, h * dh) for x in (q, k, v)], -1)
+        q, k, v = (x.reshape(b, tq, h, dh) for x in qkv.split(h * dh, -1))
+    seed = 37 if p_drop else None
+    fa.reset_counts()
+    if bhtd:
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, seed, None, p_drop,
+                                          causal=causal)
+        torch.cuda.synchronize()
+        refs = fa.attention_plain(q, k, v, bias, None, seed, p_drop, causal)
+    else:
+        out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                               p_drop, causal)
+        torch.cuda.synchronize()
+        _, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
+        refs = fa.attention_bthd_plain(q, k, v, rbias, None, seed, p_drop,
+                                       rcausal)
+    return (out, lse), refs, dict(fa.launch_counts)
+
+
+def _assert_bf16_fwd(got, refs, shape):
+    out, lse = got
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert _abs(out, refs[0]) <= 8e-3, _abs(out, refs[0])
+    assert _abs(lse, refs[1]) <= 5e-6, _abs(lse, refs[1])
+
+
+@pytest.mark.parametrize("route,b,tq,tk,h,dh,kind,p_drop,causal", [
+    ("small", 4, 256, 256, 8, 64, "pad", 0.1, False),
+    ("small", 4, 256, 256, 8, 64, "pad", 0.1, True),  # bias rows stream
+    ("small", 2, 100, 77, 8, 64, "none", 0.0, True),  # ragged edges
+    ("small", 2, 96, 200, 4, 32, "pad", 0.0, False),
+    ("small", 2, 128, 128, 4, 72, "pad", 0.1, False),
+    ("small", 2, 128, 128, 4, 128, "pad", 0.2, False),
+    ("small", 2, 128, 128, 2, 256, "pad", 0.1, False),
+    ("small", 2, 100, 77, 4, 20, "none", 0.0, False),  # unaligned rows
+    ("kblock", 2, 1024, 1024, 8, 64, "causal_pad", 0.1, True),
+    ("kblock", 1, 256, 768, 4, 128, "pad", 0.0, False),
+    ("bhtd", 1, 2048, 2048, 8, 64, "causal_pad", 0.0, True),
+    ("bhtd", 1, 512, 1280, 4, 72, "pad", 0.1, True),
+])
+def test_bf16_fwd_kernel_matches_plain(cuda, route, b, tq, tk, h, dh, kind,
+                                       p_drop, causal):
+    got, refs, counts = _bf16_fwd(cuda, b, tq, tk, h, dh, kind, p_drop,
+                                  causal)
+    assert fa.attention_route(tq, tk, h, dh) == route
+    assert counts[(route, "fwd")] == 1 and fa.dense_calls == 0
+    _assert_bf16_fwd(got, refs, (b, tq, h, dh))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_fwd_strided_layouts(cuda, causal):
+    """BHTD tensors (the bhtd route's head strides) and the q/k/v views of
+    a fused projection run with no copy."""
+    got, refs, counts = _bf16_fwd(cuda, 2, 512, 512, 8, 64, "pad",
+                                  causal=causal, bhtd=True)
+    assert counts[("bhtd", "fwd")] == 1
+    _assert_bf16_fwd(got, refs, (2, 8, 512, 64))
+    got, refs, counts = _bf16_fwd(cuda, 2, 256, 256, 8, 64, "pad", 0.1,
+                                  causal=causal, fused=True)
+    assert counts[("small", "fwd")] == 1
+    _assert_bf16_fwd(got, refs, (2, 256, 8, 64))
+
+
+@pytest.mark.parametrize("tq,kind,p_drop,causal", [
+    (2048, "causal_pad", 0.0, True), (256, "pad", 0.1, False),
+])
+def test_bf16_fwd_bit_equal_over_two_launches(cuda, tq, kind, p_drop,
+                                              causal):
+    """No atomics: two launches on the same inputs give equal bits."""
+    q, k, v, bias, _, _ = _long_inputs(cuda, torch.bfloat16, 2, tq, tq, kind)
+    seed = 41 if p_drop else None
+    first, second = (fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                                 p_drop, causal)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_fwd_kernel_family_follows_the_dtype(cuda):
+    """bf16 launches fwd_wgmma_kernel, f32 the CUDA-core fwd_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias, _, _ = _long_inputs(cuda, dtype, 1, 256, 256, "pad")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention_bthd_fwd(q, k, v, bias)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    assert "fwd_wgmma_kernel" in names[torch.bfloat16]
+    assert "fwd_kernel<" not in names[torch.bfloat16]
+    assert "fwd_kernel<" in names[torch.float32]
+    assert "fwd_wgmma_kernel" not in names[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,tq,tk,dh,causal", [
+    ("small", 256, 256, 256, False), ("small", 100, 77, 136, True),
+    ("kblock", 128, 768, 256, True), ("bhtd", 256, 2048, 256, True),
+])
+def test_wide_heads_launch_the_kernels(cuda, dtype, route, tq, tk, dh,
+                                       causal):
+    """dh up to 256 (the JAX small kernel takes any width) launches the
+    forward and the backward kernels, one each on the route and no dense
+    call, within the limits of the narrower heads."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, dtype, 1, tq, tk, "pad",
+                                          h=2, dh=dh)
+    assert fa.attention_route(tq, tk, 2, dh) == route
+    fa.reset_counts()
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, causal=causal)
+    grads = fa.flash_attention_bthd_bwd(q, k, v, bias, None, out, lse, dout,
+                                        None, 0.0, causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[(route, "fwd")] == 1
+    assert fa.launch_counts[(route, "bwd")] == 1 and fa.dense_calls == 0
+    _, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
+    ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, rbias, None, None,
+                                               0.0, rcausal)
+    f32 = dtype == torch.float32
+    assert _abs(out, ref_out) <= (5e-6 if f32 else 8e-3), _abs(out, ref_out)
+    assert _abs(lse, ref_lse) <= 5e-6, _abs(lse, ref_lse)
+    refs = fa.attention_bthd_bwd_plain(q, k, v, rbias, None, out, lse, dout,
+                                       None, 0.0, rcausal)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype
+        assert _rel(got, ref) <= (1e-5 if f32 else 8e-3), _rel(got, ref)
 
 
 # --- the kernel studies (paddle_tpu_torch/benchmarks) ---
@@ -540,6 +692,21 @@ def test_attn_ablate_kernel_matches_plain(cuda, variant, b, h, t, dh, bk):
     assert aa.launches == before + 1
     ref = aa.attn_ablate_plain(q, k, v, variant, bk)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max() <= \
+        _ULP * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("variant", ["full", "bf16-exp"])
+def test_attn_ablate_widest_block_and_equal_bits(cuda, variant):
+    """bk = 512, the widest key block the kernel takes (eight 64-key tiles
+    under one row max); two launches give equal bits."""
+    from paddle_tpu_torch.benchmarks import attn_ablate as aa
+
+    q, k, v = aa.make_inputs(2, 4, 1024, 64, seed=2, device=cuda)
+    fwd = aa.make_fwd(variant, 2, 4, 1024, 64, 1024, 512)
+    out = fwd(q, k, v)
+    assert torch.equal(out, fwd(q, k, v))
+    ref = aa.attn_ablate_plain(q, k, v, variant, 512)
     assert (out.float() - ref.float()).abs().max() <= \
         _ULP * ref.float().abs().max()
 

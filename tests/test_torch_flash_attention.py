@@ -53,7 +53,8 @@ def test_plain_matches_pallas_small_kernel(kind, tq, tk):
         None if bias is None else jnp.asarray(bias), None, scale, 0.0, causal)
     t_out, t_lse = tfa.flash_attention_bthd_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        None if bias is None else torch.from_numpy(bias), scale, causal)
+        None if bias is None else torch.from_numpy(bias), None, scale, 0.0,
+        causal)
     assert t_out.shape == (b, tq, h, dh) and t_lse.shape == (b, tq, h, 1)
     assert t_lse.dtype == torch.float32
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5,

@@ -89,8 +89,8 @@ def _check_bthd(b, tq, tk, h, dh, kind, causal, route, seed=0):
     j_out, j_lse = jfa.flash_attention_bthd_fwd(jq, jk, jv, jb, None, scale,
                                                 0.0, causal)
     tq_, tk_, tv_, tb_, tg_ = _t(q, k, v, bias, g)
-    t_out, t_lse = tfa.flash_attention_bthd_fwd(tq_, tk_, tv_, tb_, scale,
-                                                causal)
+    t_out, t_lse = tfa.flash_attention_bthd_fwd(tq_, tk_, tv_, tb_, None,
+                                                scale, 0.0, causal)
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5,
                                rtol=0)
     np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), atol=1e-5,

@@ -66,7 +66,8 @@ def _sdpa_saved(causal):
     """The forward's (Out, Lse) that the attention grad op consumes."""
     q, k, v = (torch.from_numpy(a) for a in _QKV)
     bias = torch.from_numpy(_SDPA_BIAS)
-    out, lse = tfa.flash_attention_bthd_fwd(q, k, v, bias, 8 ** -0.5, causal)
+    out, lse = tfa.flash_attention_bthd_fwd(q, k, v, bias, None, 8 ** -0.5,
+                                            0.0, causal)
     return [out.numpy()], [lse.numpy()]
 
 

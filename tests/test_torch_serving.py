@@ -301,7 +301,7 @@ def test_load_params_reads_the_jax_params_file(weights, tmp_path):
     with pfluid.scope_guard(pscope):
         pio.save_persistables(pfluid.Executor(pfluid.CPUPlace()),
                               str(tmp_path), main_program=main)
-    scope = tio.load_params(str(tmp_path), tfluid.CPUPlace())
+    scope = tio.scope_from_params_file(str(tmp_path), tfluid.CPUPlace())
     assert sorted(scope.var_names()) == sorted(
         v.name for v in main.list_vars() if v.persistable)
     for n in scope.var_names():
