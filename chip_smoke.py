@@ -150,9 +150,13 @@ TOL_VISION_F32 = (5e-4, 2e-3)
 TOL_VISION_F64 = (1e-11, 1e-10)
 
 # The attention kernel families by input dtype, bf16 on the tensor cores,
-# f32 on the CUDA cores: the forward (csrc/flash_attention_bthd_fwd.cu)
-# and the backward's (pass A, pass B) (csrc/flash_attention_bthd_bwd.cu)
-FWD_KERNELS = {"bfloat16": "fwd_wgmma_kernel", "float32": "fwd_kernel"}
+# f32 on the CUDA cores: the forward's (csrc/flash_attention_bthd_fwd.cu;
+# f32: the tiled kernel for tq > 8, the split-KV decode kernel for tq <= 8,
+# and the merge of the key splits) and the backward's (pass A, pass B)
+# (csrc/flash_attention_bthd_bwd.cu)
+FWD_KERNELS = {"bfloat16": ("fwd_wgmma_kernel",),
+               "float32": ("fwd_kernel", "fwd_decode_kernel",
+                           "fwd_merge_kernel")}
 BWD_KERNELS = {"bfloat16": ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"),
                "float32": ("bwd_dkdv_kernel", "bwd_dq_kernel")}
 
@@ -197,30 +201,32 @@ def _time_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def _device_times(fn, iters):
-    """{kernel name: device ms per call of ``fn``} from a torch.profiler
-    trace of ``iters`` calls after one untraced call: the device's busy
-    time, without the host's launch overhead."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _device_times(fn, iters, expect=None):
+    """{kernel name: device ms per call of ``fn``}: a torch.profiler trace
+    held against the launches (``timing.device_times``: every kernel's
+    count a multiple of ``iters``, ``expect`` {name part: launches a
+    call}), taken again when it lost kernels, raising after five."""
+    from paddle_tpu_torch.benchmarks import timing
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {evt.key: getattr(evt, "device_time_total",
-                             getattr(evt, "cuda_time_total", 0.0))
-            / iters / 1e3 for evt in prof.key_averages()}
+    return timing.device_times(fn, iters, expect)
 
 
-def _device_ms(fn, match="", iters=20, times=None):
+def _matches(name, match):
+    from paddle_tpu_torch.benchmarks import timing
+
+    return timing.matches(name, match)
+
+
+def _device_ms(fn, match="", iters=20, times=None, per_call=None):
     """Device time per call of ``fn`` spent in the kernels whose name
-    contains ``match`` (every kernel and copy when empty); None when the
-    trace holds no such kernel. ``times``: a trace already taken."""
-    times = _device_times(fn, iters) if times is None else times
-    total = sum(ms for name, ms in times.items() if match in name)
+    contains ``match`` (a string or a tuple of them; every kernel and copy
+    when empty); None when the trace holds no such kernel. ``per_call``:
+    the launches of those kernels a call, held against the trace.
+    ``times``: a trace already taken (and checked)."""
+    if times is None:
+        expect = None if per_call is None else {match: per_call}
+        times = _device_times(fn, iters, expect)
+    total = sum(ms for name, ms in times.items() if _matches(name, match))
     return total or None
 
 
@@ -345,6 +351,10 @@ def check_attention_kernel(fa, c, gen):
     assert err_out <= tol and err_lse <= TOL_LSE, (
         f"{c['name']}: kernel vs plain max abs err out={err_out} (tol "
         f"{tol}) lse={err_lse} (tol {TOL_LSE})")
+    if dname == "float32":  # no atomics: a second launch, the same bits
+        out2, lse2 = kernel()
+        assert torch.equal(out, out2) and torch.equal(lse, lse2), c["name"]
+        del out2, lse2
 
     iters = _iters(b, h, tq, tk)
     ms = _time_ms(kernel, iters, warmup=min(10, iters))
@@ -357,9 +367,17 @@ def check_attention_kernel(fa, c, gen):
         qh, kh, vh, attn_mask=mask, dropout_p=c["p_drop"],
         is_causal=is_causal, scale=scale), iters, warmup=2)
     del mask
-    # the kernel of the input dtype, read from the trace by its name
+    # the kernels of the input dtype, read from the trace by their names:
+    # bf16 one launch a call; f32 the tiled or the decode kernel of the
+    # split plan, and the merge when the keys split
+    plan = None
+    if dname == "float32":
+        plan = fa.f32_fwd_plan(b, h, tq, tk, dh, causal if route != "small"
+                               else False, torch.cuda.get_device_properties(
+                                   0).multi_processor_count)
+    per_call = 1 if plan is None else 1 + (plan[1] > 1)
     device_ms = _device_ms(kernel, FWD_KERNELS[dname],
-                           iters=min(iters, 20))
+                           iters=min(iters, 20), per_call=per_call)
     assert device_ms, (c["name"], FWD_KERNELS[dname])
 
     # bound: each input read once, each output written once (HBM), and
@@ -376,7 +394,10 @@ def check_attention_kernel(fa, c, gen):
         "tol_out": tol, "tol_lse": TOL_LSE,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "kernel": FWD_KERNELS[dname],
+        "kernels": (list(FWD_KERNELS[dname]) if plan is None else
+                    [plan[0]] + (["fwd_merge_kernel"] if plan[1] > 1
+                                 else [])),
+        "f32_plan_kernel_splits_keys": plan,
     }
 
 
@@ -474,7 +495,9 @@ def check_attention_bwd(fa, c, gen):
     library_ms = (_time_ms(lib_fwd_bwd, iters, warmup=2)
                   - _time_ms(lib_fwd, iters, warmup=2))
     del mask
-    times = _device_times(kernel, min(iters, 20))
+    times = _device_times(kernel, min(iters, 20), expect={
+        BWD_KERNELS[dname][0]: 1, BWD_KERNELS[dname][1]: 1,
+        "bwd_delta_kernel": 1})
     device_ms = _device_ms(None, "bwd_", times=times)
 
     # bound: 10*b*h*dh operations per live score (5 matrix products);
@@ -552,7 +575,8 @@ def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
         rows[name] = {
             "kernel": kname, "max_abs_err": max(errs), "rel_err": rels,
             "ms": _time_ms(launch, iters, warmup=min(10, iters)),
-            "device_ms": _device_ms(launch, kname, iters=min(iters, 20)),
+            "device_ms": _device_ms(launch, kname, iters=min(iters, 20),
+                                    per_call=1),
             "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -809,7 +833,7 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
     bwd_passes_ms = sum(ms for name, ms in times.items()
                         if "bwd_dkdv" in name or "bwd_dq" in name)
     fwd_ms = sum(ms for name, ms in times.items()
-                 if any(k in name for k in FWD_KERNELS.values()))
+                 if _matches(name, sum(FWD_KERNELS.values(), ())))
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
     peak = torch.cuda.max_memory_allocated()
     tokens = sum(float(feeds[i % len(feeds)]["trg_pad_mask"].sum())
@@ -883,7 +907,7 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
 
 
 def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
-               nbytes, iters):
+               nbytes, iters, per_call=1):
     """Times of one kernel study case: events, profiler, plain version,
     library call (None when there is none), and the bound at the bf16
     tensor-core peak."""
@@ -891,7 +915,8 @@ def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
     return {
         "case": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
         "ms": _time_ms(launch, iters, warmup=3),
-        "device_ms": _device_ms(launch, match, iters=min(iters, 10)),
+        "device_ms": _device_ms(launch, match, iters=min(iters, 10),
+                                per_call=per_call),
         "plain_ms": _time_ms(plain, 3, warmup=1),
         "library_ms": (None if library is None
                        else _time_ms(library, iters, warmup=3)),
@@ -927,10 +952,23 @@ def check_conv1x1_bwd(cb, n, ci, co):
         lambda: cb.combined_conv1x1_bwd_plain(x, dy, w),
         lambda: cb.matmul_pair(x, dy, w), "conv1x1_bwd", err, tol,
         4.0 * n * ci * co,
-        2 * (n * ci + n * co + ci * co) + 2 * n * ci + 4 * ci * co, 20)
+        2 * (n * ci + n * co + ci * co) + 2 * n * ci + 4 * ci * co, 20,
+        per_call=2)  # the kernel and its fixed-order dW reduction
     row["dw_rel_err"], row["tol_dw_rel"] = dw_rel, TOL_DW_REL
-    row["plan_cs_tn_parts_tiles"] = list(cb.plan(
+    row["plan_cs_chunks_split_parts_tiles"] = list(cb.plan(
         n, ci, co, torch.cuda.get_device_properties(0).multi_processor_count))
+    row["over_matmul_pair"] = row["ms"] / row["library_ms"]
+    # the device ms of the main kernel and of the dW reduction apart
+    times = _device_times(lambda: cb.combined_conv1x1_bwd(x, dy, w), 10,
+                          expect={"conv1x1_bwd_kernel": 1,
+                                  "conv1x1_bwd_reduce": 1})
+    row["device_ms_kernel"] = _device_ms(None, "conv1x1_bwd_kernel",
+                                         times=times)
+    row["device_ms_reduce"] = _device_ms(None, "conv1x1_bwd_reduce",
+                                         times=times)
+    # no atomics: a second launch gives the same bits
+    dx2, dw2 = cb.combined_conv1x1_bwd(x, dy, w)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2), row["case"]
     return row
 
 
@@ -1292,6 +1330,10 @@ def _phase3_cases(torch):
             _case(f"t1024 {dname} cross drop", dt, 8, 1024, 1024, "pad_b",
                   False, 0.1),
         ]
+    # the encoder self-attention of the serving prefill at src_len 1024
+    # (the f32 kernel splits its 128 query tiles' keys in two)
+    fwd.append(_case("prefill f32 t1024 pad", f32, 1, 1024, 1024, "pad",
+                     True))
     # the bhtd route: the t = 4096 training row (decoder self with and
     # without its causal mask), dropout at t = 2048, BHTD-layout inputs,
     # and the serving decode step over 1024 keys
@@ -1400,13 +1442,15 @@ def main() -> int:
             "pass_a": c_b["device_ms_pass_a"] / n_b["device_ms_pass_a"],
             "pass_b": c_b["device_ms_pass_b"] / n_b["device_ms_pass_b"]}
     print("causal_skip " + json.dumps(skip), flush=True)
-    print("fwd_bf16 " + json.dumps({
-        name: {"device_ms": r["device_ms"], "ms": r["ms"],
-               "library_ms": r["library_ms"],
-               "ms_over_library": r["ms"] / r["library_ms"],
-               "err_out": r["err_out"]}
-        for name, r in fwd_results.items() if r["dtype"] == "bfloat16"}),
-        flush=True)
+    for dname, tag in (("bfloat16", "fwd_bf16"), ("float32", "fwd_f32")):
+        print(f"{tag} " + json.dumps({
+            name: {"device_ms": r["device_ms"], "ms": r["ms"],
+                   "library_ms": r["library_ms"],
+                   "ms_over_library": r["ms"] / r["library_ms"],
+                   "err_out": r["err_out"], "err_lse": r["err_lse"],
+                   "kernels": r["kernels"]}
+            for name, r in fwd_results.items() if r["dtype"] == dname}),
+            flush=True)
     print("bwd_bf16 " + json.dumps({
         name: {"ms": r["ms"], "library_ms": r["library_ms"],
                "ms_over_library": r["ms"] / r["library_ms"],
@@ -1545,8 +1589,9 @@ def main() -> int:
             _SRC_FWD, f"{_TPU_FA}:808", t["launches"]["small/fwd"],
             fwd_main, err(fwd_main)),
         _kernel_entry(
-            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores; small "
-            "route, serving prefill)", _SRC_FWD, f"{_TPU_FA}:808",
+            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
+            "tiles; small route, serving prefill)", _SRC_FWD,
+            f"{_TPU_FA}:808",
             s["launches"]["small/fwd"], fwd_prefill, err(fwd_prefill)),
         _kernel_entry(
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
@@ -1566,8 +1611,9 @@ def main() -> int:
             "causal)", _SRC_FWD, f"{_TPU_FA}:126",
             t4k["launches"]["bhtd/fwd"], bh_fwd, err(bh_fwd)),
         _kernel_entry(
-            "flash_attention_fwd, f32 fwd_kernel (CUDA cores; bhtd route, "
-            "decode step)", _SRC_FWD, f"{_TPU_FA}:126",
+            "flash_attention_fwd, f32 fwd_decode_kernel + fwd_merge_kernel "
+            "(CUDA cores, split-KV; bhtd route, decode step)", _SRC_FWD,
+            f"{_TPU_FA}:126",
             sl["launches"]["bhtd/fwd"], bh_decode, err(bh_decode)),
         _kernel_entry(
             "flash_attention_bwd pass B, dq, bwd_dq_wgmma_kernel (bhtd route, "
@@ -1584,7 +1630,8 @@ def main() -> int:
             _SRC_FWD, f"{_TPU_FA}:964", t1k["launches"]["kblock/fwd"],
             kb_fwd, err(kb_fwd)),
         _kernel_entry(
-            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores; kblock "
+            "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
+            "tiles, with fwd_merge_kernel where the keys split; kblock "
             "route, serving prefill at 1024)", _SRC_FWD, f"{_TPU_FA}:964",
             sl["launches"]["kblock/fwd"], kb_fwd_f32, err(kb_fwd_f32)),
         _kernel_entry(

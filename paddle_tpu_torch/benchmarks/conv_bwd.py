@@ -33,35 +33,38 @@ SHAPES = ((128 * 56 * 56, 64, 256),
           (128 * 28 * 28, 128, 512),
           (128 * 14 * 14, 256, 1024))
 
-_MAX_SLICE_TILES = 64   # 16x16 dW tiles a block keeps in registers
-_MAX_TN = 64            # rows of an n-tile, at most
-# shared memory a block may take so that two fit an SM (227 KB)
-_SMEM_PER_BLOCK = 113 * 1024
-_PAD = 8                # the kernel's padding per shared-memory row
-
-
-def _smem_bytes(cs: int, tn: int, co: int) -> int:
-    """The kernel's shared memory: W slice, dy tile and x tile in bf16,
-    the dx tile in f32 (``smem_bytes`` in the source)."""
-    return (2 * (cs * (co + _PAD) + tn * (co + _PAD) + tn * (cs + _PAD))
-            + 4 * tn * (cs + _PAD))
+TN = 128            # rows of an n-tile (the kernel's kTN)
+CHUNK = 128         # co columns of a streamed dy chunk (kChunk)
+_SLICES = (64, 32, 16)   # input channels a slice, widest first
+_MAX_ACCUM = 128    # dW^T accumulators a thread keeps in registers
 
 
 def plan(n: int, ci: int, co: int, sms: int):
     """How the kernel splits the work: ``cs`` input channels a slice (the
-    widest multiple of 16 dividing ci whose dW slice fits a block's
-    accumulators), ``tn`` rows an n-tile (the most, up to 64, that leave
-    room for two blocks an SM), and ``parts`` n-ranges of
-    ``tiles_per_part`` n-tiles, about two blocks an SM in all."""
-    cs = max(c for c in range(16, ci + 1, 16)
-             if ci % c == 0 and (c // 16) * (co // 16) <= _MAX_SLICE_TILES)
-    tn = max([16] + [t for t in range(16, _MAX_TN + 1, 16)
-                     if _smem_bytes(cs, t, co) <= _SMEM_PER_BLOCK])
-    ntiles = -(-n // tn)
-    parts = max(1, min(ntiles, 2 * sms // (ci // cs)))
+    widest of 64, 32, 16 that divides ci and whose dW^T [co_pad, cs] fits
+    the 128 accumulator registers a thread of its two warpgroups may
+    keep), ``chunks`` 128-column dy chunks a block (co padded to 128, 256,
+    512 or 1024), ``co_split`` 2 when co > 512 and ci takes slices of 32
+    channels or more: a cluster pair then splits co (512 each), so a
+    slice can be twice as wide and half as many slices re-read dy (else
+    1; the 16-channel slices keep all of co in one block), and
+    ``parts`` n-ranges of ``tiles_per_part`` 128-row n-tiles: one block
+    an SM in all (the kernel takes up to 225 KB of shared memory), the
+    blocks of one n-range side by side."""
+    chunks = 1
+    while chunks * CHUNK < co:
+        chunks *= 2
+    co_split = 1
+    if chunks == 8 and ci % 32 == 0:
+        chunks, co_split = 4, 2
+    cs = max(c for c in _SLICES
+             if ci % c == 0 and chunks * c // 2 <= _MAX_ACCUM)
+    ntiles = -(-n // TN)
+    blocks = ci // cs * co_split  # blocks of one n-range
+    parts = max(1, min(ntiles, sms // blocks))
     tiles_per_part = -(-ntiles // parts)
     parts = -(-ntiles // tiles_per_part)
-    return cs, tn, parts, tiles_per_part
+    return cs, chunks, co_split, parts, tiles_per_part
 
 
 def _check(x, dy, w):
@@ -114,17 +117,17 @@ def combined_conv1x1_bwd(x, dy, w):
             raise ValueError(f"{fn}: {name} strides {t.stride()} are not "
                              f"contiguous")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    cs, tn, parts, tiles_per_part = plan(n, ci, co, sms)
+    cs, chunks, co_split, parts, tiles_per_part = plan(n, ci, co, sms)
     dx = torch.empty_like(x)
     dw = torch.empty((ci, co), dtype=torch.float32, device=x.device)
     partial = torch.empty((parts, ci, co), dtype=torch.float32,
                           device=x.device)
     entry = kernels.function(
         SOURCE, "pt_conv1x1_bwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     rc = entry(x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
-               dw.data_ptr(), partial.data_ptr(), n, ci, co, cs, tn, parts,
-               tiles_per_part,
+               dw.data_ptr(), partial.data_ptr(), n, ci, co, cs, chunks,
+               co_split, parts, tiles_per_part,
                torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(SOURCE, rc, fn)
     launches += 1

@@ -1,4 +1,4 @@
-"""Device timing for the kernel studies' ``main()``."""
+"""Device timing for the kernel studies' ``main()`` and chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -25,21 +25,65 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(fn, iters: int = 20) -> float:
-    """Device microseconds per call of ``fn``: the summed kernel time of
-    a ``torch.profiler`` trace of ``iters`` calls after one untraced
-    call, so the host's launch overhead is left out."""
+def matches(name: str, match) -> bool:
+    """Does a kernel name contain ``match`` (a string, or any of a
+    tuple of strings)?"""
+    return any(m in name for m in
+               ((match,) if isinstance(match, str) else match))
+
+
+_MARKER = "spin_kernel"  # the kernel torch.cuda._sleep launches
+
+
+def device_times(fn, iters: int = 20, expect=None, tries: int = 5):
+    """{kernel name: device ms per call of ``fn``} from a torch.profiler
+    trace of ``iters`` calls after one untraced call: the device's busy
+    time, without the host's launch overhead.
+
+    A trace can lose kernels (H100 traces have lost a few of theirs, all
+    of them, and, trace after trace, the first kernel of the window: a
+    marker kernel, ``torch.cuda._sleep``'s ``spin_kernel``, now opens the
+    window and is left out), so it is held against what the calls
+    launched: some device work, and every kernel's event count a multiple
+    of ``iters`` (each call launches the same kernels; copies may
+    differ); ``expect`` ({name part or tuple of parts: launches a call})
+    fixes the count of the kernels that match. A trace that fails is
+    taken again, ``tries`` times in all, then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(evt, "device_time_total",
-                        getattr(evt, "cuda_time_total", 0.0))
-                for evt in prof.key_averages())
-    if not total:
-        raise RuntimeError("the profiler trace holds no device time")
-    return total / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # the marker
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # device work only, without the marker: the trace also lists host
+        # runtime calls (cudaDeviceSynchronize, buffer requests)
+        events = [evt for evt in prof.key_averages()
+                  if getattr(evt, "device_time_total",
+                             getattr(evt, "cuda_time_total", 0.0)) > 0
+                  and _MARKER not in evt.key]
+        counts = {evt.key: evt.count for evt in events}
+        # copies are left out of the rule: a step may stage a host value
+        # every other call
+        bad = {k: n for k, n in counts.items()
+               if n % iters and not k.startswith(("Memcpy", "Memset"))}
+        for match, per_call in (expect or {}).items():
+            got = sum(n for k, n in counts.items() if matches(k, match))
+            if got != per_call * iters:
+                bad[str(match)] = got
+        if events and not bad:
+            return {evt.key: getattr(evt, "device_time_total",
+                                     getattr(evt, "cuda_time_total", 0.0))
+                    / iters / 1e3 for evt in events}
+        print(f"device trace of {iters} calls lost kernels "
+              f"({bad or 'no device work'}); taking it again", flush=True)
+    raise RuntimeError(f"the profiler trace lost kernels {tries} times")
+
+
+def device_us(fn, iters: int = 20) -> float:
+    """Device microseconds per call of ``fn`` (``device_times``, every
+    kernel)."""
+    return sum(device_times(fn, iters).values()) * 1e3

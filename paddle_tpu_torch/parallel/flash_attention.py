@@ -33,7 +33,8 @@ On Hopper the three kernel routes share one forward,
 whose kernels are chosen by dtype: bf16 runs them on the tensor cores
 (``wgmma``: ``fwd_wgmma_kernel``, ``bwd_dkdv_wgmma_kernel``,
 ``bwd_dq_wgmma_kernel``), f32 on the CUDA cores (``fwd_kernel``,
-``bwd_dkdv_kernel``, ``bwd_dq_kernel``). Both take (batch, time, head) element
+``fwd_decode_kernel`` and ``fwd_merge_kernel`` as ``f32_fwd_plan``
+splits the keys, ``bwd_dkdv_kernel``, ``bwd_dq_kernel``). Both take (batch, time, head) element
 strides for every tensor, so BHTD tensors run with no transpose. On the
 ``kblock`` and ``bhtd`` routes causal attention is a template flag: the
 kernels mask ``q_pos >= k_pos`` themselves and skip every tile with no
@@ -56,6 +57,7 @@ attention_common.cuh). Its bits differ from the TPU's.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -609,6 +611,72 @@ def flash_attention(q, k, v, bias=None, seed=None,
                                     q_block, k_block, causal)[0]
 
 
+# --- the f32 forward's work split (csrc/flash_attention_bthd_fwd.cu) ---
+
+# tq up to this runs the split-KV decode kernel (fwd_decode_kernel, all
+# rows in one block), longer queries the tiled one (fwd_kernel, 64 rows a
+# block)
+F32_DECODE_MAX_TQ = 8
+_F32_BQ = 64
+# shared memory the decode kernel's K and V rows may take (bytes)
+_F32_DECODE_KV_BYTES = 64 * 1024
+# blocks per SM the decode split aims at, and the fewest keys a split
+# takes (fixed costs a block weigh past that)
+_F32_DECODE_BLOCKS_PER_SM = 4
+_F32_DECODE_MIN_KEYS = 32
+
+
+def f32_row_floats(dh: int) -> int:
+    """Row stride (floats) of K, V and Q in the f32 kernels' shared
+    memory: dh padded to 4, plus 4 when that leaves an even number of
+    16-byte chunks (``f32_ld`` in the source)."""
+    pad = -(-dh // 4) * 4
+    return pad if (pad // 4) % 2 else pad + 4
+
+
+def f32_key_tile(dh: int) -> int:
+    """Keys of one shared-memory tile of the tiled f32 kernel."""
+    return 64 if dh <= 64 else 32
+
+
+def f32_fwd_plan(b: int, h: int, tq: int, tk: int, dh: int, causal: bool,
+                 sms: int):
+    """(kernel, splits, split_keys) of an f32 forward on a card with
+    ``sms`` SMs: the keys each (batch, head, query tile) block walks are
+    cut into ``splits`` ranges of ``split_keys`` keys, the last one
+    ragged, that cover the live keys once (with more than one,
+    ``fwd_merge_kernel`` combines them in their order).
+
+    - ``fwd_decode_kernel`` (tq <= 8, the serving decode step): one block
+      a (batch, head, split); about four blocks an SM, 32 keys a split at
+      least, each split's K and V rows within 64 KB of shared memory.
+      Under the causal mask only keys below tq are live.
+    - ``fwd_kernel`` (tq > 8): one block a 64-row query tile; when those
+      blocks leave the SMs idle (fewer than one an SM) and the mask is not
+      causal, the keys split in whole tiles, two tiles a split at least."""
+    def cdiv(x, y):
+        return -(-x // y)
+
+    if tq <= F32_DECODE_MAX_TQ:
+        live = min(tk, tq) if causal else tk
+        splits = cdiv(_F32_DECODE_BLOCKS_PER_SM * sms, b * h)
+        # keys a split: a multiple of 8, at least the minimum, at most what
+        # 64 KB of K and V rows hold (8 bytes a head-dim element)
+        cap = max(8, _F32_DECODE_KV_BYTES // (8 * f32_row_floats(dh)) // 8
+                  * 8)
+        split_keys = min(cap, max(_F32_DECODE_MIN_KEYS,
+                                  cdiv(cdiv(live, splits), 8) * 8))
+        return "fwd_decode_kernel", cdiv(live, split_keys), split_keys
+    bk = f32_key_tile(dh)
+    blocks = cdiv(tq, _F32_BQ) * b * h
+    n_tiles = cdiv(tk, bk)
+    splits = 1
+    if not causal and blocks < sms:
+        splits = max(1, min(cdiv(sms, blocks), n_tiles // 2))
+    split_keys = cdiv(n_tiles, splits) * bk
+    return "fwd_kernel", cdiv(tk, split_keys), split_keys
+
+
 # --- kernel launches ---
 
 
@@ -634,7 +702,7 @@ _ARGS_TAIL = ([ctypes.c_longlong] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
               + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float])
 _FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
-             + [ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 _BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
              + [ctypes.c_int, ctypes.c_void_p])
@@ -700,23 +768,43 @@ def _bias_tensor(bias, q):
     return bias.to(device=q.device, dtype=torch.float32).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """SMs of CUDA device ``index`` (asked once: the query costs more
+    host time than a decode step's kernel)."""
+    return torch.cuda.get_device_properties(
+        index if index is not None else torch.cuda.current_device()
+    ).multi_processor_count
+
+
 def _launch_fwd(route, q, k, v, bias, scale, seed, p_drop, causal, out, lse):
     """Check and launch the forward kernel on the current stream. q, k,
     v, out [b, t, h, dh] and lse [b, tq, h, 1] are BTHD views with any
-    (batch, time, head) strides."""
+    (batch, time, head) strides. f32 takes the key split of
+    ``f32_fwd_plan``, with scratch for the splits' partials when there is
+    more than one."""
     global launches
     fn = "flash_attention_bthd_fwd"
     _check_qkv(fn, q, k, v)
     b, tq, h, dh = q.shape
+    tk = k.shape[1]
     bias = _bias_tensor(bias, q)
+    splits, split_keys, part = 1, tk, None
+    if q.dtype == torch.float32:
+        _, splits, split_keys = f32_fwd_plan(b, h, tq, tk, dh, causal,
+                                             _sm_count(q.device.index))
+        if splits > 1:
+            part = torch.empty(splits * b * h * tq * (dh + 2),
+                               dtype=torch.float32, device=q.device)
     entry = kernels.function(_FWD_SOURCE, "pt_flash_attention_bthd_fwd",
                              _FWD_ARGS)
     rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, tq, k.shape[1], h, dh, _strides(q, k, v, out, lse),
+        b, tq, tk, h, dh, _strides(q, k, v, out, lse),
         *_common_args(q, k, bias, scale, seed, p_drop, causal),
+        splits, split_keys, None if part is None else part.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(_FWD_SOURCE, rc, fn)
     launches += 1

@@ -96,16 +96,55 @@ def test_conv1x1_bwd_plain_matches_pallas_and_xla_pair(interpret_pallas,
     (401408, 64, 256, 132), (100352, 128, 512, 132), (25088, 256, 1024, 132),
     (1000, 32, 48, 132), (77, 64, 1024, 4), (5000, 48, 16, 1)])
 def test_conv1x1_bwd_plan_covers_the_problem(n, ci, co, sms):
-    """The split the wrapper hands the kernel: a slice's dW fits a block's
-    64 accumulator tiles, slices tile ci, two blocks' shared memory fits
-    an SM's 227 KB, and the n-ranges cover every n-tile once."""
-    cs, tn, parts, tiles_per_part = conv_bwd.plan(n, ci, co, sms)
-    assert cs % 16 == 0 and ci % cs == 0
-    assert (cs // 16) * (co // 16) <= 64
-    assert tn % 16 == 0 and 16 <= tn <= 64
-    assert 2 * conv_bwd._smem_bytes(cs, tn, co) <= 227 * 1024
-    ntiles = -(-n // tn)
+    """The split the wrapper hands the kernel: a block's dW^T [co_pad, cs]
+    fits the 128 accumulator registers a thread of its two warpgroups
+    keeps, slices tile ci, the dy chunks (of one block, or of the cluster
+    pair that splits co) cover co, one block an SM at most, and the
+    n-ranges cover every n-tile once."""
+    cs, chunks, co_split, parts, tiles_per_part = conv_bwd.plan(n, ci, co,
+                                                                 sms)
+    assert cs in (16, 32, 64) and ci % cs == 0
+    assert chunks in (1, 2, 4, 8) and co_split in (1, 2)
+    cols = co_split * chunks * conv_bwd.CHUNK
+    assert co <= cols and (cols == conv_bwd.CHUNK or cols // 2 < co)
+    assert chunks * cs // 2 <= 128
+    assert co_split == 1 or (cs >= 32 and chunks == 4)
+    assert chunks < 8 or cs == 16
+    blocks = ci // cs * co_split
+    assert parts * blocks <= max(sms, blocks)
+    ntiles = -(-n // conv_bwd.TN)
     assert (parts - 1) * tiles_per_part < ntiles <= parts * tiles_per_part
+
+
+@pytest.mark.parametrize("n,ci,co,sms", [
+    (401408, 64, 256, 132), (100352, 128, 512, 132), (25088, 256, 1024, 132),
+    (1, 16, 16, 132), (129, 48, 16, 3), (3000, 128, 512, 7),
+    (77, 64, 1024, 4), (25089, 256, 1008, 132), (640, 80, 272, 132)])
+def test_conv1x1_bwd_plan_covers_each_row_and_channel_once(n, ci, co, sms):
+    """Walk the grid the plan gives, block by block as the kernel does
+    (blockIdx.x the ci slice, and with the co split the pair's rank;
+    blockIdx.y the n-range; a 128-row n-tile and 128-column dy chunk loop
+    inside): every (row, input channel) pair of dx sums over co exactly
+    once, every (input channel, output channel) of dW is accumulated by
+    exactly one block of each n-range, and no block walks a row past n or
+    a channel past ci (ragged n, co not a multiple of 128)."""
+    cs, chunks, co_split, parts, tiles_per_part = conv_bwd.plan(n, ci, co,
+                                                                 sms)
+    tn, ntiles, ck = conv_bwd.TN, -(-n // conv_bwd.TN), conv_bwd.CHUNK
+    rows = np.zeros(n, np.int64)            # n-ranges covering each row
+    dw = np.zeros((ci, co), np.int64)       # blocks of one n-range per dW
+    for bx in range(ci // cs * co_split):
+        c0, half = bx // co_split * cs, bx % co_split
+        cbase = half * chunks * ck
+        for c in range(chunks):            # the block's chunks, past co padded
+            dw[c0:c0 + cs, cbase + c * ck:min(co, cbase + (c + 1) * ck)] += 1
+    for part in range(parts):
+        t0 = part * tiles_per_part
+        t1 = min(t0 + tiles_per_part, ntiles)
+        assert t1 > t0, "an n-range without tiles"
+        rows[t0 * tn:min(t1 * tn, n)] += 1
+    # dx[row, ch] contracts over every co once: dW's coverage is that sum's
+    assert (rows == 1).all() and (dw == 1).all()
 
 
 @pytest.mark.parametrize("shape,cg", [((2, 8, 8, 128), 4),

@@ -552,6 +552,83 @@ def test_fwd_kernel_family_follows_the_dtype(cuda):
     assert "fwd_wgmma_kernel" not in names[torch.float32]
 
 
+# --- the f32 forward: split-KV decode (tq <= 8), tiled, and the merge ---
+
+
+@pytest.mark.parametrize("layout,b,tq,tk,kind,p_drop,dh", [
+    ("bthd", 4, 1, 1024, "pad", 0.0, 64),    # the serving decode step
+    ("bthd", 4, 1, 4096, "pad", 0.1, 64),
+    ("bhtd", 4, 1, 1024, "pad", 0.0, 64),
+    ("bhtd", 2, 1, 1, "none", 0.0, 64),      # tk = 1
+    ("bhtd", 2, 3, 77, "pad", 0.1, 64),      # tk no multiple of a split
+    ("bthd", 2, 8, 77, "pad", 0.0, 64),      # small route, tq = 8
+    ("bhtd", 1, 5, 1024, "causal_pad", 0.0, 64),
+    ("bhtd", 2, 2, 1024, "pad", 0.2, 256),   # the widest head
+    ("bhtd", 2, 6, 256, "pad", 0.0, 20),     # a head dim of 20
+])
+def test_f32_decode_kernel_matches_plain(cuda, layout, b, tq, tk, kind,
+                                         p_drop, dh):
+    """tq 1..8 runs fwd_decode_kernel over the plan's key splits (and
+    fwd_merge_kernel when there are several), against the plain version at
+    the f32 limits (out and lse 5e-6), BHTD and BTHD, with the batch's pad
+    bias, dropout and the in-kernel causal mask; a second launch gives
+    equal bits."""
+    bhtd = layout == "bhtd"
+    q, k, v, bias, causal, _ = _long_inputs(cuda, torch.float32, b, tq, tk,
+                                            kind, bhtd=bhtd, dh=dh)
+    seed = 5 if p_drop else None
+    if bhtd:
+        def run():
+            return fa.flash_attention_fwd(q, k, v, bias, seed, None, p_drop,
+                                          causal=causal)
+        route = fa.attention_route(tq, tk, 8, dh, "bhtd")
+        ref = fa.attention_plain(q, k, v, bias, None, seed, p_drop, causal)
+    else:
+        def run():
+            return fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                               p_drop, causal)
+        route = fa.attention_route(tq, tk, 8, dh)
+        ref = fa.attention_bthd_plain(q, k, v, bias, None, seed, p_drop,
+                                      causal)
+    assert route != "dense"
+    fa.reset_counts()
+    out, lse = run()
+    out2, lse2 = run()
+    torch.cuda.synchronize()
+    assert fa.launch_counts[(route, "fwd")] == 2 and fa.dense_calls == 0
+    assert _abs(out, ref[0]) <= 5e-6, _abs(out, ref[0])
+    assert _abs(lse, ref[1]) <= 5e-6, _abs(lse, ref[1])
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("b,tq,tk,kind,p_drop,dh", [
+    (1, 1024, 1024, "pad", 0.1, 64),   # the 1024 prefill: two key splits
+    (1, 128, 128, "pad", 0.0, 64),     # the 128 prefill
+    (2, 256, 256, "pad", 0.0, 256),    # dh 256: four splits of 64 keys
+    (1, 100, 200, "none", 0.1, 72),    # ragged tiles, padded head dim
+    (2, 1024, 1024, "causal_pad", 0.1, 128),
+])
+def test_f32_tiled_kernel_matches_plain_and_repeats(cuda, b, tq, tk, kind,
+                                                    p_drop, dh):
+    """tq > 8 runs fwd_kernel (64-row query tiles, split over keys when
+    the grid leaves SMs idle, then fwd_merge_kernel): f32 limits, equal
+    bits over two launches."""
+    q, k, v, bias, causal, _ = _long_inputs(cuda, torch.float32, b, tq, tk,
+                                            kind, h=2, dh=dh)
+    seed = 9 if p_drop else None
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None, p_drop,
+                                           causal)
+    out2, lse2 = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                             p_drop, causal)
+    torch.cuda.synchronize()
+    _, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
+    ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, rbias, None, seed,
+                                               p_drop, rcausal)
+    assert _abs(out, ref_out) <= 5e-6, _abs(out, ref_out)
+    assert _abs(lse, ref_lse) <= 5e-6, _abs(lse, ref_lse)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route,tq,tk,dh,causal", [
     ("small", 256, 256, 256, False), ("small", 100, 77, 136, True),
@@ -601,6 +678,11 @@ _ULP = 2.0 ** -7
     (77, 64, 1024),     # fewer rows than one n-range; 16-channel slices
     (5000, 48, 16),     # the narrowest co; a 48-channel slice
     (1000, 32, 48),
+    (25089, 256, 1024),  # the widest study shape, one row past a tile
+    (129, 16, 1024),    # ci = 16 (one 16-channel slice), co = 1024
+    (300, 16, 1008),    # co padded within the last dy chunk
+    (401409, 64, 256),  # the largest study shape, ragged
+    (9601, 96, 1024),   # co split over a cluster pair with 32-ch slices
 ])
 def test_conv1x1_bwd_kernel_matches_plain(cuda, n, ci, co):
     """Ragged n is handled (the JAX function asserts n % tn == 0): rows
