@@ -17,10 +17,14 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    t = 256 training shapes), the kblock route (t = 1024, b = 8), the
    bhtd route (t = 4096, b = 2; dropout at t = 2048; BHTD-layout inputs
    with an lse cotangent; the decode step tq = 1 over 1024 keys; each
-   backward pass launched and checked on its own; bf16 rows, forward and
-   backward, read the tensor-core kernels, f32 rows the CUDA-core ones,
-   and two bf16 launches give equal bits; dh = 256, the widest head the
-   kernels take, on the small and kblock routes, with no dense call), a
+   backward pass launched and checked on its own; bf16 rows read the
+   tensor-core kernels, f32 forward rows the CUDA-core ones and f32
+   backward rows the 3xTF32 tensor-core ones, and no other kernel; two
+   launches give equal bits in both dtypes; dh = 256, the widest head the
+   kernels take, on the small and kblock routes, with no dense call; the
+   library's backward timed alone, after one forward, by events and from
+   the trace, with the names of its kernels; each bound on the dtype's
+   fastest route, f32 on the CUDA cores or in 3xTF32), a
    causal forward and backward at t = 8192 whose memory rise shows no
    [tq, tk] tensor, and the dropout-mask dump, bit for bit; then (3c) the three kernel
    studies of paddle_tpu_torch/benchmarks: the combined 1x1-conv backward
@@ -42,7 +46,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    forward and 18 backward launches a step of the shape's route and none
    of any other, the step wall / device-busy ms, target tokens/s and peak
    memory, the device ms a step of the forward kernel and of the two
-   backward passes;
+   backward passes; (5c) the batch 64 x seq 256 step again in f32, without
+   AMP (the framework's default): the attention backward on the 3xTF32
+   kernels;
 6. one f32 training step (dropout 0) on the card against the same step
    on the CPU: full widths and depth at batch 2 x seq 32, and (6b) 2+2
    layers at seq 768 (kblock route) and 1280 (bhtd route): loss and a
@@ -106,9 +112,14 @@ TOL_STEP_GRAD_REL = 2e-5
 # the t = 8192 causal call's memory rise over its inputs and outputs
 # (a folded f32 [8192, 8192] bias alone would be 256 MiB)
 MAX_RISE_MIB = 32
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
-# bf16 on the tensor cores; HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense) by the routes that compute a
+# dtype's products to its accuracy: bf16 on the tensor cores; f32 on the
+# CUDA cores, or on the tensor cores in 3xTF32 (three TF32 products of
+# operands split into two TF32 terms, f32-accurate: a third of the 495
+# TFLOP/s TF32 rate); HBM3. A bound takes the dtype's fastest route.
+PEAK_FLOPS = {"float32": {"f32 CUDA cores": 67e12,
+                          "3xTF32 tensor cores": 495e12 / 3},
+              "bfloat16": {"bf16 tensor cores": 989e12}}
 PEAK_BYTES_PER_S = 3.35e12
 # the training shape of bench.py's Transformer-base run, and its
 # long-context rows at constant tokens per step (bench.py:199)
@@ -149,16 +160,17 @@ VISION_FALL_LR = 0.01
 TOL_VISION_F32 = (5e-4, 2e-3)
 TOL_VISION_F64 = (1e-11, 1e-10)
 
-# The attention kernel families by input dtype, bf16 on the tensor cores,
-# f32 on the CUDA cores: the forward's (csrc/flash_attention_bthd_fwd.cu;
-# f32: the tiled kernel for tq > 8, the split-KV decode kernel for tq <= 8,
-# and the merge of the key splits) and the backward's (pass A, pass B)
-# (csrc/flash_attention_bthd_bwd.cu)
+# The attention kernel families by input dtype: the forward's
+# (csrc/flash_attention_bthd_fwd.cu; bf16 on the tensor cores, f32 on the
+# CUDA cores: the tiled kernel for tq > 8, the split-KV decode kernel for
+# tq <= 8, and the merge of the key splits) and the backward's (pass A,
+# pass B) (csrc/flash_attention_bthd_bwd.cu; bf16 on wgmma, f32 on
+# mma.sync in 3xTF32)
 FWD_KERNELS = {"bfloat16": ("fwd_wgmma_kernel",),
                "float32": ("fwd_kernel", "fwd_decode_kernel",
                            "fwd_merge_kernel")}
 BWD_KERNELS = {"bfloat16": ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"),
-               "float32": ("bwd_dkdv_kernel", "bwd_dq_kernel")}
+               "float32": ("bwd_dkdv_tf32_kernel", "bwd_dq_tf32_kernel")}
 
 _SRC_FWD = "paddle_tpu_torch/csrc/flash_attention_bthd_fwd.cu"
 _SRC_BWD = "paddle_tpu_torch/csrc/flash_attention_bthd_bwd.cu"
@@ -292,10 +304,18 @@ def _live(tq, tk, causal):
 
 
 def _bound(flops, nbytes, dname):
-    op_ms = flops / PEAK_FLOPS[dname] * 1e3
+    """The least time the card could take for ``flops`` operations at the
+    dtype's peak and ``nbytes`` of device memory traffic, on the dtype's
+    fastest route: {bound_ms, bound_by ("operations" or "bytes"),
+    bound_route, bound_ms_by_route (every route's bound)}."""
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms
-                                 else "bytes")
+    by_route = {route: max(flops / peak * 1e3, byte_ms)
+                for route, peak in PEAK_FLOPS[dname].items()}
+    route = min(by_route, key=by_route.get)
+    op_ms = flops / PEAK_FLOPS[dname][route] * 1e3
+    return {"bound_ms": by_route[route],
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "bound_route": route, "bound_ms_by_route": by_route}
 
 
 def _library_mask(fa, bias, causal, tq, tk, dtype, dev):
@@ -383,7 +403,7 @@ def check_attention_kernel(fa, c, gen):
     # bound: each input read once, each output written once (HBM), and
     # 4*b*h*dh operations per live score at the input dtype's peak. A
     # folded causal mask is the wrapper's own, not an input.
-    bound_ms, bound_by = _bound(
+    bound = _bound(
         4.0 * b * h * dh * _live(tq, tk, causal),
         q.element_size() * (2 * b * tq * h * dh + 2 * b * tk * h * dh)
         + 4 * b * tq * h + (0 if bias is None else 4 * bias.numel()), dname)
@@ -393,7 +413,7 @@ def check_attention_kernel(fa, c, gen):
         "bias": c["bias"], "err_out": err_out, "err_lse": err_lse,
         "tol_out": tol, "tol_lse": TOL_LSE,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, **bound,
         "kernels": (list(FWD_KERNELS[dname]) if plan is None else
                     [plan[0]] + (["fwd_merge_kernel"] if plan[1] > 1
                                  else [])),
@@ -475,30 +495,36 @@ def check_attention_bwd(fa, c, gen):
     ms = _time_ms(kernel, iters, warmup=min(10, iters))
     plain_ms = _time_ms(plain, iters, warmup=2)
     # library: the backward of F.scaled_dot_product_attention on the same
-    # inputs, timed as (forward + backward) - forward
+    # inputs, timed directly: its forward runs once, outside the timed
+    # window, and its backward alone is timed by events and read from the
+    # trace (every kernel it launches)
     qh, kh, vh = ((x.detach().requires_grad_() for x in (q, k, v)) if bhtd
                   else (x.transpose(1, 2).detach().requires_grad_()
                         for x in (q, k, v)))
     gh = g if bhtd else g.transpose(1, 2)
     mask, is_causal = _library_mask(fa, bias, causal, tq, tk, c["dtype"],
                                     q.device)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, dropout_p=p, is_causal=is_causal,
+            scale=scale)
 
-    def lib_fwd():
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                              dropout_p=p,
-                                              is_causal=is_causal,
-                                              scale=scale)
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True)
 
-    def lib_fwd_bwd():
-        torch.autograd.grad(lib_fwd(), (qh, kh, vh), gh)
-
-    library_ms = (_time_ms(lib_fwd_bwd, iters, warmup=2)
-                  - _time_ms(lib_fwd, iters, warmup=2))
-    del mask
+    library_ms = _time_ms(lib_bwd, iters, warmup=2)
+    lib_times = _device_times(lib_bwd, min(iters, 20))
+    del lib_out, mask
     times = _device_times(kernel, min(iters, 20), expect={
         BWD_KERNELS[dname][0]: 1, BWD_KERNELS[dname][1]: 1,
         "bwd_delta_kernel": 1})
     device_ms = _device_ms(None, "bwd_", times=times)
+    # the call runs the delta pre-pass and the two passes of its dtype's
+    # family, and no other attention backward kernel (the small route's
+    # causal fold adds elementwise kernels)
+    stray = [name for name in times if "bwd_" in name and not _matches(
+        name, BWD_KERNELS[dname] + ("bwd_delta_kernel",))]
+    assert not stray, (c["name"], stray)
 
     # bound: 10*b*h*dh operations per live score (5 matrix products);
     # bytes read of q, out, dout, k, v, lse, delta and the caller's bias,
@@ -507,7 +533,7 @@ def check_attention_bwd(fa, c, gen):
     elt = q.element_size()
     in_bytes = (elt * (3 * b * tq * h * dh + 2 * b * tk * h * dh)
                 + 8 * b * tq * h + (0 if bias is None else 4 * bias.numel()))
-    bound_ms, bound_by = _bound(
+    bound = _bound(
         10.0 * b * h * dh * live,
         in_bytes + elt * (b * tq * h * dh + 2 * b * tk * h * dh), dname)
     row = {
@@ -516,7 +542,11 @@ def check_attention_bwd(fa, c, gen):
         "bias": c["bias"], "g_lse": c["g_lse"],
         "err_dq_dk_dv": errs, "rel_err_dq_dk_dv": rels, "tol_rel": tol,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_device_ms": sum(lib_times.values()),
+        "library_kernels": [[name[:100], t] for name, t in sorted(
+            lib_times.items(), key=lambda kv: -kv[1])],
+        **bound,
         "kernels": list(BWD_KERNELS[dname]),
         "device_ms_pass_a": _device_ms(None, BWD_KERNELS[dname][0],
                                        times=times),
@@ -530,32 +560,38 @@ def check_attention_bwd(fa, c, gen):
         c["name"], sorted(times))
     if c["split"]:
         row["passes"] = _check_passes(fa, c, route, q, k, v, bias, seed, out,
-                                      lse, g, scale, causal, refs, iters,
-                                      plain_ms, in_bytes, live)
+                                      lse, g, g_lse, scale, causal, refs,
+                                      iters, plain_ms, in_bytes, live)
     return row
 
 
-def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
-                  causal, refs, iters, plain_ms, in_bytes, live):
+def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, g_lse,
+                  scale, causal, refs, iters, plain_ms, in_bytes, live):
     """Pass A (dk, dv: the counterpart of ``_dkv_kernel``) and pass B (dq:
     ``_dq_kernel``), each launched alone (with the delta pre-pass both
-    need), checked against the plain backward and timed. Bounds: 8 and 6
-    b*h*dh operations per live score (4 and 3 matrix products); bytes of
-    the inputs and of the pass's outputs. No single library call computes
+    need) as the wrapper launches them (BTHD views of BHTD tensors, the
+    lse cotangent, the small route's causal mask folded into the bias),
+    checked against the plain backward and timed. Bounds: 8 and 6 b*h*dh
+    operations per live score (4 and 3 matrix products); bytes of the
+    inputs and of the pass's outputs. No single library call computes
     one pass."""
     import torch
 
     b, tq, tk, h, dh = (c[n] for n in ("b", "tq", "tk", "h", "dh"))
     dname = str(c["dtype"]).split(".")[-1]
     grads = [torch.zeros_like(x) for x in (q, k, v)]
+    if c["layout"] == "bhtd":
+        views = fa._bthd(q, k, v, out, lse, g, g_lse, *grads)
+    else:
+        views = [q, k, v, out, lse, g, g_lse, *grads]
+        _, bias, causal = fa._bthd_route(q, k, causal, bias)
     rows = {}
     for name, passes, idx, nops, kname in (
             ("pass_a", 1, (1, 2), 8.0, BWD_KERNELS[dname][0]),
             ("pass_b", 2, (0,), 6.0, BWD_KERNELS[dname][1])):
         def launch():
-            fa._launch_bwd(route, q, k, v, bias, seed, out, lse, g, None,
-                           scale, c["p_drop"], causal, *grads,
-                           passes=passes)
+            fa._launch_bwd(route, *views[:3], bias, seed, *views[3:7], scale,
+                           c["p_drop"], causal, *views[7:], passes=passes)
 
         for i in idx:
             grads[i].zero_()
@@ -570,15 +606,13 @@ def _check_passes(fa, c, route, q, k, v, bias, seed, out, lse, g, scale,
         assert max(rels) <= TOL_GRAD_REL[dname], (c["name"], name, rels)
         out_bytes = q.element_size() * len(idx) * b * (
             tq if idx == (0,) else tk) * h * dh
-        bound_ms, bound_by = _bound(nops * b * h * dh * live,
-                                    in_bytes + out_bytes, dname)
+        bound = _bound(nops * b * h * dh * live, in_bytes + out_bytes, dname)
         rows[name] = {
             "kernel": kname, "max_abs_err": max(errs), "rel_err": rels,
             "ms": _time_ms(launch, iters, warmup=min(10, iters)),
             "device_ms": _device_ms(launch, kname, iters=min(iters, 20),
                                     per_call=1),
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": None, **bound,
         }
         assert rows[name]["device_ms"], (c["name"], name, kname)
     return rows
@@ -637,14 +671,13 @@ def check_mask_dump(fa, b, tq, h, tk, p_drop):
     keep = (got > 0).float().mean().item()
     sd = (p_drop * (1 - p_drop) / n) ** 0.5
     assert abs(keep - (1 - p_drop)) <= 4 * sd, (keep, 1 - p_drop, sd)
-    bound_ms, bound_by = _bound(0.0, 4.0 * n, "float32")
+    bound = _bound(0.0, 4.0 * n, "float32")
     return {
         "case": "mask dump", "shape": [b, tq, h, tk], "p_drop": p_drop,
         "mismatched": mismatched, "keep_rate": keep,
         "ms": _time_ms(kernel, 20), "device_ms": _device_ms(kernel,
                                                             "mask_kernel"),
-        "plain_ms": _time_ms(plain, 20), "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": _time_ms(plain, 20), "library_ms": None, **bound,
     }
 
 
@@ -776,15 +809,17 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
 
 
 def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
-          repeated=8, window=8):
-    """Phase 5/5b: train Transformer-base through Executor.run_steps at
-    batch x seq."""
+          repeated=8, window=8, amp=True):
+    """Phase 5/5b/5c: train Transformer-base through Executor.run_steps at
+    batch x seq, with bf16 AMP (``amp``) or in f32, the framework's
+    default."""
     cfg = T.TransformerConfig(max_length=max_length)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main_prog, startup):
         model = T.build(cfg)  # dropout 0.1, label smoothing 0.1
         fluid.optimizer.Adam(1e-4).minimize(model["loss"])
-    fluid.amp.enable_amp(main_prog)
+    if amp:
+        fluid.amp.enable_amp(main_prog)
     startup.random_seed = main_prog.random_seed = SEED
     loss = model["loss"]
     feeds = [T.make_batch(cfg, batch, seq, seq, seed=SEED + i)
@@ -830,8 +865,12 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         times = _device_times(
             lambda: exe.run_steps(main_prog, feeds[:1], 1, [loss]), iters=2)
     device_ms = sum(times.values()) or None
+    # the attention runs in bf16 under AMP, else in f32: its backward
+    # passes are read under that dtype's kernel names
+    bwd_names = BWD_KERNELS["bfloat16" if amp else "float32"]
     bwd_passes_ms = sum(ms for name, ms in times.items()
-                        if "bwd_dkdv" in name or "bwd_dq" in name)
+                        if _matches(name, bwd_names))
+    assert bwd_passes_ms > 0, (bwd_names, sorted(times))
     fwd_ms = sum(ms for name, ms in times.items()
                  if _matches(name, sum(FWD_KERNELS.values(), ())))
     top = sorted(times.items(), key=lambda kv: -kv[1])[:12]
@@ -841,12 +880,13 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
     step_ms = wall / window * 1e3
     return {
         "batch": batch, "seq": seq, "route": route,
-        "max_length": cfg.max_length, "amp": True, "dropout": cfg.dropout,
+        "max_length": cfg.max_length, "amp": amp, "dropout": cfg.dropout,
         "startup_s": startup_s, "repeated_batch_losses": losses,
         "window_steps": window, "last_loss": float(value),
         "step_ms": step_ms, "step_device_ms": device_ms,
         "fwd_kernel_device_ms": fwd_ms,
         "bwd_passes_device_ms": bwd_passes_ms,
+        "bwd_pass_kernels": list(bwd_names),
         "idle_share": None if device_ms is None else 1 - device_ms / step_ms,
         "target_tokens_per_s": tokens / wall,
         "peak_mem_gib": peak / 2**30,
@@ -911,7 +951,6 @@ def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
     """Times of one kernel study case: events, profiler, plain version,
     library call (None when there is none), and the bound at the bf16
     tensor-core peak."""
-    bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
     return {
         "case": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
         "ms": _time_ms(launch, iters, warmup=3),
@@ -920,7 +959,7 @@ def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
         "plain_ms": _time_ms(plain, 3, warmup=1),
         "library_ms": (None if library is None
                        else _time_ms(library, iters, warmup=3)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **_bound(flops, nbytes, "bfloat16"),
     }
 
 
@@ -1303,7 +1342,8 @@ def _phase3_cases(torch):
         # the widest head the kernels take (the JAX small kernel takes any)
         _case("dh256 bf16 causal drop", bf16, 2, 256, 256, "causal",
               p_drop=0.1, h=2, dh=256, split=True),
-        _case("dh256 f32 pad", f32, 2, 256, 256, "pad_b", h=2, dh=256),
+        _case("dh256 f32 pad", f32, 2, 256, 256, "pad_b", h=2, dh=256,
+              split=True),
         _case("dh256 bf16 t1024 causal+pad", bf16, 1, 1024, 1024,
               "causal_pad", h=2, dh=256),
         # the training step's three attentions (encoder self, decoder
@@ -1314,9 +1354,10 @@ def _phase3_cases(torch):
               True, 0.1),
         _case("train bf16 cross drop", bf16, tb, tt, tt, "pad_b", False,
               0.1),
-        _case("train f32 pad drop", f32, tb, tt, tt, "pad_b", True, 0.1),
+        _case("train f32 pad drop", f32, tb, tt, tt, "pad_b", True, 0.1,
+              split=True, repeat=True),
         _case("train f32 causal+pad drop", f32, tb, tt, tt, "causal_pad",
-              True, 0.1),
+              True, 0.1, split=True),
         _case("train f32 cross drop", f32, tb, tt, tt, "pad_b", False, 0.1),
     ]
     # the kblock route: the t = 1024 training row's three attentions and
@@ -1324,7 +1365,7 @@ def _phase3_cases(torch):
     for dname, dt in (("bf16", bf16), ("f32", f32)):
         fwd += [
             _case(f"t1024 {dname} pad drop", dt, 8, 1024, 1024, "pad_b",
-                  True, 0.1),
+                  True, 0.1, split=dt == f32),
             _case(f"t1024 {dname} causal+pad drop", dt, 8, 1024, 1024,
                   "causal_pad", True, 0.1),
             _case(f"t1024 {dname} cross drop", dt, 8, 1024, 1024, "pad_b",
@@ -1345,15 +1386,20 @@ def _phase3_cases(torch):
         _case("t2048 bf16 causal+pad drop", bf16, 1, 2048, 2048,
               "causal_pad", True, 0.1),
         _case("bhtd layout f32 causal g_lse", f32, 2, 1024, 1024,
-              "causal_pad", layout="bhtd", g_lse=True),
+              "causal_pad", layout="bhtd", g_lse=True, split=True,
+              repeat=True),
         _case("decode f32 tq1 tk1024", f32, 4, 1, 1024, "pad_b"),
     ]
     bwd = [c for c in fwd if c["name"].startswith(("train", "t1024",
                                                    "t4096", "t2048",
                                                    "bhtd", "dh256"))] + [
-        _case("ragged f32", f32, 2, 100, 77, "none"),
+        _case("ragged f32", f32, 2, 100, 77, "none", split=True),
         _case("dh128 f32 drop", f32, 2, 128, 128, "pad", p_drop=0.2, h=4,
-              dh=128),
+              dh=128, split=True),
+        # f32 rows that are not 16-byte aligned (dh 30: copied element by
+        # element), ragged, with dropout
+        _case("dh30 f32 drop", f32, 2, 100, 77, "none", p_drop=0.1, h=4,
+              dh=30, split=True),
         _case("dh32 bf16", bf16, 2, 96, 200, "pad", h=4, dh=32, split=True),
         _case("bf16 causal", bf16, 8, 256, 256, "causal"),
         # the bf16 kernels' padded head widths and ragged edges
@@ -1451,12 +1497,23 @@ def main() -> int:
                    "kernels": r["kernels"]}
             for name, r in fwd_results.items() if r["dtype"] == dname}),
             flush=True)
-    print("bwd_bf16 " + json.dumps({
-        name: {"ms": r["ms"], "library_ms": r["library_ms"],
-               "ms_over_library": r["ms"] / r["library_ms"],
-               "max_rel_err": max(r["rel_err_dq_dk_dv"])}
-        for name, r in bwd_results.items() if r["dtype"] == "bfloat16"}),
-        flush=True)
+    # the backward rows against the library's backward timed directly:
+    # events ms over events ms, device ms over device ms
+    for dname, tag in (("bfloat16", "bwd_bf16"), ("float32", "bwd_f32")):
+        print(f"{tag} " + json.dumps({
+            name: {"ms": r["ms"], "device_ms": r["device_ms"],
+                   "device_ms_pass_a": r["device_ms_pass_a"],
+                   "device_ms_pass_b": r["device_ms_pass_b"],
+                   "library_ms": r["library_ms"],
+                   "library_device_ms": r["library_device_ms"],
+                   "ms_over_library": r["ms"] / r["library_ms"],
+                   "device_over_library": (r["device_ms"]
+                                           / r["library_device_ms"]),
+                   "bound_ms": r["bound_ms"],
+                   "bound_route": r["bound_route"],
+                   "max_rel_err": max(r["rel_err_dq_dk_dv"])}
+            for name, r in bwd_results.items() if r["dtype"] == dname}),
+            flush=True)
 
     # 3c. the kernel studies against their plain versions, then each
     # study's own entry point with its launch count read from that run
@@ -1516,17 +1573,28 @@ def main() -> int:
         long_train[seq] = r
         print(f"train_t{seq} " + json.dumps(r), flush=True)
         torch.cuda.empty_cache()
+    # 5c. the same t = 256 step in f32 (no AMP): the attention backward on
+    # the 3xTF32 kernels, 18 launches a step on the small route
+    t32 = train(torch, np, fluid, T, fa, seq=TRAIN_T, batch=TRAIN_B,
+                route="small", amp=False)
+    print("train_f32 " + json.dumps(t32), flush=True)
+    print(f"training Transformer-base in f32 on {card}: step "
+          f"{t32['step_ms']:.1f} ms wall, {t32['step_device_ms']} ms device "
+          f"busy, attention backward {t32['bwd_passes_device_ms']:.3f} ms a "
+          f"step, {t32['target_tokens_per_s']:.0f} target tokens/s, peak "
+          f"{t32['peak_mem_gib']:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
 
     # 6. one training step on the card against the CPU
     c = train_vs_cpu(torch, np, fluid, T, fa, n_layer=6, seq=32, batch=2)
     print("train_vs_cpu " + json.dumps(c), flush=True)
-    # f32 backward launches (the CUDA-core family) over the three f32 steps
-    f32_bwd_launches = c["launches"]
+    # the f32 steps at t = 768 (kblock) and 1280 (bhtd): the 3xTF32
+    # backward on the long routes, its launches read from each step
+    vs_cpu = {}
     for seq in (768, 1280):
-        c6 = train_vs_cpu(torch, np, fluid, T, fa, n_layer=2, seq=seq,
-                          batch=1, max_length=seq + 2)
-        print(f"train_vs_cpu_t{seq} " + json.dumps(c6), flush=True)
-        f32_bwd_launches += c6["launches"]
+        vs_cpu[seq] = train_vs_cpu(torch, np, fluid, T, fa, n_layer=2,
+                                   seq=seq, batch=1, max_length=seq + 2)
+        print(f"train_vs_cpu_t{seq} " + json.dumps(vs_cpu[seq]), flush=True)
 
     # 7. the vision training path: ResNet-50, (7b) SE-ResNeXt-50, and
     # (7c) the studied shapes among their conv2d ops
@@ -1573,6 +1641,8 @@ def main() -> int:
     fwd_prefill = fwd_results["prefill f32 pad"]
     bwd_main = bwd_results["train bf16 pad drop"]
     bwd_f32 = bwd_results["train f32 pad drop"]
+    kb_bwd_f32 = bwd_results["t1024 f32 pad drop"]
+    bh_passes_f32 = bwd_results["bhtd layout f32 causal g_lse"]["passes"]
     kb_fwd, kb_bwd = (fwd_results["t1024 bf16 pad drop"],
                       bwd_results["t1024 bf16 pad drop"])
     kb_fwd_f32 = fwd_results["t1024 f32 pad drop"]
@@ -1599,9 +1669,26 @@ def main() -> int:
             t["launches"]["small/bwd"], bwd_main,
             max(bwd_main["err_dq_dk_dv"])),
         _kernel_entry(
-            "flash_attention_bthd_bwd (f32: bwd_dkdv_kernel + bwd_dq_kernel, "
-            "CUDA cores)", _SRC_BWD, f"{_TPU_FA}:861", f32_bwd_launches,
-            bwd_f32, max(bwd_f32["err_dq_dk_dv"])),
+            "flash_attention_bthd_bwd (f32: bwd_dkdv_tf32_kernel + "
+            "bwd_dq_tf32_kernel, 3xTF32 on mma.sync; small route, f32 "
+            "training)", _SRC_BWD, f"{_TPU_FA}:861",
+            t32["launches"]["small/bwd"], bwd_f32,
+            max(bwd_f32["err_dq_dk_dv"])),
+        _kernel_entry(
+            "flash_attention_bthd_bwd (f32, 3xTF32; kblock route, the f32 "
+            "step at t = 768)", _SRC_BWD, f"{_TPU_FA}:1028",
+            vs_cpu[768]["launches"], kb_bwd_f32,
+            max(kb_bwd_f32["err_dq_dk_dv"])),
+        _kernel_entry(
+            "flash_attention_bwd pass B, dq, bwd_dq_tf32_kernel (f32, bhtd "
+            "route, causal, lse cotangent; the f32 step at t = 1280)",
+            _SRC_BWD, f"{_TPU_FA}:181", vs_cpu[1280]["launches"],
+            bh_passes_f32["pass_b"], bh_passes_f32["pass_b"]["max_abs_err"]),
+        _kernel_entry(
+            "flash_attention_bwd pass A, dk/dv, bwd_dkdv_tf32_kernel (f32, "
+            "bhtd route, causal, lse cotangent; the f32 step at t = 1280)",
+            _SRC_BWD, f"{_TPU_FA}:233", vs_cpu[1280]["launches"],
+            bh_passes_f32["pass_a"], bh_passes_f32["pass_a"]["max_abs_err"]),
         _kernel_entry(
             "dropout_keep_mask", _SRC_FWD,
             "tests/test_flash_attention_tpu.py:26", mask_launches, mask,

@@ -1,7 +1,6 @@
 // Device helpers shared by the attention kernels
-// (flash_attention_bthd_fwd.cu, flash_attention_bthd_bwd.cu): type
-// conversion, batched tile loads, the dropout keep mask and the causal
-// tile test.
+// (flash_attention_bthd_fwd.cu, flash_attention_bthd_bwd.cu): conversion
+// to f32, the dropout keep mask and the causal tile test.
 //
 // Dropout keep mask. The TPU kernels draw their mask from the TPU's own
 // generator, keyed by absolute 128-row blocks so forward and backward
@@ -28,44 +27,6 @@ namespace pt_attn {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-constexpr int kLdBatch = 8;  // global loads a thread issues before storing
-
-// Copies rows [row0, row0 + nrows) x [0, dh) of a strided [t, dh] source
-// (rows past `limit` read as zeros) into shared memory at stride
-// `sstride`. Each thread issues kLdBatch loads before storing any, so a
-// block with few warps still keeps several loads in flight.
-template <int kThreads, typename T>
-__device__ __forceinline__ void load_tile(float* dst, int sstride,
-                                          const T* __restrict__ src,
-                                          long long rstride, int row0,
-                                          int nrows, int limit, int dh) {
-  const int n = nrows * dh;
-  for (int base = 0; base < n; base += kThreads * kLdBatch) {
-    float buf[kLdBatch];
-#pragma unroll
-    for (int u = 0; u < kLdBatch; ++u) {
-      int i = base + u * kThreads + threadIdx.x;
-      int r = i / dh, d = i - r * dh;
-      bool ok = i < n && row0 + r < limit;
-      buf[u] = ok ? to_f32(src[(long long)(row0 + r) * rstride + d]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLdBatch; ++u) {
-      int i = base + u * kThreads + threadIdx.x;
-      int r = i / dh, d = i - r * dh;
-      if (i < n) dst[r * sstride + d] = buf[u];
-    }
-  }
 }
 
 // The dropout arguments of a launch (see above).

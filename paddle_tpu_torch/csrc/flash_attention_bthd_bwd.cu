@@ -40,57 +40,83 @@
 // live score (4 and 3 products), against the bytes of q, k, v, dout, lse,
 // delta, the bias and the outputs: operations at every shape the repo
 // runs. (The bf16 kernels run the three products that take P o M or dS
-// once per bf16 term: 10 on the tensor cores.)
+// once per bf16 term: 10 on the tensor cores; the f32 kernels run every
+// product three times, in TF32.)
 //
-// bf16 inputs (the main path: AMP training) run the tensor-core kernels
-// bwd_dkdv_wgmma_kernel (pass A) and bwd_dq_wgmma_kernel (pass B):
+// Both families run on the tensor cores, every tile streaming through a
+// two-stage ring of 16-byte cp.async copies (the next tile in flight while
+// the current one computes; rows that are not 16-byte aligned are copied
+// element by element into the same ring), a head dim padded with zeros to
+// 64, 128 or 256 in shared memory (which adds nothing to any product), a
+// bias that varies by query row (the small route's folded causal mask)
+// streamed beside its tile, and a one-dimensional grid with the tile
+// index varying slowest, counted from the heaviest end under the causal
+// mask (pass A: key tile 0, which every query tile reaches; pass B: the
+// last query tile), so the longest blocks start first across all heads
+// and batches; only the tiles that cross the diagonal or the ragged edge
+// are masked. At dh above 64 (bf16: above 128) each pass runs several
+// blocks per tile (blockIdx.y), which all compute S and dP over the whole
+// head and then take their share of the columns of dk, dv or dq (the
+// registers hold no more).
+//
+// bf16 inputs (the main path: AMP training) run bwd_dkdv_wgmma_kernel
+// (pass A) and bwd_dq_wgmma_kernel (pass B):
 //   - every product is a `wgmma.mma_async` (bf16 x bf16 -> f32) on bf16
 //     tiles in shared memory, in the 128-byte-swizzled layout the wgmma
-//     descriptors read; a head dim that is not a multiple of 64 is padded
-//     with zeros there (dh <= 64 as 64, <= 128 as 128, else 256), which
-//     adds nothing to any product;
-//   - a block writes at most 128 columns of its gradients (the registers
-//     of one warpgroup hold no more): at dh 256 each pass runs two blocks
-//     per tile (blockIdx.y), which both compute S and dP over the whole
-//     head and then take one half of the columns of dk, dv or dq;
+//     descriptors read; a block writes 128 gradient columns at most;
 //   - pass A: a block holds 64 keys per warpgroup (two warpgroups, 128
-//     keys, at dh <= 64; one above) and their K and V for the whole
-//     walk; query tiles (64 rows; 32 at dh > 64, for registers) of Q and
-//     dout, with their lse and delta, stream through a two-stage ring of
-//     16-byte cp.async copies, the next tile in flight while the current
-//     one computes. It computes S^T = K Q^T and dP^T = V dout^T with the
-//     keys in wgmma's M, so P^T o M and dS^T stay in registers: in bf16
-//     they are the register A operand of dV += (P^T o M) dout and dK +=
-//     dS^T Q, whose B (Q, dout) is read through transposed (MN-major)
-//     descriptors;
+//     keys, at dh <= 64; one above) and their K and V for the whole walk;
+//     query tiles (64 rows; 32 at dh > 64, for registers) of Q and dout,
+//     with their lse and delta, stream through the ring. It computes S^T
+//     = K Q^T and dP^T = V dout^T with the keys in wgmma's M, so P^T o M
+//     and dS^T stay in registers: in bf16 they are the register A operand
+//     of dV += (P^T o M) dout and dK += dS^T Q, whose B (Q, dout) is read
+//     through transposed (MN-major) descriptors;
 //   - pass B: a block of one warpgroup holds 64 query rows with their Q,
 //     dout, lse and delta (two blocks share an SM, so one block's
 //     exponentials run under the other's products); K and V tiles of 64
-//     keys stream through the same kind of ring. S = Q K^T and dP = dout
-//     V^T, then dS in registers as the A operand of dQ += dS K, K read
-//     through a transposed descriptor;
+//     keys stream through the ring. S = Q K^T and dP = dout V^T, then dS
+//     in registers as the A operand of dQ += dS K, K read through a
+//     transposed descriptor;
 //   - P o M and dS enter the tensor cores as two bf16 terms each, hi =
 //     bf16(x) and lo = bf16(x - hi), 16 bits in all (one bf16 rounding
 //     left too little room under the bf16 gradient limit); every sum is
-//     f32, and dq, dk, dv are rounded once when written;
-//   - a bias that varies by query row (the small route's folded causal
-//     mask) streams through the ring beside its tiles;
-//   - causal blocks: the grid is one-dimensional with the tile index
-//     varying slowest, counted from the heaviest end (pass A: key tile 0,
-//     which every query tile reaches; pass B: the last query tile), so the
-//     longest blocks start first across all heads and batches; only the
-//     tiles that cross the diagonal or the ragged edge are masked;
-//   - rows that are not 16-byte aligned (dh not a multiple of 8, or odd
-//     strides) are copied element by element into the same ring.
-// f32 inputs keep the CUDA-core kernels bwd_dkdv_kernel and bwd_dq_kernel
-// (f32 FMAs from shared memory): TF32 products could not hold an f32
-// training step to the f32 reference, so the kernel is chosen by dtype.
+//     f32, and dq, dk, dv are rounded once when written.
+// f32 inputs (the f32 training step) run bwd_dkdv_tf32_kernel (pass A) and
+// bwd_dq_tf32_kernel (pass B) in 3xTF32 (mma_tf32.cuh):
+//   - every product is three mma.sync.m16n8k8 TF32 MMAs into f32
+//     accumulators, each operand split in registers into big = tf32(x)
+//     and small = x - big (21 bits of x or more): one TF32 product misses
+//     the f32 gradient limit (1e-5 of the largest) by about 100x. wgmma
+//     takes TF32 operands K-major only, and three of the five products
+//     read one MN-major (dV += (P o M)^T dout, dK += dS^T Q, dQ += dS K),
+//     which would need transposed copies of Q, dout and K, and big and
+//     small copies of each tile in shared memory; mma.sync splits its
+//     fragments in registers from one f32 copy in any layout;
+//   - tiles are row-major f32 in shared memory at a row stride of the
+//     padded head plus 4 floats, so that every fragment load touches 32
+//     banks; a block has four warps, each owning 16 rows of the block's
+//     tile (pass A: 64 keys of K and V; pass B: 64 query rows of Q and
+//     dout) for the whole walk, and streams tiles of 32 rows (16 at dh
+//     256): pass A Q and dout with their lse and delta, pass B K and V;
+//     at dh 64 two blocks share an SM;
+//   - each warp computes its 16 rows of S and dP (pass A: S^T = K Q^T,
+//     dP^T = V dout^T) over the head; P o M and dS stay in the
+//     accumulator registers and enter dV += (P^T o M) dout, then dK +=
+//     dS^T Q, or dQ += dS K as A fragments directly, the B rows taken in
+//     the accumulator's column order; a block writes 64 gradient columns;
+//   - the tensor cores round each MMA's f32 sum toward zero, so no chain
+//     of MMAs into one accumulator runs long: each tile's contribution to
+//     a gradient is a chain of its own, added in f32 (rounded to
+//     nearest), and the small terms of S (and of dP in pass B) sum apart
+//     from the big ones; dq, dk, dv are written as f32.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -98,11 +124,6 @@ namespace {
 using namespace pt_attn;
 using namespace pt_wgmma;
 
-// f32 (CUDA-core) kernels
-constexpr int kBQ = 32;  // query rows per tile
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreadsA = 256;
-constexpr int kThreadsB = 128;
 constexpr int kThreadsDelta = 256;
 constexpr int kDeltaLanes = 8;  // threads that share one delta row
 constexpr int kMaxDh = 256;
@@ -119,22 +140,10 @@ struct Args {
   long long sb, sh, sq;  // bias strides over (batch, head, query row)
   float scale;
   Dropout drop;
-  // bf16: every row of q, k, v, dout, dq, dk, dv (of the bias) 16-byte
-  // aligned
+  // every row of q, k, v, dout, dq, dk, dv (of the bias) 16-byte aligned,
+  // and dh a multiple of 16 bytes
   int vec, bias_vec;
 };
-
-size_t smem_a(int dh) {
-  // Ks, Vs [BK][dh+1]; Qs, dOs [BQ][dh]; Ps, dSs [BQ][BK+1]; lse, delta
-  return sizeof(float) * (size_t)(2 * kBK * (dh + 1) + 2 * kBQ * dh +
-                                  2 * kBQ * (kBK + 1) + 2 * kBQ);
-}
-
-size_t smem_b(int dh) {
-  // Qs, dOs [BQ][dh]; Ks, Vs [BK][dh+1]; dSs [BQ][BK+1]; lse, delta
-  return sizeof(float) * (size_t)(2 * kBQ * dh + 2 * kBK * (dh + 1) +
-                                  kBQ * (kBK + 1) + 2 * kBQ);
-}
 
 // The pre-pass: delta[b, t, h] = sum_d dout * out - g_lse, f32, with
 // kDeltaLanes neighbouring threads on neighbouring elements of one row.
@@ -166,277 +175,6 @@ __global__ void __launch_bounds__(kThreadsDelta) bwd_delta_kernel(Args a,
     if (a.g_lse != nullptr)
       acc -= a.g_lse[bb * a.gls[0] + qr * a.gls[1] + hh * a.gls[2]];
     a.delta[row] = acc;  // contiguous [b, tq, h]
-  }
-}
-
-// Pass A: dk and dv of one 64-key tile.
-template <typename T, int kDhMax, bool kDrop, bool kCausal>
-__global__ void __launch_bounds__(kThreadsA) bwd_dkdv_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int dh = a.dh, ks = dh + 1, ss = kBK + 1;
-  float* Ks = smem;                 // [kBK][dh + 1]
-  float* Vs = Ks + kBK * ks;        // [kBK][dh + 1]
-  float* Qs = Vs + kBK * ks;        // [kBQ][dh]
-  float* dOs = Qs + kBQ * dh;       // [kBQ][dh]
-  float* Ps = dOs + kBQ * dh;       // [kBQ][kBK + 1]  p o M
-  float* dSs = Ps + kBQ * ss;       // [kBQ][kBK + 1]  ds
-  float* Ls = dSs + kBQ * ss;       // [kBQ]
-  float* Ds = Ls + kBQ;             // [kBQ]
-
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * kBK;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int nh = a.nh, tq = a.tq, tk = a.tk;
-  const T* qb = static_cast<const T*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
-  const T* kb = static_cast<const T*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
-  const T* vb = static_cast<const T*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
-  const T* dob =
-      static_cast<const T*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
-  const float* lsb = a.lse + bb * a.ls[0] + hh * a.ls[2];
-  const float* dlb = a.delta + (long long)bb * tq * nh + hh;
-  const float* biasb =
-      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
-  const int bh = bb * nh + hh;
-
-  load_tile<kThreadsA>(Ks, ks, kb, a.ks[1], k0, kBK, tk, dh);
-  load_tile<kThreadsA>(Vs, ks, vb, a.vs[1], k0, kBK, tk, dh);
-
-  // score micro-tile: rows 2*rg, 2*rg+1; keys 4*cg .. 4*cg+3
-  const int rg = tid / 16, cg = tid % 16;
-  // accumulator mapping: key row kr, columns c + 4*j
-  const int kr = tid / 4, c = tid % 4;
-  constexpr int kDPerThread = kDhMax / 4;
-  float acc_k[kDPerThread], acc_v[kDPerThread];
-#pragma unroll
-  for (int j = 0; j < kDPerThread; ++j) acc_k[j] = acc_v[j] = 0.f;
-
-  for (int q0 = 0; q0 < tq; q0 += kBQ) {
-    // causal: query tiles before the first that reaches k0 are dead
-    if (kCausal && !causal_tile_live(q0, kBQ, tq, k0)) continue;
-    __syncthreads();  // previous tile's Qs/dOs/Ps/dSs reads are done
-    load_tile<kThreadsA>(Qs, dh, qb, a.qs[1], q0, kBQ, tq, dh);
-    load_tile<kThreadsA>(dOs, dh, dob, a.dos[1], q0, kBQ, tq, dh);
-    if (tid < kBQ) {
-      const int qr = q0 + tid;
-      Ls[tid] = qr < tq ? lsb[qr * a.ls[1]] : 0.f;
-      Ds[tid] = qr < tq ? dlb[(long long)qr * nh] : 0.f;
-    }
-    __syncthreads();
-
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[r][e] = dp[r][e] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qv[2], dov[2], kv[4], vv[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        qv[r] = Qs[(rg * 2 + r) * dh + d];
-        dov[r] = dOs[(rg * 2 + r) * dh + d];
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kv[e] = Ks[(cg * 4 + e) * ks + d];
-        vv[e] = Vs[(cg * 4 + e) * ks + d];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[r][e] = fmaf(qv[r], kv[e], s[r][e]);
-          dp[r][e] = fmaf(dov[r], vv[e], dp[r][e]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = rg * 2 + r, qr = q0 + row;
-      uint32_t hrow = 0;
-      if (kDrop) hrow = drop_row_hash(a.drop.key, bh, qr);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = cg * 4 + e, key = k0 + col;
-        float p = 0.f, pd = 0.f, ds = 0.f;
-        if (qr < tq && key < tk && (!kCausal || key <= qr)) {
-          float sv = s[r][e] * a.scale;
-          if (biasb != nullptr) sv += biasb[(long long)qr * a.sq + key];
-          p = expf(sv - Ls[row]);
-          float dpv = dp[r][e];
-          pd = p;
-          if (kDrop) {
-            const float m =
-                drop_scale(hrow, key, a.drop.thresh, a.drop.keep_scale);
-            pd = p * m;
-            dpv *= m;
-          }
-          ds = p * (dpv - Ds[row]) * a.scale;
-        }
-        Ps[row * ss + col] = pd;
-        dSs[row * ss + col] = ds;
-      }
-    }
-    __syncthreads();
-
-    for (int r = 0; r < kBQ; ++r) {
-      const float pdv = Ps[r * ss + kr];
-      const float dsv = dSs[r * ss + kr];
-      const float* dorow = dOs + r * dh;
-      const float* qrow = Qs + r * dh;
-#pragma unroll
-      for (int j = 0; j < kDPerThread; ++j) {
-        const int d = c + 4 * j;
-        if (d < dh) {
-          acc_v[j] = fmaf(pdv, dorow[d], acc_v[j]);
-          acc_k[j] = fmaf(dsv, qrow[d], acc_k[j]);
-        }
-      }
-    }
-  }
-
-  const int key = k0 + kr;
-  if (key < tk) {
-    T* dkr = static_cast<T*>(a.dk) + bb * a.dks[0] + key * a.dks[1] +
-             hh * a.dks[2];
-    T* dvr = static_cast<T*>(a.dv) + bb * a.dvs[0] + key * a.dvs[1] +
-             hh * a.dvs[2];
-#pragma unroll
-    for (int j = 0; j < kDPerThread; ++j) {
-      const int d = c + 4 * j;
-      if (d < dh) {
-        dkr[d] = from_f32<T>(acc_k[j]);
-        dvr[d] = from_f32<T>(acc_v[j]);
-      }
-    }
-  }
-}
-
-// Pass B: dq of one 32-row query tile.
-template <typename T, int kDhMax, bool kDrop, bool kCausal>
-__global__ void __launch_bounds__(kThreadsB) bwd_dq_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int dh = a.dh, ks = dh + 1, ss = kBK + 1;
-  float* Qs = smem;                 // [kBQ][dh]
-  float* dOs = Qs + kBQ * dh;       // [kBQ][dh]
-  float* Ks = dOs + kBQ * dh;       // [kBK][dh + 1]
-  float* Vs = Ks + kBK * ks;        // [kBK][dh + 1]
-  float* dSs = Vs + kBK * ks;       // [kBQ][kBK + 1]
-  float* Ls = dSs + kBQ * ss;       // [kBQ]
-  float* Ds = Ls + kBQ;             // [kBQ]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int nh = a.nh, tq = a.tq, tk = a.tk;
-  const T* qb = static_cast<const T*>(a.q) + bb * a.qs[0] + hh * a.qs[2];
-  const T* kb = static_cast<const T*>(a.k) + bb * a.ks[0] + hh * a.ks[2];
-  const T* vb = static_cast<const T*>(a.v) + bb * a.vs[0] + hh * a.vs[2];
-  const T* dob =
-      static_cast<const T*>(a.dout) + bb * a.dos[0] + hh * a.dos[2];
-  const float* biasb =
-      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
-
-  load_tile<kThreadsB>(Qs, dh, qb, a.qs[1], q0, kBQ, tq, dh);
-  load_tile<kThreadsB>(dOs, dh, dob, a.dos[1], q0, kBQ, tq, dh);
-  if (tid < kBQ) {
-    const int qr = q0 + tid;
-    Ls[tid] = qr < tq ? a.lse[bb * a.ls[0] + qr * a.ls[1] + hh * a.ls[2]]
-                      : 0.f;
-    Ds[tid] = qr < tq ? a.delta[((long long)bb * tq + qr) * nh + hh] : 0.f;
-  }
-
-  // score micro-tile: rows 4*rg .. 4*rg+3, keys 4*cg .. 4*cg+3
-  const int rg = tid / 16, cg = tid % 16;
-  // accumulator mapping: query row r, columns c + 4*j
-  const int r = tid / 4, c = tid % 4;
-  constexpr int kDPerThread = kDhMax / 4;
-  float acc[kDPerThread];
-#pragma unroll
-  for (int j = 0; j < kDPerThread; ++j) acc[j] = 0.f;
-  uint32_t hrow[4] = {0, 0, 0, 0};
-  if (kDrop) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, q0 + rg * 4 + i);
-  }
-
-  for (int k0 = 0; k0 < tk; k0 += kBK) {
-    // causal: every later key tile is dead for this query tile
-    if (kCausal && !causal_tile_live(q0, kBQ, tq, k0)) break;
-    __syncthreads();  // previous tile's Ks/Vs/dSs reads are done
-    load_tile<kThreadsB>(Ks, ks, kb, a.ks[1], k0, kBK, tk, dh);
-    load_tile<kThreadsB>(Vs, ks, vb, a.vs[1], k0, kBK, tk, dh);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(rg * 4 + i) * dh + d];
-        dov[i] = dOs[(rg * 4 + i) * dh + d];
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kv[e] = Ks[(cg * 4 + e) * ks + d];
-        vv[e] = Vs[(cg * 4 + e) * ks + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[i][e] = fmaf(qv[i], kv[e], s[i][e]);
-          dp[i][e] = fmaf(dov[i], vv[e], dp[i][e]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = rg * 4 + i, qr = q0 + row;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = cg * 4 + e, key = k0 + col;
-        float ds = 0.f;
-        if (qr < tq && key < tk && (!kCausal || key <= qr)) {
-          float sv = s[i][e] * a.scale;
-          if (biasb != nullptr) sv += biasb[(long long)qr * a.sq + key];
-          const float p = expf(sv - Ls[row]);
-          float dpv = dp[i][e];
-          if (kDrop)
-            dpv *= drop_scale(hrow[i], key, a.drop.thresh,
-                              a.drop.keep_scale);
-          ds = p * (dpv - Ds[row]) * a.scale;
-        }
-        dSs[row * ss + col] = ds;
-      }
-    }
-    __syncthreads();
-
-    const int nkeys = min(kBK, tk - k0);
-    for (int key = 0; key < nkeys; ++key) {
-      const float dsv = dSs[r * ss + key];
-      const float* krow = Ks + key * ks;
-#pragma unroll
-      for (int j = 0; j < kDPerThread; ++j) {
-        const int d = c + 4 * j;
-        if (d < dh) acc[j] = fmaf(dsv, krow[d], acc[j]);
-      }
-    }
-  }
-
-  const int qr = q0 + r;
-  if (qr < tq) {
-    T* dqr = static_cast<T*>(a.dq) + bb * a.dqs[0] + qr * a.dqs[1] +
-             hh * a.dqs[2];
-#pragma unroll
-    for (int j = 0; j < kDPerThread; ++j) {
-      const int d = c + 4 * j;
-      if (d < dh) dqr[d] = from_f32<T>(acc[j]);
-    }
   }
 }
 
@@ -885,75 +623,525 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: the tensor-core kernels in 3xTF32 (mma.sync, cp.async)
+
+using pt_tf32::acc_to_a;
+using pt_tf32::add4;
+using pt_tf32::copy_tile_f32;
+using pt_tf32::FragA;
+using pt_tf32::FragB;
+using pt_tf32::load_a;
+using pt_tf32::load_b_kn;
+using pt_tf32::load_b_nk;
+using pt_tf32::mma_3xtf32;
+using pt_tf32::mma_3xtf32_apart;
+using pt_tf32::store_pair_f32;
+
+// Rows of a streamed f32 tile: 32 (the ring stage ~17 KB a tensor at dh
+// 64, so that two or three blocks share an SM), 16 at dh 256 (shared
+// memory)
+template <int kDhPad>
+constexpr int stream_rows() {
+  return kDhPad < 256 ? 32 : 16;
+}
+
+// Pass A shape, dh padded to kDhPad (64, 128 or 256): 64 keys a block, 16
+// a warp; query tiles of kBq rows streamed.
+template <int kDhPad>
+struct PassA32 {
+  static constexpr int kLd = kDhPad + 4;  // row stride of every tile, floats
+  static constexpr int kKeys = 64;
+  static constexpr int kBq = stream_rows<kDhPad>();
+  static constexpr int kThreads = 128;
+  static constexpr int kMinBlocks = kDhPad == 64 ? 2 : 1;  // an SM
+  // dk and dv columns of a block (64: the split fragments take the
+  // registers 128 would need); blockIdx.y picks which of the kHalves
+  static constexpr int kOut = 64;
+  static constexpr int kHalves = kDhPad / kOut;
+  static constexpr int kTileKV = kKeys * kLd;  // K (or V), floats
+  static constexpr int kTileQ = kBq * kLd;     // Q (or dout), floats
+  // a ring stage: Q, dout, then lse and delta [kBq]
+  static constexpr int kStage = 2 * kTileQ + 2 * kBq;
+  // a bias that varies by query row: a [kBq][kKeys + 4] tile a stage
+  static constexpr int kBiasLd = kKeys + 4;
+  static constexpr int kBiasStage = kBq * kBiasLd;
+  static constexpr int smem(bool bias_rows) {
+    return 4 * (2 * kTileKV + kStages * kStage +
+                (bias_rows ? kStages * kBiasStage : 0));
+  }
+};
+
+// Pass B shape: 64 query rows a block, 16 a warp; key tiles of kKeys
+// streamed.
+template <int kDhPad>
+struct PassB32 {
+  static constexpr int kLd = kDhPad + 4;
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = stream_rows<kDhPad>();
+  static constexpr int kThreads = 128;
+  static constexpr int kMinBlocks = kDhPad == 64 ? 2 : 1;
+  static constexpr int kOut = 64;  // as in PassA32
+  static constexpr int kHalves = kDhPad / kOut;
+  static constexpr int kTileQ = kRows * kLd;
+  static constexpr int kTileK = kKeys * kLd;
+  static constexpr int kStage = 2 * kTileK;  // K, V
+  // [kRows][kKeys + 8]: a row's two neighbouring keys read as one float2
+  static constexpr int kBiasLd = kKeys + 8;
+  static constexpr int kBiasStage = kRows * kBiasLd;
+  static constexpr int smem(bool bias_rows) {
+    return 4 * (2 * kTileQ + kStages * kStage +
+                (bias_rows ? kStages * kBiasStage : 0));
+  }
+};
+
+// S and dP of a warp's 16 rows (A: its rows of x1 and x2) against the kN
+// * 8 rows of a streamed tile (B: y1, y2), over the padded head (its zero
+// columns add nothing, and a head step taken at run time would split the
+// unrolled product loop into one basic block per step): s = x1 y1^T, dp =
+// x2 y2^T. The reduction runs in chains of 128 columns (dh 256 takes two),
+// the big terms of s (kApart1) and of dp (kApart2) apart from their small
+// ones (mma_3xtf32_apart): the rounding of a chain drifts with the size of
+// its sum, which for scores grows with the head.
+template <int kDhPad, int kLd, bool kApart1, bool kApart2, int kN>
+__device__ __forceinline__ void scores_3xtf32(const float* x1,
+                                              const float* x2,
+                                              const float* y1,
+                                              const float* y2, int lane,
+                                              float (&s)[kN][4],
+                                              float (&dp)[kN][4]) {
+  constexpr int kSteps = kDhPad / 8, kPer = kSteps < 16 ? kSteps : 16;
+#pragma unroll
+  for (int c = 0; c < kSteps; c += kPer) {
+    // big terms, small terms
+    float ts[kN][4], td[kN][4], us[kN][4], ud[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ts[n][e] = td[n][e] = us[n][e] = ud[n][e] = 0.f;
+#pragma unroll
+    for (int kk = c; kk < c + kPer; ++kk) {
+      FragA f1, f2;
+      load_a<kLd>(x1, 8 * kk, lane, f1);
+      load_a<kLd>(x2, 8 * kk, lane, f2);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        FragB g1, g2;
+        load_b_nk<kLd>(y1, 8 * n, 8 * kk, lane, g1);
+        mma_3xtf32_apart(ts[n], kApart1 ? us[n] : ts[n], f1, g1);
+        load_b_nk<kLd>(y2, 8 * n, 8 * kk, lane, g2);
+        mma_3xtf32_apart(td[n], kApart2 ? ud[n] : td[n], f2, g2);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xs = ts[n][e] + us[n][e], xd = td[n][e] + ud[n][e];
+        s[n][e] = c == 0 ? xs : s[n][e] + xs;
+        dp[n][e] = c == 0 ? xd : dp[n][e] + xd;
+      }
+  }
+}
+
+// acc[o] += A y[:, col0 + 8o .. + 7] for the kO output blocks: A the kN
+// fragments of a warp's 16 rows over the tile's kN * 8 streamed rows (in
+// acc_to_a's column order), y the streamed tile. Each block is one chain
+// into a fresh accumulator, added to acc in f32 (mma_tf32.cuh).
+template <int kLd, int kN, int kO>
+__device__ __forceinline__ void product_rows(const FragA (&fa)[kN],
+                                             const float* y, int col0,
+                                             int lane, float (&acc)[kO][4]) {
+#pragma unroll
+  for (int o = 0; o < kO; ++o) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < kN; ++u) {
+      FragB fb;
+      load_b_kn<kLd>(y, 8 * u, col0 + 8 * o, lane, fb);
+      mma_3xtf32(t, fa[u], fb);
+    }
+    add4(acc[o], t);
+  }
+}
+
+// Pass A in 3xTF32: dk and dv of one 64-key tile.
+template <int kDhPad, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(PassA32<kDhPad>::kThreads,
+                                  PassA32<kDhPad>::kMinBlocks)
+    bwd_dkdv_tf32_kernel(Args a, int b) {
+  using P = PassA32<kDhPad>;
+  constexpr int kBq = P::kBq, kLd = P::kLd;
+  constexpr int kN = kBq / 8;      // query blocks of S^T
+  constexpr int kO = P::kOut / 8;  // column blocks of dk, dv
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);
+  float* Vs = Ks + P::kTileKV;
+  float* ring = Vs + P::kTileKV;
+  float* bias_ring = ring + kStages * P::kStage;
+
+  const int nh = a.nh, tq = a.tq, tk = a.tk, dh = a.dh;
+  const int nbh = b * nh;
+  // the key tile varies slowest: tile 0, the heaviest under the causal
+  // mask, starts first in every (batch, head)
+  const int tile = blockIdx.x / nbh;
+  const int hh = (blockIdx.x - tile * nbh) % nh;
+  const int bb = (blockIdx.x - tile * nbh) / nh;
+  const int k0 = tile * P::kKeys;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 16 * warp;         // this warp's first key
+  const int col0 = blockIdx.y * P::kOut;  // first dk, dv column
+  const bool vec = a.vec != 0;
+  const float* qb = static_cast<const float*>(a.q) + bb * a.qs[0] +
+                    hh * a.qs[2];
+  const float* kb = static_cast<const float*>(a.k) + bb * a.ks[0] +
+                    hh * a.ks[2];
+  const float* vb = static_cast<const float*>(a.v) + bb * a.vs[0] +
+                    hh * a.vs[2];
+  const float* dob = static_cast<const float*>(a.dout) + bb * a.dos[0] +
+                     hh * a.dos[2];
+  const float* lsb = a.lse + bb * a.ls[0] + hh * a.ls[2];
+  const float* dlb = a.delta + (long long)bb * tq * nh + hh;
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
+  const bool bias_rows = biasb != nullptr && a.sq != 0;
+  // drop_row_hash(key, bh, row) = fmix32(hbh ^ row)
+  const uint32_t hbh =
+      kDrop ? fmix32(a.drop.key ^ (uint32_t)(bb * nh + hh)) : 0u;
+
+  // causal: the first query tile is the one that holds row k0
+  const int q_first = kCausal ? (k0 / kBq) * kBq : 0;
+  const int n_tiles = q_first < tq ? (tq - q_first + kBq - 1) / kBq : 0;
+
+  copy_tile_f32<P::kKeys, kDhPad, kLd, P::kThreads>(Ks, kb, a.ks[1], k0, tk,
+                                                   dh, vec);
+  copy_tile_f32<P::kKeys, kDhPad, kLd, P::kThreads>(Vs, vb, a.vs[1], k0, tk,
+                                                   dh, vec);
+  auto load_stage = [&](int it) {
+    float* st = ring + (it % kStages) * P::kStage;
+    const int q0 = q_first + it * kBq;
+    copy_tile_f32<kBq, kDhPad, kLd, P::kThreads>(st, qb, a.qs[1], q0, tq, dh,
+                                                vec);
+    copy_tile_f32<kBq, kDhPad, kLd, P::kThreads>(st + P::kTileQ, dob,
+                                                a.dos[1], q0, tq, dh, vec);
+    float* ld = st + 2 * P::kTileQ;
+    copy_rows_f32<P::kThreads>(ld, lsb, a.ls[1], q0, kBq, tq);
+    copy_rows_f32<P::kThreads>(ld + kBq, dlb, nh, q0, kBq, tq);
+    if (bias_rows)
+      copy_bias_tile<kBq, P::kKeys, P::kThreads, P::kBiasLd>(
+          bias_ring + (it % kStages) * P::kBiasStage, biasb, a.sq, q0, tq,
+          k0, tk, a.bias_vec != 0);
+  };
+  if (n_tiles > 0) load_stage(0);
+  cp_async_commit();
+
+  // accumulator rows (keys) of this thread, and their bias when the bias
+  // does not vary by query row
+  const int krow[2] = {kw0 + g, kw0 + g + 8};
+  float bkey[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (biasb != nullptr && !bias_rows && krow[i] < tk)
+      bkey[i] = biasb[krow[i]];
+  const float scale = a.scale, scale2 = a.scale * kLog2e;
+  const float* kw = Ks + 16 * warp * kLd;  // this warp's rows of K and V
+  const float* vw = Vs + 16 * warp * kLd;
+
+  float dk[kO][4], dv[kO][4];
+#pragma unroll
+  for (int o = 0; o < kO; ++o)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[o][e] = dv[o][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_stage(it + 1);  // in flight meanwhile
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = q_first + it * kBq;
+    const bool live =
+        kw0 < tk && (!kCausal || causal_tile_live(q0, kBq, tq, kw0));
+    if (live) {
+      const float* Qs = ring + (it % kStages) * P::kStage;
+      const float* dOs = Qs + P::kTileQ;
+      const float* Ls = dOs + P::kTileQ;
+      const float* Ds = Ls + kBq;
+      // this stage's bias tile, [query][key - k0]
+      const float* Bs = bias_ring + (it % kStages) * P::kBiasStage;
+      float s[kN][4], dp[kN][4];
+      // the small terms of S apart (those of dP as well would spill)
+      scores_3xtf32<kDhPad, kLd, true, false>(kw, vw, Qs, dOs, lane, s, dp);
+
+      // s^T holds (key, query) pairs: s[n][2i + j] is key krow[i], query
+      // column 8n + 2t + j of the tile. Mask only edge tiles.
+      const bool edge = q0 + kBq > tq || kw0 + 16 > tk ||
+                        (kCausal && q0 < kw0 + 15);
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 8 * n + 2 * t + j, qr = q0 + col;
+          const float lq2 = Ls[col] * kLog2e, delta_q = Ds[col];
+          const uint32_t hrow = kDrop ? fmix32(hbh ^ (uint32_t)qr) : 0u;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 2 * i + j, key = krow[i];
+            float p = 0.f;
+            if (!edge ||
+                (qr < tq && key < tk && (!kCausal || key <= qr))) {
+              const float bv =
+                  bias_rows ? Bs[col * P::kBiasLd + key - k0] : bkey[i];
+              // exp(s scale + bias - lse) as one MUFU 2^x
+              p = exp2_approx(
+                  fmaf(s[n][e], scale2, fmaf(bv, kLog2e, -lq2)));
+            }
+            const float m = kDrop ? drop_scale(hrow, key, a.drop.thresh,
+                                               a.drop.keep_scale)
+                                  : 1.f;
+            dp[n][e] = p * (dp[n][e] * m - delta_q) * scale;  // ds
+            s[n][e] = p * m;                                  // p o M
+          }
+        }
+
+      // dV += (P o M)^T dout, then dK += dS^T Q, over the tile's
+      // queries: each output block one chain of the tile's kN k8 steps
+      // (padded columns add zeros), the A fragments split once
+      FragA fa[kN];
+#pragma unroll
+      for (int u = 0; u < kN; ++u) acc_to_a(s[u], fa[u]);
+      product_rows<kLd, kN, kO>(fa, dOs, col0, lane, dv);
+#pragma unroll
+      for (int u = 0; u < kN; ++u) acc_to_a(dp[u], fa[u]);
+      product_rows<kLd, kN, kO>(fa, Qs, col0, lane, dk);
+    }
+    __syncthreads();  // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = krow[i];
+    if (key >= tk) continue;
+    float* dkr = static_cast<float*>(a.dk) + bb * a.dks[0] + key * a.dks[1] +
+                 hh * a.dks[2];
+    float* dvr = static_cast<float*>(a.dv) + bb * a.dvs[0] + key * a.dvs[1] +
+                 hh * a.dvs[2];
+#pragma unroll
+    for (int o = 0; o < kO; ++o) {
+      const int c = col0 + 8 * o + 2 * t;
+      store_pair_f32(dkr, c, dh, dk[o][2 * i], dk[o][2 * i + 1], vec);
+      store_pair_f32(dvr, c, dh, dv[o][2 * i], dv[o][2 * i + 1], vec);
+    }
+  }
+}
+
+// Pass B in 3xTF32: dq of one 64-row query tile.
+template <int kDhPad, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(PassB32<kDhPad>::kThreads,
+                                  PassB32<kDhPad>::kMinBlocks)
+    bwd_dq_tf32_kernel(Args a, int b) {
+  using P = PassB32<kDhPad>;
+  constexpr int kKeys = P::kKeys, kLd = P::kLd;
+  constexpr int kN = kKeys / 8;    // key blocks of S
+  constexpr int kO = P::kOut / 8;  // column blocks of dq
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);
+  float* dOs = Qs + P::kTileQ;
+  float* ring = dOs + P::kTileQ;
+  float* bias_ring = ring + kStages * P::kStage;
+
+  const int nh = a.nh, tq = a.tq, tk = a.tk, dh = a.dh;
+  const int nbh = b * nh;
+  const int n_qtiles = (tq + P::kRows - 1) / P::kRows;
+  // the query tile varies slowest; under the causal mask the last (the
+  // heaviest) starts first
+  const int order = blockIdx.x / nbh;
+  const int tile = kCausal ? n_qtiles - 1 - order : order;
+  const int hh = (blockIdx.x - order * nbh) % nh;
+  const int bb = (blockIdx.x - order * nbh) / nh;
+  const int q0 = tile * P::kRows;
+  const int col0 = blockIdx.y * P::kOut;  // first dq column
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bool vec = a.vec != 0;
+  const float* qb = static_cast<const float*>(a.q) + bb * a.qs[0] +
+                    hh * a.qs[2];
+  const float* kb = static_cast<const float*>(a.k) + bb * a.ks[0] +
+                    hh * a.ks[2];
+  const float* vb = static_cast<const float*>(a.v) + bb * a.vs[0] +
+                    hh * a.vs[2];
+  const float* dob = static_cast<const float*>(a.dout) + bb * a.dos[0] +
+                     hh * a.dos[2];
+  const float* biasb =
+      a.bias == nullptr ? nullptr : a.bias + bb * a.sb + hh * a.sh;
+  const bool bias_rows = biasb != nullptr && a.sq != 0;
+
+  // causal: key tiles past the block's last row are dead
+  int n_tiles = (tk + kKeys - 1) / kKeys;
+  if (kCausal)
+    n_tiles = min(n_tiles, (min(q0 + P::kRows, tq) - 1) / kKeys + 1);
+
+  copy_tile_f32<P::kRows, kDhPad, kLd, P::kThreads>(Qs, qb, a.qs[1], q0, tq,
+                                                   dh, vec);
+  copy_tile_f32<P::kRows, kDhPad, kLd, P::kThreads>(dOs, dob, a.dos[1], q0,
+                                                   tq, dh, vec);
+  auto load_stage = [&](int it) {
+    float* st = ring + (it % kStages) * P::kStage;
+    const int k0 = it * kKeys;
+    copy_tile_f32<kKeys, kDhPad, kLd, P::kThreads>(st, kb, a.ks[1], k0, tk,
+                                                  dh, vec);
+    copy_tile_f32<kKeys, kDhPad, kLd, P::kThreads>(st + P::kTileK, vb,
+                                                  a.vs[1], k0, tk, dh, vec);
+    if (bias_rows)
+      copy_bias_tile<P::kRows, kKeys, P::kThreads, P::kBiasLd>(
+          bias_ring + (it % kStages) * P::kBiasStage, biasb, a.sq, q0, tq,
+          k0, tk, a.bias_vec != 0);
+  };
+  load_stage(0);
+  cp_async_commit();
+
+  // accumulator rows (query rows) of this thread
+  const int rrow[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  float l2row[2], drow[2];  // lse * log2(e), delta
+  uint32_t hrow[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rrow[i];
+    l2row[i] = r < tq ? a.lse[bb * a.ls[0] + r * a.ls[1] + hh * a.ls[2]] *
+                            kLog2e
+                      : 0.f;
+    drow[i] = r < tq ? a.delta[((long long)bb * tq + r) * nh + hh] : 0.f;
+    if (kDrop) hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, r);
+  }
+  const float scale = a.scale, scale2 = a.scale * kLog2e;
+  const float* qw = Qs + 16 * warp * kLd;  // this warp's rows of Q, dout
+  const float* dow = dOs + 16 * warp * kLd;
+
+  float dq[kO][4];
+#pragma unroll
+  for (int o = 0; o < kO; ++o)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[o][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // every tile of the walk holds a live score (n_tiles stops there)
+    const int k0 = it * kKeys;
+    const float* Ks = ring + (it % kStages) * P::kStage;
+    const float* Vs = Ks + P::kTileK;
+    // this stage's bias tile, [row - q0][key - k0]
+    const float* Bs = bias_ring + (it % kStages) * P::kBiasStage;
+    float s[kN][4], dp[kN][4];
+    scores_3xtf32<kDhPad, kLd, true, true>(qw, dow, Ks, Vs, lane, s, dp);
+
+    // s[n][2i + j] is row rrow[i], key k0 + 8n + 2t + j
+    const bool edge = q0 + P::kRows > tq || k0 + kKeys > tk ||
+                      (kCausal && k0 + kKeys - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int key0 = k0 + 8 * n + 2 * t;
+      float bkey[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (biasb != nullptr && !bias_rows && key0 + j < tk)
+          bkey[j] = biasb[key0 + j];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rrow[i];
+        float2 brow = make_float2(bkey[0], bkey[1]);
+        if (bias_rows)
+          brow = *reinterpret_cast<const float2*>(
+              Bs + (r - q0) * P::kBiasLd + key0 - k0);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * i + j, key = key0 + j;
+          float p = 0.f;
+          if (!edge || (r < tq && key < tk && (!kCausal || key <= r)))
+            p = exp2_approx(fmaf(s[n][e], scale2,
+                                 fmaf(j ? brow.y : brow.x, kLog2e,
+                                      -l2row[i])));
+          const float m = kDrop ? drop_scale(hrow[i], key, a.drop.thresh,
+                                             a.drop.keep_scale)
+                                : 1.f;
+          dp[n][e] = p * (dp[n][e] * m - drow[i]) * scale;  // ds
+        }
+      }
+    }
+
+    // dQ += dS K over the tile's keys, each output block one chain
+    FragA fa[kN];
+#pragma unroll
+    for (int u = 0; u < kN; ++u) acc_to_a(dp[u], fa[u]);
+    product_rows<kLd, kN, kO>(fa, Ks, col0, lane, dq);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rrow[i];
+    if (r >= tq) continue;
+    float* dqr = static_cast<float*>(a.dq) + bb * a.dqs[0] + r * a.dqs[1] +
+                 hh * a.dqs[2];
+#pragma unroll
+    for (int o = 0; o < kO; ++o)
+      store_pair_f32(dqr, col0 + 8 * o + 2 * t, dh, dq[o][2 * i],
+                     dq[o][2 * i + 1], vec);
+  }
+}
+
+// One pass of a family: P::kHalves blocks for each of `tiles` tiles of
+// every (batch, head), P's shared memory.
+template <typename P>
+cudaError_t launch_pass(void (*kernel)(Args, int), const Args& a, int b,
+                        int tiles, cudaStream_t stream) {
+  const long long blocks = (long long)tiles * b * a.nh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int smem = P::smem(a.bias != nullptr && a.sq != 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned int)blocks, P::kHalves), P::kThreads, smem,
+           stream>>>(a, b);
+  return cudaGetLastError();
+}
+
 // One launch configuration of each family, for the dispatch below.
 template <int kDh, bool kDrop, bool kCausal>
-struct CudaCoreF32 {
+struct TensorCoreBf16 {
   static cudaError_t run(const Args& a, int b, int passes,
                          cudaStream_t stream) {
+    typedef PassA<kDh> A;
+    typedef PassB<kDh> B;
     cudaError_t err = cudaSuccess;
-    if (passes & 1) {
-      const size_t sa = smem_a(a.dh);
-      err = cudaFuncSetAttribute(bwd_dkdv_kernel<float, kDh, kDrop, kCausal>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)sa);
-      if (err != cudaSuccess) return err;
-      dim3 grid_a((a.tk + kBK - 1) / kBK, a.nh, b);
-      bwd_dkdv_kernel<float, kDh, kDrop, kCausal>
-          <<<grid_a, kThreadsA, sa, stream>>>(a);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    if (passes & 2) {
-      const size_t sbytes = smem_b(a.dh);
-      err = cudaFuncSetAttribute(bwd_dq_kernel<float, kDh, kDrop, kCausal>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)sbytes);
-      if (err != cudaSuccess) return err;
-      dim3 grid_b((a.tq + kBQ - 1) / kBQ, a.nh, b);
-      bwd_dq_kernel<float, kDh, kDrop, kCausal>
-          <<<grid_b, kThreadsB, sbytes, stream>>>(a);
-      err = cudaGetLastError();
-    }
+    if (passes & 1)
+      err = launch_pass<A>(bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>, a, b,
+                           (a.tk + A::kKeys - 1) / A::kKeys, stream);
+    if (err == cudaSuccess && (passes & 2))
+      err = launch_pass<B>(bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>, a, b,
+                           (a.tq + B::kRows - 1) / B::kRows, stream);
     return err;
   }
 };
 
 template <int kDh, bool kDrop, bool kCausal>
-struct TensorCoreBf16 {
+struct TensorCoreTf32 {
   static cudaError_t run(const Args& a, int b, int passes,
                          cudaStream_t stream) {
+    typedef PassA32<kDh> A;
+    typedef PassB32<kDh> B;
     cudaError_t err = cudaSuccess;
-    const long long nbh = (long long)b * a.nh;
-    const bool bias_rows = a.bias != nullptr && a.sq != 0;
-    if (passes & 1) {
-      typedef PassA<kDh> P;
-      const long long blocks = (a.tk + P::kKeys - 1) / P::kKeys * nbh;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      const int smem = P::smem(bias_rows);
-      err = cudaFuncSetAttribute(
-          bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      bwd_dkdv_wgmma_kernel<kDh, kDrop, kCausal>
-          <<<dim3((unsigned int)blocks, P::kHalves), P::kThreads, smem,
-             stream>>>(a, b);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    if (passes & 2) {
-      typedef PassB<kDh> P;
-      const long long blocks = (a.tq + P::kRows - 1) / P::kRows * nbh;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      const int smem = P::smem(bias_rows);
-      err = cudaFuncSetAttribute(
-          bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-      bwd_dq_wgmma_kernel<kDh, kDrop, kCausal>
-          <<<dim3((unsigned int)blocks, P::kHalves), P::kThreads, smem,
-             stream>>>(a, b);
-      err = cudaGetLastError();
-    }
+    if (passes & 1)
+      err = launch_pass<A>(bwd_dkdv_tf32_kernel<kDh, kDrop, kCausal>, a, b,
+                           (a.tk + A::kKeys - 1) / A::kKeys, stream);
+    if (err == cudaSuccess && (passes & 2))
+      err = launch_pass<B>(bwd_dq_tf32_kernel<kDh, kDrop, kCausal>, a, b,
+                           (a.tq + B::kRows - 1) / B::kRows, stream);
     return err;
   }
 };
@@ -968,30 +1156,15 @@ cudaError_t dispatch(const Args& a, int b, bool drop, bool causal,
                 : L<kDh, false, false>::run(a, b, passes, s);
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, int b, bool drop, bool causal, int passes,
-                   cudaStream_t stream);
-
-template <>
-cudaError_t launch<float>(const Args& a, int b, bool drop, bool causal,
-                          int passes, cudaStream_t s) {
-  if (a.dh <= 64) return dispatch<CudaCoreF32, 64>(a, b, drop, causal, passes, s);
-  if (a.dh <= 128)
-    return dispatch<CudaCoreF32, 128>(a, b, drop, causal, passes, s);
-  return dispatch<CudaCoreF32, kMaxDh>(a, b, drop, causal, passes, s);
+template <template <int, bool, bool> class L>
+cudaError_t dispatch_dh(const Args& a, int b, bool drop, bool causal,
+                        int passes, cudaStream_t s) {
+  if (a.dh <= 64) return dispatch<L, 64>(a, b, drop, causal, passes, s);
+  if (a.dh <= 128) return dispatch<L, 128>(a, b, drop, causal, passes, s);
+  return dispatch<L, kMaxDh>(a, b, drop, causal, passes, s);
 }
 
-template <>
-cudaError_t launch<__nv_bfloat16>(const Args& a, int b, bool drop,
-                                  bool causal, int passes, cudaStream_t s) {
-  if (a.dh <= 64)
-    return dispatch<TensorCoreBf16, 64>(a, b, drop, causal, passes, s);
-  if (a.dh <= 128)
-    return dispatch<TensorCoreBf16, 128>(a, b, drop, causal, passes, s);
-  return dispatch<TensorCoreBf16, kMaxDh>(a, b, drop, causal, passes, s);
-}
-
-template <typename T>
+template <typename T, template <int, bool, bool> class L>
 cudaError_t launch_all(const Args& a, int b, bool drop, bool causal,
                        int passes, cudaStream_t stream) {
   const long long lanes = (long long)b * a.tq * a.nh * kDeltaLanes;
@@ -1000,9 +1173,8 @@ cudaError_t launch_all(const Args& a, int b, bool drop, bool causal,
       a, b);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch<T>(a, b, drop, causal, passes, stream);
+  return dispatch_dh<L>(a, b, drop, causal, passes, stream);
 }
-
 
 }  // namespace
 
@@ -1016,8 +1188,8 @@ extern "C" {
 // array. With `causal`, keys past the query row are masked in-kernel.
 // `passes`: bit 1 runs pass A (dk, dv), bit 2 pass B (dq); the delta
 // pre-pass always runs. The dropout arguments are the forward's.
-// `stream` is a cudaStream_t. bf16 runs the tensor-core kernels, f32 the
-// CUDA-core ones.
+// `stream` is a cudaStream_t. bf16 runs the wgmma kernels, f32 the 3xTF32
+// ones.
 int pt_flash_attention_bthd_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* out, const void* dout, const void* lse, const void* g_lse,
@@ -1055,17 +1227,20 @@ int pt_flash_attention_bthd_bwd(
   a.sq = sq;
   a.scale = scale;
   a.drop = pt_attn::Dropout{drop_key, drop_thresh, keep_scale};
-  a.vec = dh % 8 == 0 && rows_aligned(q, a.qs) && rows_aligned(k, a.ks) &&
-          rows_aligned(v, a.vs) && rows_aligned(dout, a.dos) &&
-          rows_aligned(dq, a.dqs) && rows_aligned(dk, a.dks) &&
-          rows_aligned(dv, a.dvs);
+  const int per16 = is_bf16 ? 8 : 4;  // elements in 16 bytes
+  a.vec = dh % per16 == 0 && rows_aligned(q, a.qs, per16) &&
+          rows_aligned(k, a.ks, per16) && rows_aligned(v, a.vs, per16) &&
+          rows_aligned(dout, a.dos, per16) && rows_aligned(dq, a.dqs, per16) &&
+          rows_aligned(dk, a.dks, per16) && rows_aligned(dv, a.dvs, per16);
   a.bias_vec = reinterpret_cast<uintptr_t>(bias) % 16 == 0 && sb % 4 == 0 &&
                sh % 4 == 0 && sq % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = use_dropout != 0, cz = causal != 0;
   cudaError_t err =
-      is_bf16 ? launch_all<__nv_bfloat16>(a, b, drop, cz, passes, s)
-              : launch_all<float>(a, b, drop, cz, passes, s);
+      is_bf16
+          ? launch_all<__nv_bfloat16, TensorCoreBf16>(a, b, drop, cz, passes,
+                                                      s)
+          : launch_all<float, TensorCoreTf32>(a, b, drop, cz, passes, s);
   return (int)err;
 }
 

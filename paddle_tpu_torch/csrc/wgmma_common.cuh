@@ -391,11 +391,12 @@ __device__ __forceinline__ char* align1024(char* p) {
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
 }
 
-// 16-byte aligned base and (batch, time, head) strides in multiples of 8
-// elements: every row of the tensor starts on 16 bytes
-inline bool rows_aligned(const void* p, const long long* s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 &&
-         s[1] % 8 == 0 && s[2] % 8 == 0;
+// 16-byte aligned base and (batch, time, head) strides in multiples of
+// `per16` elements (the elements in 16 bytes: 8 bf16, 4 f32): every row of
+// the tensor starts on 16 bytes
+inline bool rows_aligned(const void* p, const long long* s, int per16 = 8) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % per16 == 0 &&
+         s[1] % per16 == 0 && s[2] % per16 == 0;
 }
 
 }  // namespace pt_wgmma

@@ -32,9 +32,12 @@ On Hopper the three kernel routes share one forward,
 ``csrc/flash_attention_bthd_bwd.cu`` (pass A: dk and dv; pass B: dq),
 whose kernels are chosen by dtype: bf16 runs them on the tensor cores
 (``wgmma``: ``fwd_wgmma_kernel``, ``bwd_dkdv_wgmma_kernel``,
-``bwd_dq_wgmma_kernel``), f32 on the CUDA cores (``fwd_kernel``,
-``fwd_decode_kernel`` and ``fwd_merge_kernel`` as ``f32_fwd_plan``
-splits the keys, ``bwd_dkdv_kernel``, ``bwd_dq_kernel``). Both take (batch, time, head) element
+``bwd_dq_wgmma_kernel``); f32 runs its forward on the CUDA cores
+(``fwd_kernel``, ``fwd_decode_kernel`` and ``fwd_merge_kernel`` as
+``f32_fwd_plan`` splits the keys) and its backward on the tensor cores in
+3xTF32, f32-accurate (``bwd_dkdv_tf32_kernel``, ``bwd_dq_tf32_kernel``:
+``mma.sync`` TF32 products of operands split into two TF32 terms). Both
+take (batch, time, head) element
 strides for every tensor, so BHTD tensors run with no transpose. On the
 ``kblock`` and ``bhtd`` routes causal attention is a template flag: the
 kernels mask ``q_pos >= k_pos`` themselves and skip every tile with no

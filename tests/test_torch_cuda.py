@@ -289,15 +289,16 @@ def test_causal_long_call_builds_no_score_sized_tensor(cuda):
     assert rise < 32 * 2**20, rise
 
 
-# --- bf16 backward on the tensor cores (bwd_dkdv_wgmma_kernel, pass A;
-# bwd_dq_wgmma_kernel, pass B); f32 keeps the CUDA-core kernels ---
+# --- the backward on the tensor cores: bf16 on wgmma
+# (bwd_dkdv_wgmma_kernel, pass A; bwd_dq_wgmma_kernel, pass B), f32 in
+# 3xTF32 on mma.sync (bwd_dkdv_tf32_kernel, bwd_dq_tf32_kernel) ---
 
 
-def _bf16_bwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
-              bhtd=False, g_lse=False):
-    """(kernel grads, plain grads, launches on each route) of one bf16
-    backward call, fed the kernel forward's (out, lse)."""
-    q, k, v, bias, _, dout = _long_inputs(cuda, torch.bfloat16, b, tq, tk,
+def _bwd_vs_plain(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
+              bhtd=False, g_lse=False, dtype=torch.bfloat16):
+    """(kernel grads, plain grads, launches on each route) of one backward
+    call (bf16 unless ``dtype``), fed the kernel forward's (out, lse)."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, dtype, b, tq, tk,
                                           kind, bhtd=bhtd, h=h, dh=dh)
     seed = 23 if p_drop else None
     if bhtd:
@@ -340,8 +341,8 @@ def test_bf16_bwd_head_widths(cuda, dh):
     64-column tiles (two warpgroups), 72 and 128 in the 128-column ones,
     136 and 256 in the 256-column ones (two blocks a tile, each writing
     128 columns), the columns past dh zero-padded."""
-    grads, refs, counts = _bf16_bwd(cuda, 2, 128, 128, 4, dh, "pad",
-                                    p_drop=0.1)
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 128, 128, 4, dh, "pad",
+                                        p_drop=0.1)
     assert counts[("small", "bwd")] == 1
     _assert_bf16_grads(grads, refs)
 
@@ -351,8 +352,8 @@ def test_bf16_bwd_ragged(cuda, dh, causal):
     """Ragged tq = 100 and tk = 77 are masked in both passes (causal folded
     into the bias, whose rows then stream through shared memory); dh = 20
     copies rows that are not 16-byte aligned element by element."""
-    grads, refs, counts = _bf16_bwd(cuda, 2, 100, 77, 8, dh, "none",
-                                    causal=causal)
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 100, 77, 8, dh, "none",
+                                        causal=causal)
     assert counts[("small", "bwd")] == 1
     _assert_bf16_grads(grads, refs)
 
@@ -361,8 +362,8 @@ def test_bf16_bwd_ragged(cuda, dh, causal):
     ("kblock", 256, 1024, 0.1), ("bhtd", 1024, 2048, 0.0),
 ])
 def test_bf16_bwd_causal_in_kernel(cuda, route, tq, tk, p_drop):
-    grads, refs, counts = _bf16_bwd(cuda, 1, tq, tk, 8, 64, "causal_pad",
-                                    p_drop=p_drop, causal=True)
+    grads, refs, counts = _bwd_vs_plain(cuda, 1, tq, tk, 8, 64, "causal_pad",
+                                        p_drop=p_drop, causal=True)
     assert counts[(route, "bwd")] == 1
     _assert_bf16_grads(grads, refs)
 
@@ -370,16 +371,16 @@ def test_bf16_bwd_causal_in_kernel(cuda, route, tq, tk, p_drop):
 @pytest.mark.parametrize("tq,tk,route", [(256, 256, "small"),
                                          (1024, 1024, "kblock")])
 def test_bf16_bwd_dropout(cuda, tq, tk, route):
-    grads, refs, counts = _bf16_bwd(cuda, 2, tq, tk, 8, 64, "pad",
-                                    p_drop=0.1)
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, tq, tk, 8, 64, "pad",
+                                        p_drop=0.1)
     assert counts[(route, "bwd")] == 1
     _assert_bf16_grads(grads, refs)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_bwd_bhtd_layout_with_lse_cotangent(cuda, causal):
-    grads, refs, counts = _bf16_bwd(cuda, 2, 512, 512, 8, 64, "pad",
-                                    causal=causal, bhtd=True, g_lse=True)
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 512, 512, 8, 64, "pad",
+                                        causal=causal, bhtd=True, g_lse=True)
     assert counts[("bhtd", "bwd")] == 1
     _assert_bf16_grads(grads, refs)
 
@@ -403,7 +404,8 @@ def test_bf16_bwd_bit_equal_over_two_launches(cuda, tq, kind, p_drop,
 
 
 def test_bwd_kernel_family_follows_the_dtype(cuda):
-    """bf16 launches the wgmma kernels, f32 the CUDA-core ones."""
+    """bf16 launches the wgmma kernels, f32 the 3xTF32 ones, and neither
+    launches any other backward pass."""
     from torch.profiler import ProfilerActivity, profile
 
     names = {}
@@ -416,10 +418,10 @@ def test_bwd_kernel_family_follows_the_dtype(cuda):
             fa.flash_attention_bthd_bwd(q, k, v, bias, None, out, lse, dout)
             torch.cuda.synchronize()
         names[dtype] = " ".join(e.key for e in prof.key_averages())
-    for dtype, wgmma in ((torch.bfloat16, True), (torch.float32, False)):
+    for dtype, family in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32")):
         for kernel in ("bwd_dkdv", "bwd_dq"):
-            assert (f"{kernel}_wgmma_kernel" in names[dtype]) == wgmma
-            assert (f"{kernel}_kernel<" in names[dtype]) == (not wgmma)
+            assert f"{kernel}_{family}_kernel<" in names[dtype]
+            assert names[dtype].count(f"{kernel}_") == 1, names[dtype]
 
 
 def test_bwd_refuses_what_the_kernel_does_not_take(cuda):
@@ -441,6 +443,106 @@ def test_bwd_refuses_what_the_kernel_does_not_take(cuda):
                                     torch.zeros(1, 256, 2, 1, device=cuda),
                                     q)
     assert fa.launches == fa.bwd_launches == fa.dense_calls == 0
+
+
+def _assert_f32_grads(grads, refs):
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        assert _rel(got, ref) <= 1e-5, _rel(got, ref)
+
+
+@pytest.mark.parametrize("dh", [20, 30, 32, 64, 72, 128, 136, 256])
+def test_f32_bwd_head_widths(cuda, dh):
+    """Every head width runs in f32 on the 3xTF32 kernels within the f32
+    limit: dh <= 64 in the 64-column tiles, 72 and 128 in the 128-column
+    ones, 136 and 256 in the 256-column ones (two blocks a tile, each
+    writing 128 columns), the columns past dh zero-padded; dh 30 rows are
+    not 16-byte aligned and are copied element by element."""
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 128, 128, 4, dh, "pad",
+                                        p_drop=0.1, dtype=torch.float32)
+    assert counts[("small", "bwd")] == 1
+    _assert_f32_grads(grads, refs)
+
+
+@pytest.mark.parametrize("dh,causal", [(64, False), (64, True), (20, True)])
+def test_f32_bwd_ragged(cuda, dh, causal):
+    """Ragged tq = 100 and tk = 77 in f32, the causal mask folded into a
+    bias whose rows stream through shared memory."""
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 100, 77, 8, dh, "none",
+                                        causal=causal, dtype=torch.float32)
+    assert counts[("small", "bwd")] == 1
+    _assert_f32_grads(grads, refs)
+
+
+@pytest.mark.parametrize("route,tq,tk,p_drop", [
+    ("kblock", 256, 1024, 0.1), ("kblock", 1024, 1024, 0.0),
+    ("bhtd", 1024, 2048, 0.0), ("bhtd", 1280, 1280, 0.1),
+])
+def test_f32_bwd_causal_in_kernel(cuda, route, tq, tk, p_drop):
+    grads, refs, counts = _bwd_vs_plain(cuda, 1, tq, tk, 8, 64, "causal_pad",
+                                        p_drop=p_drop, causal=True,
+                                        dtype=torch.float32)
+    assert counts[(route, "bwd")] == 1
+    _assert_f32_grads(grads, refs)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_bwd_bhtd_layout_with_lse_cotangent(cuda, causal):
+    grads, refs, counts = _bwd_vs_plain(cuda, 2, 512, 512, 8, 64, "pad",
+                                        causal=causal, bhtd=True, g_lse=True,
+                                        dtype=torch.float32)
+    assert counts[("bhtd", "bwd")] == 1
+    _assert_f32_grads(grads, refs)
+
+
+@pytest.mark.parametrize("dh,passes", [(64, 1), (64, 2), (256, 1), (256, 2)])
+def test_f32_bwd_each_pass_alone(cuda, dh, passes):
+    """Pass A (dk, dv) or pass B (dq) launched alone writes its gradients
+    within the f32 limit and leaves the others untouched."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, torch.float32, 2, 256, 256,
+                                          "pad", h=2, dh=dh)
+    out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, 3, None, 0.1)
+    grads = [torch.zeros_like(x) for x in (q, k, v)]
+    fa._launch_bwd("small", q, k, v, bias, 3, out, lse, dout, None,
+                   1.0 / dh ** 0.5, 0.1, False, *grads, passes=passes)
+    torch.cuda.synchronize()
+    refs = fa.attention_bthd_bwd_plain(q, k, v, bias, 3, out, lse, dout,
+                                       None, 0.1)
+    for i, (got, ref) in enumerate(zip(grads, refs)):
+        if (i == 0) == (passes == 2):
+            assert _rel(got, ref) <= 1e-5, (i, _rel(got, ref))
+        else:
+            assert not got.any(), i
+
+
+@pytest.mark.parametrize("tq,kind,p_drop,causal,bhtd", [
+    (256, "pad", 0.1, False, False), (2048, "causal_pad", 0.0, True, False),
+    (512, "pad", 0.0, True, True),
+])
+def test_f32_bwd_bit_equal_over_two_launches(cuda, tq, kind, p_drop,
+                                             causal, bhtd):
+    """No atomics in f32 either: two launches on the same inputs give
+    equal bits."""
+    q, k, v, bias, _, dout = _long_inputs(cuda, torch.float32, 2, tq, tq,
+                                          kind, bhtd=bhtd)
+    seed = 29 if p_drop else None
+    if bhtd:
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, seed, None, p_drop,
+                                          causal=causal)
+        first, second = (fa.flash_attention_bwd(q, k, v, bias, seed, out, lse,
+                                                dout, None, p_drop,
+                                                causal=causal)
+                         for _ in range(2))
+    else:
+        out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                               p_drop, causal)
+        first, second = (fa.flash_attention_bthd_bwd(q, k, v, bias, seed,
+                                                     out, lse, dout, None,
+                                                     p_drop, causal)
+                         for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # --- bf16 forward on the tensor cores (fwd_wgmma_kernel); f32 keeps the
