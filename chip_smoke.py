@@ -6,7 +6,7 @@
 Phases (any failure raises and exits non-zero; no phase is caught):
 
 1. the card: name and power limit (nvidia-smi), torch's device name;
-2. build every CUDA source in csrc/ (five sources, one nvcc each, all
+2. build every CUDA source in csrc/ (six sources, one nvcc each, all
    started together) and print ptxas' register / shared-memory report and
    each build's seconds (or that it was cached);
 3. hold each kernel against its plain PyTorch version on the card, with
@@ -26,12 +26,15 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the trace, with the names of its kernels; each bound on the dtype's
    fastest route, f32 on the CUDA cores or in 3xTF32), a
    causal forward and backward at t = 8192 whose memory rise shows no
-   [tq, tk] tensor, and the dropout-mask dump, bit for bit; then (3c) the three kernel
+   [tq, tk] tensor, and the dropout-mask dump, bit for bit, beside the
+   device time of a fill of the same bytes; then (3c) the three kernel
    studies of paddle_tpu_torch/benchmarks: the combined 1x1-conv backward
    at ResNet-50's three expand-conv shapes (batch 128), the grouped 3x3
-   convolution at SE-ResNeXt-50's two c1 shapes, and the attention
-   ablation in all four variants at h8/dh64 and two at h4/dh128, each
-   against its plain version and timed beside its library call;
+   convolution at SE-ResNeXt-50's four stride-1 c1 shapes (4, 8, 16 and
+   32 channels a group), and the attention ablation in all four variants
+   at h8/dh64 and two at h4/dh128, each against its plain version and
+   timed beside its library call (by events, and from the trace with the
+   library's kernel names);
 4. serve Transformer-base (base() widths, random weights from a seeded
    generator) through ServingEngine on CUDAPlace(0): 16 requests on 8
    slots at src_len = max_len = 128, then (4b) 8 requests on 4 slots at
@@ -672,12 +675,17 @@ def check_mask_dump(fa, b, tq, h, tk, p_drop):
     sd = (p_drop * (1 - p_drop) / n) ** 0.5
     assert abs(keep - (1 - p_drop)) <= 4 * sd, (keep, 1 - p_drop, sd)
     bound = _bound(0.0, 4.0 * n, "float32")
+
+    def fill():  # a yardstick of the write, not the function
+        return torch.empty((b, tq, h, tk), device=dev).fill_(1.0)
+
     return {
         "case": "mask dump", "shape": [b, tq, h, tk], "p_drop": p_drop,
         "mismatched": mismatched, "keep_rate": keep,
-        "ms": _time_ms(kernel, 20), "device_ms": _device_ms(kernel,
-                                                            "mask_kernel"),
-        "plain_ms": _time_ms(plain, 20), "library_ms": None, **bound,
+        "ms": _time_ms(kernel, 20),
+        "device_ms": _device_ms(kernel, "dropout_mask_kernel", per_call=1),
+        "plain_ms": _time_ms(plain, 20), "library_ms": None,
+        "write_floor_ms": _device_ms(fill), **bound,
     }
 
 
@@ -949,18 +957,28 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
 def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
                nbytes, iters, per_call=1):
     """Times of one kernel study case: events, profiler, plain version,
-    library call (None when there is none), and the bound at the bf16
-    tensor-core peak."""
-    return {
+    library call by events and from the trace (every kernel it launches,
+    with their names; None when there is no library call), the kernel's
+    device ms over the library's, and the bound at the bf16 tensor-core
+    peak."""
+    row = {
         "case": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
         "ms": _time_ms(launch, iters, warmup=3),
         "device_ms": _device_ms(launch, match, iters=min(iters, 10),
                                 per_call=per_call),
         "plain_ms": _time_ms(plain, 3, warmup=1),
-        "library_ms": (None if library is None
-                       else _time_ms(library, iters, warmup=3)),
+        "library_ms": None, "library_device_ms": None,
+        "library_kernels": None, "over_library": None,
         **_bound(flops, nbytes, "bfloat16"),
     }
+    if library is not None:
+        row["library_ms"] = _time_ms(library, iters, warmup=3)
+        lib_times = _device_times(library, min(iters, 10))
+        row["library_device_ms"] = sum(lib_times.values())
+        row["library_kernels"] = [[k[:100], t] for k, t in sorted(
+            lib_times.items(), key=lambda kv: -kv[1])]
+        row["over_library"] = row["device_ms"] / row["library_device_ms"]
+    return row
 
 
 def check_conv1x1_bwd(cb, n, ci, co):
@@ -1013,8 +1031,9 @@ def check_conv1x1_bwd(cb, n, ci, co):
 
 def check_grouped_conv(gc, tag, n, h, w, c):
     """Phase 3c: the grouped 3x3 convolution kernel against its plain
-    version at one shape. Bound: x read once, y written once, the weights
-    read once; 2*9*cg operations an output."""
+    version at one shape, and a second launch's bits against the first's.
+    Bound: x read once, y written once, the weights read once; 2*9*cg
+    operations an output."""
     import torch
 
     x, wg = gc.make_inputs(n, h, w, c, seed=SEED, device="cuda")
@@ -1030,12 +1049,19 @@ def check_grouped_conv(gc, tag, n, h, w, c):
     tol = TOL_BF16_ULP_REL * ref.float().abs().max().item()
     assert err <= tol, f"grouped_conv {tag}: err {err} (tol {tol})"
     del ref
-    return _study_row(
+    assert torch.equal(y, gc.grouped_conv(x, wg, gc.GROUPS)), tag
+    row = _study_row(
         f"grouped_conv {tag}", (n, h, w, c),
         lambda: gc.grouped_conv(x, wg, gc.GROUPS),
         lambda: gc.grouped_conv_plain(x, wg, gc.GROUPS),
-        lambda: gc.conv_ref(x, wg, gc.GROUPS), "grouped_conv", err, tol,
-        18.0 * cg * n * h * w * c, 2 * (2 * n * h * w * c + 9 * cg * c), 20)
+        lambda: gc.conv_ref(x, wg, gc.GROUPS), "grouped_conv_mma_kernel",
+        err, tol, 18.0 * cg * n * h * w * c,
+        2 * (2 * n * h * w * c + 9 * cg * c), 20)
+    row["cg"], row["bit_equal"] = cg, True
+    row["plan"] = gc.plan(
+        n, h, w, c, cg,
+        torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
+    return row
 
 
 def check_attn_ablate(aa, name, b, h, t, dh, variant):
@@ -1448,8 +1474,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build every kernel source, one nvcc each, all started together
-    sources = [fa._FWD_SOURCE, fa._BWD_SOURCE, cb.SOURCE, gc.SOURCE,
-               aa.SOURCE]
+    sources = [fa._FWD_SOURCE, fa._BWD_SOURCE, fa._MASK_SOURCE, cb.SOURCE,
+               gc.SOURCE, aa.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(kernels.build, sources))
     for source, built in zip(sources, builds):
@@ -1690,7 +1716,8 @@ def main() -> int:
             _SRC_BWD, f"{_TPU_FA}:233", vs_cpu[1280]["launches"],
             bh_passes_f32["pass_a"], bh_passes_f32["pass_a"]["max_abs_err"]),
         _kernel_entry(
-            "dropout_keep_mask", _SRC_FWD,
+            "dropout_keep_mask (dropout_mask_kernel)",
+            "paddle_tpu_torch/csrc/dropout_mask.cu",
             "tests/test_flash_attention_tpu.py:26", mask_launches, mask,
             0.0),
         _kernel_entry(
@@ -1736,7 +1763,8 @@ def main() -> int:
             "benchmarks/conv_bwd_pallas.py:80", study_launches["conv_bwd"],
             conv_rows[0], conv_rows),
         _study_entry(
-            "grouped_conv", "paddle_tpu_torch/csrc/grouped_conv.cu",
+            "grouped_conv (grouped_conv_mma_kernel, mma.sync; s0-s3)",
+            "paddle_tpu_torch/csrc/grouped_conv.cu",
             "benchmarks/grouped_conv_pallas.py:42",
             study_launches["grouped_conv"], gconv_rows[0], gconv_rows),
     ]}

@@ -1,6 +1,6 @@
 // Single-pass attention forward for Hopper (sm_90a), with an optional
-// in-kernel causal mask and in-kernel dropout; and the dump of its
-// dropout mask.
+// in-kernel causal mask and in-kernel dropout (csrc/dropout_mask.cu dumps
+// its dropout mask).
 //
 // Two kernels, chosen by dtype, replace the TPU's forward kernels
 // (paddle_tpu/parallel/flash_attention.py), one per route of
@@ -1082,22 +1082,6 @@ cudaError_t launch(const FwdArgs& a, int b, bool drop, bool causal,
   return dispatch<L, kMaxDh>(a, b, drop, causal, s);
 }
 
-// The dropout mask as the attention kernels apply it: out[b, q, h, j] =
-// keep_scale where kept, else 0 (f32, contiguous [b, tq, h, tk]).
-__global__ void mask_kernel(float* __restrict__ out, int tq, int nh, int tk,
-                            long long n, Dropout drop) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int col = (int)(i % tk);
-  const long long rest = i / tk;
-  const int hh = (int)(rest % nh);
-  const long long bq = rest / nh;
-  const int qr = (int)(bq % tq);
-  const int bb = (int)(bq / tq);
-  const uint32_t hrow = drop_row_hash(drop.key, bb * nh + hh, qr);
-  out[i] = drop_scale(hrow, col, drop.thresh, drop.keep_scale);
-}
-
 }  // namespace
 
 extern "C" {
@@ -1174,22 +1158,6 @@ int pt_flash_attention_bthd_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = is_bf16 ? launch<TensorCoreBf16>(a, b, drop, cz, s)
                             : launch<CudaCoreF32>(a, b, drop, cz, s);
   return (int)err;
-}
-
-// Writes the scaled keep mask of a [b, tq, h, tk] attention into `out`
-// (f32, contiguous [b, tq, h, tk]).
-int pt_dropout_keep_mask(void* out, int b, int tq, int h, int tk,
-                         unsigned int drop_key, unsigned int drop_thresh,
-                         float keep_scale, void* stream) {
-  if (b < 1 || tq < 1 || h < 1 || tk < 1) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)b * tq * h * tk;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  mask_kernel<<<(unsigned int)blocks, threads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), tq, h, tk, n,
-      pt_attn::Dropout{drop_key, drop_thresh, keep_scale});
-  return (int)cudaGetLastError();
 }
 
 const char* pt_cuda_error_string(int err) {

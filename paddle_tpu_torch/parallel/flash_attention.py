@@ -51,10 +51,10 @@ its kernel or raises.
 
 Dropout (``p_drop > 0``, with a ``seed``) is applied inside the kernels
 to the normalized probabilities that feed the output; the keep mask is a
-hash of (seed, batch, head, query row, key column) that
-``dropout_keep_mask_plain`` rebuilds bit for bit in PyTorch integer ops
-and ``dropout_keep_mask`` dumps from the device (csrc/
-attention_common.cuh). Its bits differ from the TPU's.
+hash of (seed, batch, head, query row, key column) (csrc/
+attention_common.cuh) that ``dropout_keep_mask_plain`` rebuilds bit for
+bit in PyTorch integer ops and ``dropout_keep_mask`` dumps from the
+device (csrc/dropout_mask.cu). Its bits differ from the TPU's.
 """
 
 from __future__ import annotations
@@ -100,6 +100,7 @@ dense_calls = 0     # calls on the dense route (plain composition)
 
 _FWD_SOURCE = "flash_attention_bthd_fwd"
 _BWD_SOURCE = "flash_attention_bthd_bwd"
+_MASK_SOURCE = "dropout_mask"
 
 _U32 = 0xFFFFFFFF
 
@@ -234,12 +235,22 @@ def dropout_keep_mask_plain(seed, b, h, tq, tk, p_drop, device="cpu"):
     return torch.where(bits < thresh, keep_scale, 0.0).to(torch.float32)
 
 
+def mask_run_split(start: int, tk: int):
+    """How the dump kernel (csrc/dropout_mask.cu) writes one (b, q, h)
+    run of tk floats that starts at element ``start`` of the output:
+    (head, nvec, tail): ``head`` floats one by one up to the first 16-byte
+    boundary, ``nvec`` aligned float4 stores, ``tail`` floats one by
+    one."""
+    head = min(tk, -start % 4)
+    nvec = (tk - head) // 4
+    return head, nvec, tk - head - 4 * nvec
+
+
 def dropout_keep_mask(seed, b, h, tq, tk, p_drop, device):
     """The scaled keep mask as the attention kernels apply it, [b, tq,
     h, tk] f32 (the layout of the JAX package's mask dump). On a CUDA
-    device it is written by the dump kernel of
-    csrc/flash_attention_bthd_fwd.cu; on the CPU it is the plain
-    version."""
+    device it is written by the dump kernel of csrc/dropout_mask.cu; on
+    the CPU it is the plain version."""
     global mask_launches
     device = torch.device(device)
     if device.type == "cpu":
@@ -249,12 +260,16 @@ def dropout_keep_mask(seed, b, h, tq, tk, p_drop, device):
         raise NotImplementedError(f"dropout_keep_mask: device {device}")
     if not 0.0 < p_drop < 1.0:
         raise ValueError(f"dropout_keep_mask: p_drop={p_drop}")
+    if b > 65535:
+        raise NotImplementedError(f"dropout_keep_mask: b={b}; the kernel "
+                                  f"takes b <= 65535")
     key, thresh, keep_scale = _dropout_params(seed, p_drop)
     out = torch.empty((b, tq, h, tk), dtype=torch.float32, device=device)
-    entry = kernels.function(_FWD_SOURCE, "pt_dropout_keep_mask", _MASK_ARGS)
+    entry = kernels.function(_MASK_SOURCE, "pt_dropout_keep_mask",
+                             _MASK_ARGS)
     rc = entry(out.data_ptr(), b, tq, h, tk, key, thresh, keep_scale,
                torch.cuda.current_stream(device).cuda_stream)
-    kernels.check(_FWD_SOURCE, rc, "dropout_keep_mask")
+    kernels.check(_MASK_SOURCE, rc, "dropout_keep_mask")
     mask_launches += 1
     return out
 

@@ -145,12 +145,18 @@ def test_bwd_kernel_head_widths_and_ragged(cuda, dh, tq, tk):
         assert rel <= 1e-5, rel
 
 
-def test_mask_dump_equals_plain_mask(cuda):
+@pytest.mark.parametrize("b,h,tq,tk", [
+    (3, 5, 256, 200),
+    (2, 8, 7, 1),     # tk = 1: every run is one scalar
+    (2, 3, 9, 77),    # h * tk odd: runs start at every 16-byte offset
+    (1, 5, 3, 3),
+])
+def test_mask_dump_equals_plain_mask(cuda, b, h, tq, tk):
     before = fa.mask_launches
-    got = fa.dropout_keep_mask(123, 3, 5, 256, 200, 0.1, cuda)
+    got = fa.dropout_keep_mask(123, b, h, tq, tk, 0.1, cuda)
     torch.cuda.synchronize()
     assert fa.mask_launches == before + 1
-    ref = fa.dropout_keep_mask_plain(123, 3, 5, 256, 200, 0.1, cuda)
+    ref = fa.dropout_keep_mask_plain(123, b, h, tq, tk, 0.1, cuda)
     assert torch.equal(got, ref.permute(0, 2, 1, 3))
 
 
@@ -828,6 +834,15 @@ def test_conv1x1_bwd_refuses_what_the_kernel_does_not_take(cuda):
     (3, 13, 17, 96, 12),    # ragged H, W and a last chunk of 32 channels
     (2, 5, 30, 64, 16),
     (1, 1, 1, 8, 2),        # a single pixel: every tap but one is padding
+    (2, 14, 14, 512, 32),   # 16 channels a group (dense B tiles)
+    (2, 7, 7, 1024, 32),    # 32 channels a group: two k-steps a tap
+    (2, 9, 11, 256, 4),     # 64 channels a group: B tiles read a k-step
+    (1, 6, 5, 256, 2),      # 128 channels a group
+    (3, 13, 17, 96, 6),     # ragged at 16 channels a group
+    (2, 30, 5, 64, 4),
+    (1, 1, 30, 32, 2),
+    (2, 5, 5, 128, 64),     # 2 channels a group
+    (128, 7, 7, 128, 128),  # 1 channel a group
 ])
 def test_grouped_conv_kernel_matches_plain_and_library(cuda, n, h, w, c,
                                                        groups):
@@ -836,21 +851,25 @@ def test_grouped_conv_kernel_matches_plain_and_library(cuda, n, h, w, c,
     x, wg = gc.make_inputs(n, h, w, c, groups=groups, seed=1, device=cuda)
     before = gc.launches
     y = gc.grouped_conv(x, wg, groups)
+    y2 = gc.grouped_conv(x, wg, groups)
     torch.cuda.synchronize()
-    assert gc.launches == before + 1
+    assert gc.launches == before + 2
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
     for ref in (gc.grouped_conv_plain(x, wg, groups),
                 gc.conv_ref(x, wg, groups)):
         assert (y.float() - ref.float()).abs().max() <= \
             _ULP * ref.float().abs().max()
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(y, y2)
 
 
 def test_grouped_conv_refuses_what_the_kernel_does_not_take(cuda):
     from paddle_tpu_torch.benchmarks import grouped_conv as gc
 
-    x, wg = gc.make_inputs(1, 4, 4, 32, groups=2, device=cuda)  # cg = 16
-    with pytest.raises(NotImplementedError, match="channels a group"):
-        gc.grouped_conv(x, wg, 2)
+    # cg = 12 divides no 128: the block-diagonal packing cannot take it
+    x, wg = gc.make_inputs(1, 4, 4, 96, groups=8, device=cuda)
+    with pytest.raises(NotImplementedError, match="divides 128"):
+        gc.grouped_conv(x, wg, 8)
     x, wg = gc.make_inputs(1, 4, 4, 32, groups=8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         gc.grouped_conv(x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3),
