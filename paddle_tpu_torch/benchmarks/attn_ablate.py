@@ -30,9 +30,8 @@ SOURCE = "attn_ablate"
 
 VARIANTS = ("matmul-floor", "full", "no-rowmax", "bf16-exp")
 
-# Kernel launches made by the forwards of ``make_fwd`` (one per call on a
-# CUDA tensor).
-launches = 0
+# Kernel launches made by the forwards of ``make_fwd``:
+# kernels.launch_counts[SOURCE], one per call on a CUDA tensor.
 
 # the lowest finite f32: the running max starts here
 _NEG_INF = float(np.finfo(np.float32).min)
@@ -99,7 +98,6 @@ def _check(q, k, v, variant, b, h, t, dh, bk):
 
 
 def _launch(q, k, v, variant, bk):
-    global launches
     fn = "attn_ablate"
     b, h, t, dh = q.shape
     if dh > 128 or bk % 64 or bk > _MAX_BK:
@@ -120,7 +118,7 @@ def _launch(q, k, v, variant, bk):
                float(1.0 / np.sqrt(dh)),
                torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(SOURCE, rc, f"{fn}[{variant}]")
-    launches += 1
+    kernels.count(SOURCE)
     return out
 
 

@@ -24,9 +24,9 @@ from paddle_tpu_torch import kernels
 
 SOURCE = "conv1x1_bwd"
 
-# Kernel launches made by ``combined_conv1x1_bwd`` (one per call on a CUDA
-# tensor: the main kernel and its reduction are one launch of the wrapper).
-launches = 0
+# Kernel launches made by ``combined_conv1x1_bwd``:
+# kernels.launch_counts[SOURCE], one per call on a CUDA tensor (the main
+# kernel and its reduction are one launch of the wrapper).
 
 # ResNet-50's expand convolutions at batch 128: (n, ci, co)
 SHAPES = ((128 * 56 * 56, 64, 256),
@@ -103,7 +103,6 @@ def combined_conv1x1_bwd(x, dy, w):
     dW [ci, co] f32). CUDA tensors launch the kernel (contiguous inputs,
     ci and co multiples of 16, co <= 1024; any n, the ragged last tile is
     masked) or raise; CPU tensors take the plain version."""
-    global launches
     n, ci, co = _check(x, dy, w)
     if not x.is_cuda:
         return combined_conv1x1_bwd_plain(x, dy, w)
@@ -130,7 +129,7 @@ def combined_conv1x1_bwd(x, dy, w):
                co_split, parts, tiles_per_part,
                torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(SOURCE, rc, fn)
-    launches += 1
+    kernels.count(SOURCE)
     return dx, dw
 
 

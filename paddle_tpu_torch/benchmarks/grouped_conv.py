@@ -30,8 +30,8 @@ from paddle_tpu_torch import kernels
 
 SOURCE = "grouped_conv"
 
-# Kernel launches made by ``grouped_conv`` (one per call on a CUDA tensor).
-launches = 0
+# Kernel launches made by ``grouped_conv``: kernels.launch_counts[SOURCE],
+# one per call on a CUDA tensor.
 
 GROUPS = 32
 # SE-ResNeXt-50's stride-1 c1 convolutions of its four stages at batch
@@ -183,7 +183,6 @@ def grouped_conv(x, wg, groups=GROUPS):
     bf16. CUDA tensors launch the kernel (contiguous inputs, cg = C /
     groups dividing 128, C a multiple of 8; any N, H and W whose band
     fits shared memory) or raise; CPU tensors take the plain version."""
-    global launches
     cg = _check(x, wg, groups)
     if not x.is_cuda:
         return grouped_conv_plain(x, wg, groups)
@@ -210,7 +209,7 @@ def grouped_conv(x, wg, groups=GROUPS):
                p.rows, p.blocks, p.stages,
                torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(SOURCE, rc, fn)
-    launches += 1
+    kernels.count(SOURCE)
     return y
 
 

@@ -20,6 +20,7 @@ Grad op desc convention (produced by backward.append_backward):
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List
 
 import torch
@@ -28,6 +29,16 @@ from paddle_tpu_torch.core.registry import OpDef
 
 GRAD_SLOT_PREFIX = "GRAD::"
 _GRAD_META_ATTRS = ("fwd_input_slots", "fwd_output_slots", "forward_op_idx")
+# the profiler range around a derived grad op's re-run of its forward
+# (opened only while a profile is taken: a range costs ~10 us of host
+# time, the test 0.2)
+RERUN_RANGE = "derived_grad_forward_rerun"
+
+
+def _rerun_range():
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(RERUN_RANGE)
+    return contextlib.nullcontext()
 
 
 def _floatp(x) -> bool:
@@ -38,13 +49,15 @@ def make_grad_compute(fwd: OpDef):
     """Build the compute fn of the derived grad op of ``fwd``."""
 
     def grad_compute(ins: Dict[str, List[Any]], attrs: Dict[str, Any],
-                     device, generator=None):
+                     device, seed=None, generator=None):
         in_slots = list(attrs["fwd_input_slots"])
         out_slots = list(attrs["fwd_output_slots"])
         fwd_attrs = {k: v for k, v in attrs.items()
                      if k not in _GRAD_META_ATTRS}
         kwargs = {"device": device}
         if fwd.needs_rng:
+            kwargs["seed"] = seed
+        if fwd.host_rng:
             kwargs["generator"] = generator
         fwd_ins = {s: list(ins.get(s, [])) for s in in_slots}
 
@@ -63,7 +76,8 @@ def make_grad_compute(fwd: OpDef):
             merged = {s: list(v) for s, v in fwd_ins.items()}
             for (s, i), p in zip(diff_keys, primals):
                 merged[s][i] = p
-            outs = fwd.compute(merged, fwd_attrs, **kwargs)
+            with _rerun_range():
+                outs = fwd.compute(merged, fwd_attrs, **kwargs)
             # An output the program supplies no gradient for has a zero
             # cotangent, which adds nothing to the product: leave it out.
             ys, cots = [], []

@@ -1,13 +1,18 @@
 """The op-list interpreter: runs a block's ops eagerly, in order, against
 an environment (name -> tensor). Each op's compute is called with the
-run's ``torch.device`` and, for random ops, a ``torch.Generator`` of its
-own.
+run's ``torch.device`` and, for random ops, a seed (core/rng.py).
 
-Randomness: a run draws one base seed (executor.py); a random op's
-generator is seeded with ``op_seed(base, forward_op_idx or its index)``,
-the counterpart of the JAX package's ``fold_in(key, forward_op_idx)``.
-A grad op carries its forward's index, so it replays the forward's seed
-(the attention backward regenerates the forward's dropout mask).
+Randomness: a run has one step seed (executor.py), held in a 0-d int64
+device tensor, the run's seed buffer. A random op (``needs_rng``)
+receives ``rng.SeedHandle(buffer, forward_op_idx or its index)``; its op
+seed is ``rng.mix64(step seed, index)``, the counterpart of the JAX
+package's ``fold_in(key, forward_op_idx)``, and is mixed on the device
+(the kernels' prologue, or tensor ops), so the same Python runs eagerly
+and inside a CUDA graph. A grad op carries its forward's index, so it
+replays the forward's seed (the attention backward regenerates the
+forward's dropout mask). A ``host_rng`` op (a startup program's random
+fill) instead receives a ``torch.Generator`` seeded on the host with the
+same op seed, from ``host_seed``.
 
 AMP (bf16 activation stream) casting is applied here, with the JAX
 package's op sets.
@@ -19,7 +24,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from paddle_tpu_torch.core import autodiff
+from paddle_tpu_torch.core import autodiff, rng
 from paddle_tpu_torch.core.registry import (
     GRAD_OP_SUFFIX,
     OpDef,
@@ -63,18 +68,6 @@ AMP_FLOW_OP_TYPES = {
 # Slots that stay f32 under AMP (saved statistics, not streams).
 AMP_KEEP_F32_SLOTS = frozenset({"Lse", "GRAD::Lse"})
 
-_MASK64 = (1 << 64) - 1
-
-
-def op_seed(base: int, idx: int) -> int:
-    """A 63-bit seed for op ``idx`` of a run whose base seed is ``base``
-    (splitmix64 of their combination)."""
-    z = (base + (idx + 1) * 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
-
-
 def _is_f32(v):
     return isinstance(v, torch.Tensor) and v.dtype == torch.float32
 
@@ -113,6 +106,7 @@ def resolve_op_def(op_type: str) -> OpDef:
                 type=op_type,
                 compute=autodiff.make_grad_compute(fwd),
                 needs_rng=fwd.needs_rng,
+                host_rng=fwd.host_rng,
                 no_grad=True,
             )
     return get_op_def(op_type)
@@ -123,12 +117,16 @@ def exec_ops(
     env: Dict[str, Any],
     *,
     device: torch.device,
-    seed: Optional[int] = None,
+    seed: Optional[torch.Tensor] = None,
+    host_seed: Optional[int] = None,
     amp: bool = False,
     op_defs: Optional[List[OpDef]] = None,
 ):
     """Execute an op list against ``env`` in place; returns ``env``.
-    ``seed`` is the run's base seed (required when an op is random)."""
+    ``seed`` is the run's seed buffer (a 0-d int64 tensor on ``device``,
+    required when an op is random); ``host_seed`` the same step seed as an
+    int, required only by ``host_rng`` ops. An op that raises gets a note
+    naming its index and type."""
     if op_defs is None:
         op_defs = [resolve_op_def(op.type) for op in ops]
     gen_device = device if device.type == "cuda" else torch.device("cpu")
@@ -139,8 +137,12 @@ def exec_ops(
         }
         kwargs = {"device": device}
         if opdef.needs_rng:
+            kwargs["seed"] = rng.SeedHandle(
+                seed, op.attrs.get("forward_op_idx", idx))
+        if opdef.host_rng:
             gen = torch.Generator(device=gen_device)
-            gen.manual_seed(op_seed(seed, op.attrs.get("forward_op_idx", idx)))
+            gen.manual_seed(rng.mix64(host_seed,
+                                      op.attrs.get("forward_op_idx", idx)))
             kwargs["generator"] = gen
         if amp:
             base_type = (op.type[: -len(GRAD_OP_SUFFIX)]
@@ -149,7 +151,11 @@ def exec_ops(
                 ins = _amp_cast_ins(ins)
             elif base_type in AMP_FLOW_OP_TYPES:
                 ins = _amp_flow_cast_ins(ins)
-        outs = opdef.compute(ins, dict(op.attrs), **kwargs)
+        try:
+            outs = opdef.compute(ins, dict(op.attrs), **kwargs)
+        except Exception as e:
+            e.add_note(f"in op {idx} ({op.type}) of the block")
+            raise
         for slot, names in op.outputs.items():
             vals = outs.get(slot, [])
             for i, n in enumerate(names):

@@ -4,10 +4,15 @@ Each op type maps to an ``OpDef`` whose ``compute`` is a plain PyTorch
 function over tensors: ``compute(ins, attrs, device, [generator])`` with
 slot-keyed inputs and outputs (``{"X": [t, ...]}``). ``device`` is the
 ``torch.device`` the executor runs on (ops that create tensors from
-attrs alone need it); ops registered with ``needs_rng`` also receive a
-``torch.Generator`` seeded for the op and the run (core/interp.py; None
-during shape inference). Shape inference runs the same function over
-tensors on ``device="meta"`` (framework.infer_op_outputs).
+attrs alone need it). Random ops registered with ``needs_rng`` also
+receive ``seed``, a ``core.rng.SeedHandle`` (the run's device seed buffer
+and the op's index, core/interp.py; None during shape inference), whose
+value they never read on the host, so a block of them can run as a CUDA
+graph. Ops registered with ``host_rng`` (the startup program's random
+fills) instead receive ``generator``, a ``torch.Generator`` seeded on the
+host for the op and the run: a block that holds one is never captured
+(core/lowering.py). Shape inference runs the same function over tensors
+on ``device="meta"`` (framework.infer_op_outputs).
 
 Gradients follow the JAX package's convention: an op without a
 registered ``<type>_grad`` gets one derived from its forward compute
@@ -23,7 +28,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 # Slot-keyed values: {"X": [tensor, ...], "Y": [tensor]}
 Ins = Dict[str, List[Any]]
 Outs = Dict[str, List[Any]]
-ComputeFn = Callable[..., Outs]  # compute(ins, attrs, device, [generator])
+# compute(ins, attrs, device, [seed | generator])
+ComputeFn = Callable[..., Outs]
 
 GRAD_SUFFIX = "@GRAD"
 GRAD_OP_SUFFIX = "_grad"
@@ -42,8 +48,11 @@ class OpDef:
     grad_maker: Optional[Callable] = None
     # True if this op has no gradient (fills, metrics, masks).
     no_grad: bool = False
-    # True if compute wants a `generator` keyword (torch.Generator).
+    # True if compute wants a `seed` keyword (core.rng.SeedHandle).
     needs_rng: bool = False
+    # True if compute wants a `generator` keyword (a host-seeded
+    # torch.Generator); a block that holds such an op is never captured.
+    host_rng: bool = False
     doc: str = ""
 
     def __post_init__(self):
@@ -61,6 +70,7 @@ def register_op(
     grad_maker: Optional[Callable] = None,
     no_grad: bool = False,
     needs_rng: bool = False,
+    host_rng: bool = False,
     doc: str = "",
 ) -> Callable[[ComputeFn], ComputeFn]:
     """Decorator registering ``fn`` as the compute for op ``type``."""
@@ -75,6 +85,7 @@ def register_op(
             grad_maker=grad_maker,
             no_grad=no_grad,
             needs_rng=needs_rng,
+            host_rng=host_rng,
             doc=doc or (fn.__doc__ or ""),
         )
         return fn

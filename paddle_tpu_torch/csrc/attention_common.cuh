@@ -6,7 +6,10 @@
 // generator, keyed by absolute 128-row blocks so forward and backward
 // regenerate the same bits whatever their tiling. Here the mask is a
 // stateless hash of absolute positions, never of tile sizes:
-//   key   = stream key of the op's seed (computed on the host)
+//   s     = the op seed: mix64(*seed, op_idx), or *seed itself when
+//           op_idx < 0 (seed points to a 0-d int64 in device memory, so a
+//           CUDA graph replays a new mask each step; core/rng.py)
+//   key   = fmix32(fmix32(lo32(s) ^ 0x9E3779B9) ^ hi32(s))
 //   hrow  = fmix32(fmix32(key ^ (batch * heads + head)) ^ query_row)
 //   bits  = fmix32(hrow ^ key_column)
 //   keep  = bits < thresh,  thresh = min(floor((1 - p) * 2^32), 2^32 - 1)
@@ -31,7 +34,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 // The dropout arguments of a launch (see above).
 struct Dropout {
-  uint32_t key, thresh;
+  const long long* seed;  // the run's seed buffer, or the op seed
+  int op_idx;             // the op's index; < 0: *seed is the op seed
+  uint32_t thresh;
   float keep_scale;
 };
 
@@ -42,6 +47,22 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x *= 0xc2b2ae35u;
   x ^= x >> 16;
   return x;
+}
+
+// splitmix64 of base + (idx + 1) * golden, cut to 63 bits: the op seed
+// of op idx of a step seed (core/rng.py mix64).
+__device__ __forceinline__ uint64_t mix64(uint64_t base, int idx) {
+  uint64_t z = base + (uint64_t)(idx + 1) * 0x9E3779B97F4A7C15ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return (z ^ (z >> 31)) >> 1;
+}
+
+// The 32-bit stream key of a launch, read and mixed from device memory.
+__device__ __forceinline__ uint32_t stream_key(const Dropout& d) {
+  uint64_t s = (uint64_t)__ldg(d.seed);
+  if (d.op_idx >= 0) s = mix64(s, d.op_idx);
+  return fmix32(fmix32((uint32_t)s ^ 0x9E3779B9u) ^ (uint32_t)(s >> 32));
 }
 
 // Per-(batch*heads + head, query row) prefix of the keep-mask hash.

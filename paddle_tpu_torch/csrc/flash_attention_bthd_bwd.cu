@@ -320,6 +320,9 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
   const int c0 = 2 * (lane & 3);
   const float scale = a.scale;
   const uint32_t k_addr = smem_addr(Ks), v_addr = smem_addr(Vs);
+  // drop_row_hash(key, bh, row) = fmix32(hbh ^ row)
+  const uint32_t hbh =
+      kDrop ? fmix32(pt_attn::stream_key(a.drop) ^ (uint32_t)bh) : 0u;
 
   float dk[P::kOut / 2], dv[P::kOut / 2];
 #pragma unroll
@@ -390,7 +393,7 @@ __global__ void __launch_bounds__(PassA<kDhPad>::kThreads, 1)
           const int col = 8 * n8 + c0 + j;
           const float delta_q = Ds[col];
           uint32_t hrow = 0;
-          if (kDrop) hrow = drop_row_hash(a.drop.key, bh, q0 + col);
+          if (kDrop) hrow = fmix32(hbh ^ (uint32_t)(q0 + col));
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int e = 4 * n8 + 2 * i + j;
@@ -509,12 +512,13 @@ __global__ void __launch_bounds__(PassB<kDhPad>::kThreads, 1)
                        q0 + 16 * warp + lane / 4 + 8};
   float lrow[2], drow[2];
   uint32_t hrow[2] = {0u, 0u};
+  const uint32_t dkey = kDrop ? pt_attn::stream_key(a.drop) : 0u;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = rrow[i];
     lrow[i] = r < tq ? a.lse[bb * a.ls[0] + r * a.ls[1] + hh * a.ls[2]] : 0.f;
     drow[i] = r < tq ? a.delta[((long long)bb * tq + r) * nh + hh] : 0.f;
-    if (kDrop) hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, r);
+    if (kDrop) hrow[i] = drop_row_hash(dkey, bb * nh + hh, r);
   }
   const int c0 = 2 * (lane & 3);
   const float scale = a.scale;
@@ -809,7 +813,8 @@ __global__ void __launch_bounds__(PassA32<kDhPad>::kThreads,
   const bool bias_rows = biasb != nullptr && a.sq != 0;
   // drop_row_hash(key, bh, row) = fmix32(hbh ^ row)
   const uint32_t hbh =
-      kDrop ? fmix32(a.drop.key ^ (uint32_t)(bb * nh + hh)) : 0u;
+      kDrop ? fmix32(pt_attn::stream_key(a.drop) ^ (uint32_t)(bb * nh + hh))
+            : 0u;
 
   // causal: the first query tile is the one that holds row k0
   const int q_first = kCausal ? (k0 / kBq) * kBq : 0;
@@ -1006,6 +1011,7 @@ __global__ void __launch_bounds__(PassB32<kDhPad>::kThreads,
   const int rrow[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   float l2row[2], drow[2];  // lse * log2(e), delta
   uint32_t hrow[2] = {0u, 0u};
+  const uint32_t dkey = kDrop ? pt_attn::stream_key(a.drop) : 0u;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = rrow[i];
@@ -1013,7 +1019,7 @@ __global__ void __launch_bounds__(PassB32<kDhPad>::kThreads,
                             kLog2e
                       : 0.f;
     drow[i] = r < tq ? a.delta[((long long)bb * tq + r) * nh + hh] : 0.f;
-    if (kDrop) hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, r);
+    if (kDrop) hrow[i] = drop_row_hash(dkey, bb * nh + hh, r);
   }
   const float scale = a.scale, scale2 = a.scale * kLog2e;
   const float* qw = Qs + 16 * warp * kLd;  // this warp's rows of Q, dout
@@ -1196,7 +1202,8 @@ int pt_flash_attention_bthd_bwd(
     void* delta, void* dq, void* dk, void* dv, int b, int tq, int tk, int h,
     int dh, const long long* strides, long long sb, long long sh,
     long long sq, float scale, int is_bf16, int causal, int use_dropout,
-    unsigned int drop_key, unsigned int drop_thresh, float keep_scale,
+    const long long* drop_seed, int drop_op, unsigned int drop_thresh,
+    float keep_scale,
     int passes, void* stream) {
   if (dh < 1 || dh > kMaxDh || tq < 1 || tk < 1 || b < 1 || h < 1 ||
       b > 65535 || h > 65535 || passes < 0 || passes > 3)
@@ -1226,7 +1233,8 @@ int pt_flash_attention_bthd_bwd(
   a.sh = sh;
   a.sq = sq;
   a.scale = scale;
-  a.drop = pt_attn::Dropout{drop_key, drop_thresh, keep_scale};
+  a.drop =
+      pt_attn::Dropout{drop_seed, drop_op, drop_thresh, keep_scale};
   const int per16 = is_bf16 ? 8 : 4;  // elements in 16 bytes
   a.vec = dh % per16 == 0 && rows_aligned(q, a.qs, per16) &&
           rows_aligned(k, a.ks, per16) && rows_aligned(v, a.vs, per16) &&

@@ -271,11 +271,12 @@ __global__ void __launch_bounds__(TiledF32<kDh>::kThreads,
   float acc[kTM][kTD][4];
   float m[kTM], l[kTM];
   uint32_t hrow[kTM];
+  const uint32_t dkey = kDrop ? pt_attn::stream_key(a.drop) : 0u;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-    hrow[i] = kDrop ? drop_row_hash(a.drop.key, bb * nh + hh,
+    hrow[i] = kDrop ? drop_row_hash(dkey, bb * nh + hh,
                                     q0 + rg * kTM + i)
                     : 0u;
 #pragma unroll
@@ -580,6 +581,7 @@ __global__ void __launch_bounds__(kDecThreads) fwd_decode_kernel(FwdArgs a) {
   __syncthreads();
 
   // row max and sum of the block's keys (warp w: rows w, w + 4)
+  const uint32_t dkey = kDrop ? pt_attn::stream_key(a.drop) : 0u;
   for (int r = warp; r < tq; r += 4) {
     float mx = -INFINITY;
     for (int j = lane; j < nk; j += 32) mx = fmaxf(mx, Ss[r * sk + j]);
@@ -588,7 +590,7 @@ __global__ void __launch_bounds__(kDecThreads) fwd_decode_kernel(FwdArgs a) {
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_use = mx == -INFINITY ? 0.f : mx;
     const uint32_t hrow =
-        kDrop ? drop_row_hash(a.drop.key, bb * nh + hh, r) : 0u;
+        kDrop ? drop_row_hash(dkey, bb * nh + hh, r) : 0u;
     float sum = 0.f;
     for (int j = lane; j < nk; j += 32) {
       float p = expf(Ss[r * sk + j] - m_use);
@@ -916,9 +918,12 @@ __global__ void __launch_bounds__(kWgThreads)
 
   // sweep 2: O += (p o M) V, p = exp(s - lse) rounded to bf16 once
   uint32_t hrow[2] = {0u, 0u};
+  if (kDrop) {
+    const uint32_t dkey = pt_attn::stream_key(a.drop);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    if (kDrop) hrow[i] = drop_row_hash(a.drop.key, bb * nh + hh, rrow[i]);
+    for (int i = 0; i < 2; ++i)
+      hrow[i] = drop_row_hash(dkey, bb * nh + hh, rrow[i]);
+  }
   // O in kOH column halves of kON accumulators: one n64 or n128 product
   // each (dh 256 takes two n128 products, on V's columns 0..127, 128..255)
   constexpr int kOH = kDhPad > 128 ? 2 : 1;
@@ -1091,20 +1096,21 @@ extern "C" {
 // (batch, time, head) of q, k, v, out and lse, in that order; the head
 // dim of q, k, v and out is contiguous. With `causal`, keys past the
 // query row are masked in-kernel. With `use_dropout`, the mask is keyed
-// by `drop_key` and keeps a score when its hash is below `drop_thresh`,
-// scaling it by `keep_scale`. `stream` is a cudaStream_t. bf16 runs the
-// tensor-core kernel, f32 the CUDA-core ones, which take the caller's key
-// split (flash_attention.f32_fwd_plan): `splits` blocks of `split_keys`
-// keys each covering the live keys (tk, or min(tk, tq) under the causal
-// mask when tq <= 8), and with more than one split `part`, scratch of
-// splits * b * h * tq * (dh + 2) floats; bf16 ignores the three.
+// by the op seed that `drop_seed` (device memory) and `drop_op` give
+// (attention_common.cuh) and keeps a score when its hash is below
+// `drop_thresh`, scaling it by `keep_scale`. `stream` is a cudaStream_t.
+// bf16 runs the tensor-core kernel, f32 the CUDA-core ones, which take the
+// caller's key split (flash_attention.f32_fwd_plan): `splits` blocks of
+// `split_keys` keys each covering the live keys (tk, or min(tk, tq) under
+// the causal mask when tq <= 8), and with more than one split `part`,
+// scratch of splits * b * h * tq * (dh + 2) floats; bf16 ignores the three.
 int pt_flash_attention_bthd_fwd(const void* q, const void* k, const void* v,
                                 const void* bias, void* out, void* lse, int b,
                                 int tq, int tk, int h, int dh,
                                 const long long* strides, long long sb,
                                 long long sh, long long sq, float scale,
                                 int is_bf16, int causal, int use_dropout,
-                                unsigned int drop_key,
+                                const long long* drop_seed, int drop_op,
                                 unsigned int drop_thresh, float keep_scale,
                                 int splits, int split_keys, void* part,
                                 void* stream) {
@@ -1129,7 +1135,8 @@ int pt_flash_attention_bthd_fwd(const void* q, const void* k, const void* v,
   a.sh = sh;
   a.sq = sq;
   a.scale = scale;
-  a.drop = pt_attn::Dropout{drop_key, drop_thresh, keep_scale};
+  a.drop =
+      pt_attn::Dropout{drop_seed, drop_op, drop_thresh, keep_scale};
   // f32 rows are 16-byte aligned with strides in multiples of 4 elements
   auto rows4 = [](const void* p, const long long* st) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st[0] % 4 == 0 &&

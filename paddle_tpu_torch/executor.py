@@ -2,24 +2,52 @@
 
 ``Executor.run`` has the Fluid contract: feed a dict of arrays, fetch a
 list of variables, read and commit persistable state through a Scope;
-``Executor.run_steps`` runs several training steps. A block runs eagerly
-on the executor's ``torch.device`` (one PyTorch call per op,
-core/lowering.py) under ``torch.no_grad()``: gradients are ops of the
-program (backward.py), and autograd is enabled only inside a derived
-grad op (core/autodiff.py). A program marked ``_amp`` (amp.py) runs its
-matmul-heavy ops in bf16.
+``Executor.run_steps`` runs several training steps. A block runs on the
+executor's ``torch.device`` under ``torch.no_grad()``: gradients are ops
+of the program (backward.py), and autograd is enabled only inside a
+derived grad op (core/autodiff.py). A program marked ``_amp`` (amp.py)
+runs its matmul-heavy ops in bf16.
+
+The compiled step (core/lowering.py ``StepRunner``). A block with a fixed
+feed signature runs as a captured CUDA graph, the counterpart of the JAX
+package's jitted step: the first call of a cache key (program, feeds and
+their shapes, fetches, Scope) runs eagerly, which warms it up; the
+second captures the step and replays it; every later call replays. All
+the graphs of one executor share one memory pool, so a program run with
+a second fetch list or feed shape adds a graph, not a second copy of
+its activations (core/lowering.py says why that is safe). The
+Scope's state tensors keep their identity: a replay writes each new
+value into the existing tensor. A call with ``use_program_cache=False``
+keeps nothing and runs eagerly, committing fresh tensors. A block that
+holds a ``host_rng`` op (a startup program's ``gaussian_random`` /
+``uniform_random``, which draw from host-seeded generators) is never
+captured: that is read from the program's ops before it runs, and such a
+block runs eagerly at every call. Anything else that cannot be captured
+raises, naming the program and the op; nothing gives way to an eager run
+on the card. ``close()`` frees the graphs and their memory pool.
+
+Seeds, as in the JAX package: the executor keeps one step counter,
+advanced by one a run and by ``steps`` a window, and a step's seed is a
+pure function of ``program.random_seed`` and the step index
+(``rng.step_seed``, the counterpart of ``fold_in(base_key, step)``); a
+random op's seed is ``mix64(step seed, forward_op_idx or its index)``
+(core/interp.py). The step seed reaches the ops in a device tensor, so an
+eager run and a replay of the same step draw the same masks, and
+``run_steps(k)`` equals ``k`` successive ``run`` calls.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core import lowering
+from paddle_tpu_torch.core.lowering import as_tensor
 from paddle_tpu_torch.framework import (
     CPUPlace,
     CUDAPlace,
@@ -87,14 +115,6 @@ def scope_guard(scope: Scope):
             _scope_tls.stack.pop()
 
 
-def as_tensor(value, device: torch.device) -> torch.Tensor:
-    """A feed or scope value as a tensor on ``device`` (numpy arrays are
-    copied, so the caller may reuse its buffer)."""
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    return torch.from_numpy(np.array(value)).to(device)
-
-
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -103,14 +123,21 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 class Executor:
     """Runs programs on one device: ``place`` defaults to ``CUDAPlace(0)``
-    and raises when CUDA is absent; pass ``CPUPlace()`` for the CPU."""
+    and raises when CUDA is absent; pass ``CPUPlace()`` for the CPU. See
+    the module docstring for the captured step and the seeds."""
 
     def __init__(self, place: Optional[Union[CPUPlace, CUDAPlace]] = None):
         self.device = resolve_device(place)
         self._cache: Dict[tuple, lowering.LoweredBlock] = {}
-        # program seed -> the host-side stream each run's base seed is
-        # drawn from
-        self._generators: Dict[int, torch.Generator] = {}
+        # Scope -> {(cache key, (feed signature, random_seed)): StepRunner}
+        self._runners: "weakref.WeakKeyDictionary[Scope, Dict]" = (
+            weakref.WeakKeyDictionary())
+        # the step counter: one a run, ``steps`` a run_steps window
+        self._step = 0
+        # the seed buffer of uncached (eager) runs
+        self._eager_seed: Optional[torch.Tensor] = None
+        # the memory pool every captured graph of this executor shares
+        self._pool = None
 
     def run(
         self,
@@ -123,56 +150,64 @@ class Executor:
         async_fetch: bool = False,
     ):
         """Run block 0 of ``program``. Returns the fetches as numpy arrays,
-        or as the device tensors themselves when ``return_numpy`` is False
-        or ``async_fetch`` (the caller materializes them later, after it
-        has queued more work). ``use_program_cache=False`` lowers the
-        program afresh and keeps nothing. The arguments come in the JAX
-        package's order. A run of a program with random ops draws one
-        base seed from the executor's stream for ``program.random_seed``;
-        each random op derives its own seed from it (core/interp.py)."""
+        or as device tensors when ``return_numpy`` is False or
+        ``async_fetch`` (the caller materializes them later, after it has
+        queued more work; a replay's fetches are copies out of the graph's
+        pool, which the next replay leaves alone). ``use_program_cache=
+        False`` lowers the program afresh, keeps nothing and runs eagerly.
+        The arguments come in the JAX package's order."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
-        feed = feed or {}
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
+        fetches = self._run_step(program, feed or {}, self._fetch_names(
+            fetch_list), scope, use_program_cache)
+        return self._format(fetches, return_numpy, async_fetch)
+
+    @staticmethod
+    def _fetch_names(fetch_list):
+        return [f.name if isinstance(f, Variable) else str(f)
+                for f in (fetch_list or [])]
+
+    @staticmethod
+    def _format(fetches, return_numpy, async_fetch):
+        if async_fetch or not return_numpy:
+            return list(fetches)
+        return [to_numpy(t) for t in fetches]
+
+    def _run_step(self, program, feed, fetch_names, scope,
+                  use_program_cache=True):
+        """One step of ``program`` at the executor's next step index."""
         feed_names = sorted(feed)
         amp = bool(program._amp)
         key = (program._uid, program.version, amp, tuple(feed_names),
                tuple(fetch_names))
+        step = self._step
+        self._step += 1
         lowered = self._cache.get(key) if use_program_cache else None
         if lowered is None:
             lowered = lowering.lower_block(program, 0, feed_names,
                                            fetch_names, self.device, amp)
             if use_program_cache:
                 self._cache[key] = lowered
-        state = self._gather_state(scope, lowered)
-        feeds = {k: as_tensor(feed[k], self.device) for k in feed_names}
-        seed = self._next_seed(program) if lowered.needs_rng else None
-        with torch.no_grad():
-            fetches, new_state = lowered.fn(state, feeds, seed)
-        # Commit: the scope now holds the tensors the block produced. Ops
-        # are functional, so the previous state tensors are released when
-        # nothing else references them — the counterpart of the JAX
-        # package's buffer donation.
-        for n, v in new_state.items():
-            scope.set(n, v)
-        if async_fetch or not return_numpy:
-            return list(fetches)
-        return [to_numpy(t) for t in fetches]
-
-    def _gather_state(self, scope, lowered):
-        state = {}
-        for n in lowered.state_in_names:
-            v = scope.find_var(n)
-            if v is None:
-                raise RuntimeError(
-                    f"variable '{n}' used by the program is not initialized "
-                    f"in the scope — run the startup program first")
-            if not (isinstance(v, torch.Tensor) and v.device == self.device):
-                v = as_tensor(v, self.device)
-                scope.set(n, v)  # resident on the device from now on
-            state[n] = v
-        return state
+        if not use_program_cache:
+            if self._eager_seed is None:
+                self._eager_seed = torch.zeros((), dtype=torch.int64,
+                                               device=self.device)
+            return lowering.run_eager(
+                lowered, scope, {k: as_tensor(feed[k], self.device)
+                                 for k in feed_names}, self.device,
+                self._eager_seed, program.random_seed, step)
+        signature = (tuple((k, *_shape_dtype(feed[k])) for k in feed_names),
+                     program.random_seed)
+        runners = self._runners.setdefault(scope, {})
+        runner = runners.get((key, signature))
+        if runner is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            runner = runners[(key, signature)] = lowering.StepRunner(
+                lowered, self.device, program.random_seed,
+                f"program {program._uid} (version {program.version})",
+                self._pool)
+        return runner.run(scope, {k: feed[k] for k in feed_names}, step)
 
     def run_steps(
         self,
@@ -186,29 +221,42 @@ class Executor:
     ):
         """Run ``steps`` iterations of ``program``, rotating over
         ``feed_list`` (step i consumes feed ``i % len(feed_list)``), and
-        return the LAST step's fetches, as ``run`` returns them. Each step
-        is one ``run``, so the random streams equal those of ``steps``
-        successive ``run`` calls."""
+        return the LAST step's fetches, as ``run`` returns them. The
+        window's feeds are staged on the device once; then each step is
+        one call of the program's step (a replay of its CUDA graph from
+        the second call on), so the random streams equal those of
+        ``steps`` successive ``run`` calls."""
         if not feed_list:
             raise ValueError("run_steps needs a non-empty feed_list")
         if steps < 1:
             raise ValueError(f"run_steps: steps={steps}, expected >= 1")
-        for i in range(steps - 1):
-            self.run(program, feed_list[i % len(feed_list)], None, scope)
-        return self.run(program, feed_list[(steps - 1) % len(feed_list)],
-                        fetch_list, scope, return_numpy,
-                        async_fetch=async_fetch)
-
-    def _next_seed(self, program) -> int:
-        """The next base seed of ``program.random_seed``'s stream (drawn
-        on the host: no device sync)."""
-        seed = program.random_seed if program.random_seed is not None else 0
-        gen = self._generators.get(seed)
-        if gen is None:
-            gen = torch.Generator()
-            gen.manual_seed(seed)
-            self._generators[seed] = gen
-        return int(torch.randint(0, 2**62, (), generator=gen))
+        program = program if program is not None else default_main_program()
+        scope = scope or global_scope()
+        fetch_names = self._fetch_names(fetch_list)
+        staged = [{k: as_tensor(v, self.device) for k, v in f.items()}
+                  for f in feed_list[:steps]]
+        for i in range(steps):
+            fetches = self._run_step(program, staged[i % len(staged)],
+                                     fetch_names, scope)
+        return self._format(fetches, return_numpy, async_fetch)
 
     def close(self):
+        """Drop the lowered programs and free every captured graph and
+        their memory pool (the Scopes keep their tensors)."""
+        for runners in list(self._runners.values()):
+            for runner in runners.values():
+                runner.close()
+        self._runners = weakref.WeakKeyDictionary()
         self._cache.clear()
+        self._pool = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _shape_dtype(value):
+    """(shape, torch dtype) of a feed value, an array or a tensor: a
+    captured step is bound to both."""
+    if isinstance(value, torch.Tensor):
+        return tuple(value.shape), value.dtype
+    a = np.asarray(value)
+    return a.shape, torch.from_numpy(np.empty(0, a.dtype)).dtype

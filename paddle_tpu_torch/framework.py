@@ -322,6 +322,8 @@ def infer_op_outputs(block: "Block", op: Operator):
             ins[slot] = specs
         kwargs = {"device": _META}
         if opdef.needs_rng:
+            kwargs["seed"] = None
+        if opdef.host_rng:
             kwargs["generator"] = None
         return opdef.compute(ins, dict(op.attrs), **kwargs), None
     except Exception as e:

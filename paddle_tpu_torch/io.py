@@ -19,7 +19,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 
-from paddle_tpu_torch.executor import Scope, as_tensor, global_scope
+from paddle_tpu_torch.core.lowering import as_tensor
+from paddle_tpu_torch.executor import Scope, global_scope
 from paddle_tpu_torch.framework import default_main_program, resolve_device
 
 # the JAX package's combined-parameters file (paddle_tpu/io.py)

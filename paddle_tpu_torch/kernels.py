@@ -7,6 +7,10 @@ seconds. Libraries go to ``paddle_tpu_torch/build/`` (git-ignored) under
 a name that carries a digest of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source rebuilds and
 concurrent processes never load a half-written file.
+
+Launch counts: every wrapper adds one to ``launch_counts`` where it
+launches its kernel (``count``), so that a CUDA graph replay, which runs
+no Python, can add what its capture counted (core/lowering.py).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -97,3 +102,20 @@ def check(name: str, rc: int, what: str) -> None:
         describe.restype = ctypes.c_char_p
         raise RuntimeError(f"{what} launch failed: {describe(rc).decode()} "
                            f"(cudaError {rc})")
+
+
+# Launch counts, {key: launches}, one dict for every wrapper: each adds one
+# where it launches its kernel (``count``) and nowhere else. A CUDA graph's
+# replay runs no Python, so the step runner adds at each replay what was
+# counted while the step was captured (core/lowering.py).
+launch_counts: Counter = Counter()
+
+
+def count(key) -> None:
+    """Add one to ``launch_counts[key]``."""
+    launch_counts[key] += 1
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    launch_counts.clear()

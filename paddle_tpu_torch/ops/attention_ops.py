@@ -49,18 +49,18 @@ def _attn_bias(ins, attrs, device):
     return {"Out": [pad_bias[:, None, None, :]]}
 
 
-def _sdpa_config(ins, attrs, generator):
+def _sdpa_config(ins, attrs, seed):
     """Shared forward / grad config: (scale, p_drop, seed). The grad op's
-    generator is seeded from the same forward_op_idx as the forward's
-    (core/interp.py), so both see one seed and the kernels one mask."""
+    seed handle carries the forward's forward_op_idx (core/interp.py), so
+    both see one op seed and the kernels one mask; the kernels read it
+    from the device. Shape inference passes no seed (0 stands in)."""
     q = _x(ins, "Q")
     scale = attrs.get("scale", None)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     p_drop = attrs.get("dropout_prob", 0.0)
     if p_drop > 0.0 and not attrs.get("is_test", False):
-        seed = generator.initial_seed() if generator is not None else 0
-        return scale, float(p_drop), seed
+        return scale, float(p_drop), 0 if seed is None else seed
     return scale, 0.0, None
 
 
@@ -73,15 +73,15 @@ def _bthd_layout(attrs):
 
 @register_op("scaled_dot_product_attention", diff_inputs=("Q", "K", "V"),
              needs_rng=True)
-def _sdpa(ins, attrs, device, generator=None):
+def _sdpa(ins, attrs, device, seed=None):
     """Attention over Q, K, V ([b, t, h, dh] with ``layout="bthd"``, [b,
     h, t, dh] with ``layout="bhtd"``) with an optional additive Bias and,
     in training (``dropout_prob > 0`` and not ``is_test``), attention
-    dropout inside the kernel from the op's seed; emits Out (Q's dtype)
-    and the real f32 logsumexp rows Lse ([b, tq, h, 1] or [b, h, tq, 1]),
-    which the grad op consumes."""
+    dropout inside the kernel from the op's seed handle; emits Out (Q's
+    dtype) and the real f32 logsumexp rows Lse ([b, tq, h, 1] or [b, h,
+    tq, 1]), which the grad op consumes."""
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
-    scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
+    scale, p_drop, seed = _sdpa_config(ins, attrs, seed)
     causal = bool(attrs.get("causal", False))
     if _bthd_layout(attrs):
         out, lse = fa.flash_attention_bthd_fwd(q, k, v, _x(ins, "Bias"),
@@ -94,12 +94,12 @@ def _sdpa(ins, attrs, device, generator=None):
 
 @register_op("scaled_dot_product_attention_grad", no_grad=True,
              needs_rng=True)
-def _sdpa_grad(ins, attrs, device, generator=None):
+def _sdpa_grad(ins, attrs, device, seed=None):
     """The attention backward from the forward's saved (Out, Lse): the
     backward kernel (or its plain version), never a re-run of the
     forward."""
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
-    scale, p_drop, seed = _sdpa_config(ins, attrs, generator)
+    scale, p_drop, seed = _sdpa_config(ins, attrs, seed)
     args = (q, k, v, _x(ins, "Bias"), seed, _x(ins, "Out"), _x(ins, "Lse"),
             _x(ins, "GRAD::Out").to(q.dtype), scale, p_drop)
     causal = bool(attrs.get("causal", False))

@@ -8,14 +8,32 @@ memory layout are NCHW: laying the convolutions' operands out channels
 last was measured on an H100 and gained nothing (cuDNN converts bf16
 NCHW operands itself, and the per-channel reductions of ``batch_norm``
 run slower over channels-last memory; PERF.md).
+
+The ``dropout`` op's training forward is a kernel written by hand
+(``dropout_fwd``: ``dropout_apply_kernel`` in csrc/dropout_mask.cu on a
+CUDA tensor, ``dropout_plain`` on the CPU), whose keep mask is the hash
+of the op seed and the flat element index (core/rng.py), so the CPU and
+the card give the same mask and a CUDA graph a new one each step.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch import kernels
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.registry import register_op
+
+_DROPOUT_SOURCE = "dropout_mask"
+_DROPOUT_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                    ctypes.c_float, ctypes.c_void_p])
+# launches of dropout_apply_kernel: kernels.launch_counts["dropout"], one
+# per call of ``dropout_fwd`` on a CUDA tensor
 
 
 def _x(ins, slot="X", i=0):
@@ -150,13 +168,62 @@ def _layer_norm(ins, attrs, device):
     }
 
 
+def dropout_plain(x, seed, p, upscale):
+    """(Out, Mask) of the ``dropout`` op's training forward, in PyTorch
+    integer ops: element i (flat, row-major) is kept iff
+    ``row_hash(key, hi32(i), lo32(i)) < keep_threshold(p)``, with the
+    stream key of ``seed``'s op seed (core/rng.py); Out is x times
+    ``keep_scale(p)`` (``upscale``: one product in f32, or f64 for f64 x,
+    rounded once to x's dtype) or x where kept, else 0; Mask is uint8.
+    Bit for bit what ``dropout_apply_kernel`` writes."""
+    key = rng.stream_key_tensor(rng.op_seed_tensor(seed, x.device))
+    i = torch.arange(x.numel(), device=x.device)
+    bits = rng.row_hash(key, i >> 32, i & rng.U32)
+    keep = (bits < rng.keep_threshold(p)).reshape(x.shape)
+    if upscale:
+        wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+        y = (x.to(wide) * rng.keep_scale(p)).to(x.dtype)
+    else:
+        y = x
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(keep, y, zero), keep.to(torch.uint8)
+
+
+def dropout_fwd(x, seed, p, upscale):
+    """``dropout_plain``'s (Out, Mask): on a CUDA tensor from
+    ``dropout_apply_kernel`` (f32 or bf16, one pass over x; the kernel reads
+    the seed from device memory), on the CPU from ``dropout_plain``."""
+    if x.device.type != "cuda":
+        return dropout_plain(x, seed, p, upscale)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dropout kernel: dtype {x.dtype} (takes float32 "
+                        f"or bfloat16)")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel moves 16 bytes at a time
+    out = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.numel() == 0:
+        return out, mask
+    seed_t, op_idx = rng.kernel_seed(seed, x.device)
+    entry = kernels.function(_DROPOUT_SOURCE, "pt_dropout_fwd", _DROPOUT_ARGS)
+    rc = entry(x.data_ptr(), out.data_ptr(), mask.data_ptr(), x.numel(),
+               1 if x.dtype == torch.bfloat16 else 0, 1 if upscale else 0,
+               seed_t.data_ptr(), op_idx, rng.keep_threshold(p),
+               rng.keep_scale(p),
+               torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(_DROPOUT_SOURCE, rc, "dropout_fwd")
+    kernels.count("dropout")
+    return out, mask
+
+
 @register_op("dropout", needs_rng=True)
-def _dropout(ins, attrs, device, generator=None):
+def _dropout(ins, attrs, device, seed=None):
     """Out = X with each element kept with probability 1 - p (Mask, uint8,
     says which); ``upscale_in_train`` scales kept elements by 1/(1 - p)
-    in training, ``downgrade_in_infer`` scales by (1 - p) at test time.
-    The mask comes from the op's generator (its bits differ from the JAX
-    package's)."""
+    (rounded to f32) in training, ``downgrade_in_infer`` scales by (1 - p)
+    at test time. The mask is the hash of the op's seed and each element's
+    index (``dropout_fwd``; its bits differ from the JAX package's)."""
     x = _x(ins)
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
@@ -166,13 +233,9 @@ def _dropout(ins, attrs, device, generator=None):
         return {"Out": [x * (1.0 - p)], "Mask": []}
     if p <= 0.0:
         return {"Out": [x], "Mask": []}
-    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    if impl == "upscale_in_train":
-        y = torch.where(keep, x / (1.0 - p), zero)
-    else:
-        y = torch.where(keep, x, zero)
-    return {"Out": [y], "Mask": [keep.to(torch.uint8)]}
+    out, mask = dropout_fwd(x, 0 if seed is None else seed, p,
+                            impl == "upscale_in_train")
+    return {"Out": [out], "Mask": [mask]}
 
 
 @register_op("dropout_grad", no_grad=True)
@@ -188,7 +251,7 @@ def _dropout_grad(ins, attrs, device):
         dx = g
     else:
         keep = _x(ins, "Mask").to(torch.bool)
-        gs = g / (1.0 - p) if impl == "upscale_in_train" else g
+        gs = g * rng.keep_scale(p) if impl == "upscale_in_train" else g
         dx = torch.where(keep, gs, torch.zeros((), dtype=g.dtype,
                                                device=g.device))
     return {"GRAD::X": [dx]}

@@ -1,10 +1,12 @@
 """Tensor creation & manipulation ops.
 
-Random fills draw from the ``torch.Generator`` the interpreter hands
-them (seeded per op and run from the executor's stream for the program
-seed, see core/interp.py), so a seeded run is reproducible on one
-device. The streams differ from the JAX package's PRNG: weights carry
-across by name (io.scope_from_numpy), never by re-drawing them.
+Random fills draw from the host-seeded ``torch.Generator`` the
+interpreter hands them (seeded per op from the run's step seed, see
+core/interp.py), so a seeded run is reproducible on one device; they are
+``host_rng`` ops, and a block that holds one (a startup program) runs
+eagerly, never as a CUDA graph. The streams differ from the JAX
+package's PRNG: weights carry across by name (io.scope_from_numpy), never
+by re-drawing them.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def _fill_any_like(ins, attrs, device):
     return {"Out": [torch.full_like(_x(ins), attrs.get("value", 0.0))]}
 
 
-@register_op("gaussian_random", no_grad=True, needs_rng=True)
+@register_op("gaussian_random", no_grad=True, host_rng=True)
 def _gaussian_random(ins, attrs, device, generator=None):
     shape = tuple(attrs["shape"])
     dtype = torch_dtype(attrs.get("dtype", "float32"))
@@ -42,7 +44,7 @@ def _gaussian_random(ins, attrs, device, generator=None):
     return {"Out": [out]}
 
 
-@register_op("uniform_random", no_grad=True, needs_rng=True)
+@register_op("uniform_random", no_grad=True, host_rng=True)
 def _uniform_random(ins, attrs, device, generator=None):
     shape = tuple(attrs["shape"])
     dtype = torch_dtype(attrs.get("dtype", "float32"))

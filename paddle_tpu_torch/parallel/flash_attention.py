@@ -23,7 +23,7 @@ the shape and names the route the JAX package takes, shape for shape:
 - ``dense``: everything else (tq < 8, or tq = 200 at tk = 256, or tk >
   512 that does not divide the blocks). The JAX package leaves it to XLA;
   here it is the plain composition on any device, and each such call adds
-  one to ``dense_calls``. The kernels take heads up to ``KERNEL_MAX_DH``
+  one to ``kernels.launch_counts["attention_dense"]``. The kernels take heads up to ``KERNEL_MAX_DH``
   (256) wide; on the card a wider head on a kernel route raises (the JAX
   package's kernels have no such bound).
 
@@ -54,7 +54,12 @@ to the normalized probabilities that feed the output; the keep mask is a
 hash of (seed, batch, head, query row, key column) (csrc/
 attention_common.cuh) that ``dropout_keep_mask_plain`` rebuilds bit for
 bit in PyTorch integer ops and ``dropout_keep_mask`` dumps from the
-device (csrc/dropout_mask.cu). Its bits differ from the TPU's.
+device (csrc/dropout_mask.cu). Its bits differ from the TPU's. A
+``seed`` is an int (made a device scalar with ``torch.full``), a 0-d
+int64 device tensor holding the op seed, or a ``core.rng.SeedHandle``
+(the run's seed buffer and the op's index, as the op passes it): the
+kernels read it from device memory and mix the key in their prologue, so
+a CUDA graph replays a new mask each step (core/rng.py).
 """
 
 from __future__ import annotations
@@ -64,10 +69,10 @@ import functools
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.core import rng
 
 _NEG_INF = -1e30
 
@@ -89,28 +94,27 @@ KERNEL_ROUTES = ("small", "kblock", "bhtd")
 # the widest head the kernels take; a wider one raises on the card
 KERNEL_MAX_DH = 256
 
-# Kernel launches made by the wrappers (each adds one per launch of its
-# CUDA kernel and nowhere else). chip_smoke.py resets them before driving
-# a path and reads them after.
-launches = 0        # forward kernel, every route
-bwd_launches = 0    # backward kernel (a launch runs both passes), every route
-mask_launches = 0   # dropout_keep_mask
-launch_counts = {(r, d): 0 for r in KERNEL_ROUTES for d in ("fwd", "bwd")}
-dense_calls = 0     # calls on the dense route (plain composition)
+# The wrappers' counts in kernels.launch_counts: ("attention", route,
+# "fwd" | "bwd") a launch of the forward or backward kernel (a backward
+# launch runs both passes), "attention_mask" a launch of
+# dropout_keep_mask, "attention_dense" a call on the dense route (plain
+# composition).
 
 _FWD_SOURCE = "flash_attention_bthd_fwd"
 _BWD_SOURCE = "flash_attention_bthd_bwd"
 _MASK_SOURCE = "dropout_mask"
 
-_U32 = 0xFFFFFFFF
+
+def route_counts():
+    """{(route, "fwd" | "bwd"): kernel launches} of every kernel route."""
+    return {(r, d): kernels.launch_counts["attention", r, d]
+            for r in KERNEL_ROUTES for d in ("fwd", "bwd")}
 
 
-def reset_counts():
-    """Set every launch count and ``dense_calls`` to 0."""
-    global launches, bwd_launches, mask_launches, dense_calls
-    launches = bwd_launches = mask_launches = dense_calls = 0
-    for key in launch_counts:
-        launch_counts[key] = 0
+def launched(direction: str) -> int:
+    """The forward ("fwd") or backward ("bwd") kernel's launches on every
+    route."""
+    return sum(n for (_, d), n in route_counts().items() if d == direction)
 
 
 def _use_bthd_small(tq, tk):
@@ -185,54 +189,22 @@ def _combined_causal_bias(bias, tq, tk, device):
 # --- the dropout keep mask (attention_common.cuh holds the device twin) ---
 
 
-def _fmix32_int(x: int) -> int:
-    x ^= x >> 16
-    x = (x * 0x85EBCA6B) & _U32
-    x ^= x >> 13
-    x = (x * 0xC2B2AE35) & _U32
-    return x ^ (x >> 16)
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 tensors holding uint32 values, split in
-    16-bit halves so no int64 product overflows."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _U32
-
-
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _dropout_params(seed: int, p_drop: float):
-    """(stream key, keep threshold, keep scale) the kernels and the plain
-    mask share: a 32-bit key mixed from the seed, keep iff hash < thresh,
-    and 1/(1 - p) rounded to f32."""
-    seed = int(seed) & ((1 << 64) - 1)
-    key = _fmix32_int(_fmix32_int((seed & _U32) ^ 0x9E3779B9) ^ (seed >> 32))
-    thresh = min(int((1.0 - p_drop) * 4294967296.0), _U32)
-    keep_scale = float(np.float32(1.0) / np.float32(1.0 - p_drop))
-    return key, thresh, keep_scale
-
-
 def dropout_keep_mask_plain(seed, b, h, tq, tk, p_drop, device="cpu"):
     """The kernels' scaled keep mask, [b, h, tq, tk] f32: keep_scale
     (1/(1 - p_drop) in f32) where a score is kept, else 0. Bit for bit
-    what the device hash gives (csrc/attention_common.cuh)."""
-    key, thresh, keep_scale = _dropout_params(seed, p_drop)
+    what the device hash gives (csrc/attention_common.cuh). ``seed``: an
+    int, a 0-d int64 tensor (the op seed) or a ``rng.SeedHandle``; the
+    key is mixed from it with tensor ops (no host read)."""
     dev = torch.device(device)
+    key = rng.stream_key_tensor(rng.op_seed_tensor(seed, dev))
     bh = (torch.arange(b, device=dev)[:, None] * h
           + torch.arange(h, device=dev)[None, :])            # [b, h]
-    hbh = _fmix32(bh ^ key)
-    rows = torch.arange(tq, device=dev)
-    hrow = _fmix32(hbh[:, :, None] ^ rows)                   # [b, h, tq]
+    hrow = rng.row_hash(key, bh[:, :, None],
+                        torch.arange(tq, device=dev))        # [b, h, tq]
     cols = torch.arange(tk, device=dev)
-    bits = _fmix32(hrow[..., None] ^ cols)                   # [b, h, tq, tk]
-    return torch.where(bits < thresh, keep_scale, 0.0).to(torch.float32)
+    bits = rng.fmix32(hrow[..., None] ^ cols)                # [b, h, tq, tk]
+    return torch.where(bits < rng.keep_threshold(p_drop),
+                       rng.keep_scale(p_drop), 0.0).to(torch.float32)
 
 
 def mask_run_split(start: int, tk: int):
@@ -251,7 +223,6 @@ def dropout_keep_mask(seed, b, h, tq, tk, p_drop, device):
     h, tk] f32 (the layout of the JAX package's mask dump). On a CUDA
     device it is written by the dump kernel of csrc/dropout_mask.cu; on
     the CPU it is the plain version."""
-    global mask_launches
     device = torch.device(device)
     if device.type == "cpu":
         return dropout_keep_mask_plain(seed, b, h, tq, tk, p_drop,
@@ -263,14 +234,15 @@ def dropout_keep_mask(seed, b, h, tq, tk, p_drop, device):
     if b > 65535:
         raise NotImplementedError(f"dropout_keep_mask: b={b}; the kernel "
                                   f"takes b <= 65535")
-    key, thresh, keep_scale = _dropout_params(seed, p_drop)
+    seed_t, op_idx = rng.kernel_seed(seed, device)
     out = torch.empty((b, tq, h, tk), dtype=torch.float32, device=device)
     entry = kernels.function(_MASK_SOURCE, "pt_dropout_keep_mask",
                              _MASK_ARGS)
-    rc = entry(out.data_ptr(), b, tq, h, tk, key, thresh, keep_scale,
+    rc = entry(out.data_ptr(), b, tq, h, tk, seed_t.data_ptr(), op_idx,
+               rng.keep_threshold(p_drop), rng.keep_scale(p_drop),
                torch.cuda.current_stream(device).cuda_stream)
     kernels.check(_MASK_SOURCE, rc, "dropout_keep_mask")
-    mask_launches += 1
+    kernels.count("attention_mask")
     return out
 
 
@@ -387,8 +359,7 @@ def attention_bwd_plain(q, k, v, bias, seed, out, lse, g, scale=None,
 
 
 def _count_dense():
-    global dense_calls
-    dense_calls += 1
+    kernels.count("attention_dense")
 
 
 def _takes_plain(fn, q, route):
@@ -717,7 +688,8 @@ def _bias_strides(bias, b, h, tq, tk):
 
 # ctypes signatures of the C entries (``kernels.function`` binds them)
 _ARGS_TAIL = ([ctypes.c_longlong] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2
-              + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float])
+              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                 ctypes.c_float])
 _FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
@@ -725,7 +697,7 @@ _BWD_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
              + [ctypes.POINTER(ctypes.c_longlong)] + _ARGS_TAIL
              + [ctypes.c_int, ctypes.c_void_p])
 _MASK_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 4
-              + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
                  ctypes.c_void_p])
 
 
@@ -768,16 +740,24 @@ def _rows(t, dtype, device):
 
 
 def _common_args(q, k, bias, scale, seed, p_drop, causal):
-    """The launch arguments after the stride array: bias strides, scale,
-    dtype, causal and dropout."""
+    """(the launch arguments after the stride array: bias strides, scale,
+    dtype, causal and dropout; the seed tensor they point to, which the
+    caller keeps alive over the launch)."""
     b, tq, h, _ = q.shape
     sb = sh = sq = 0
     if bias is not None:
         sb, sh, sq = _bias_strides(bias, b, h, tq, k.shape[1])
-    drop = [0, 0, 0, 0.0] if p_drop <= 0.0 else [
-        1, *_dropout_params(seed, p_drop)]
+    seed_t = None
+    if p_drop <= 0.0:
+        drop = [0, None, -1, 0, 0.0]
+    else:
+        # the kernels read the seed from device memory and mix the op
+        # seed and stream key in their prologue
+        seed_t, op_idx = rng.kernel_seed(seed, q.device)
+        drop = [1, seed_t.data_ptr(), op_idx, rng.keep_threshold(p_drop),
+                rng.keep_scale(p_drop)]
     return [sb, sh, sq, float(scale), 1 if q.dtype == torch.bfloat16 else 0,
-            1 if causal else 0, *drop]
+            1 if causal else 0, *drop], seed_t
 
 
 def _bias_tensor(bias, q):
@@ -801,7 +781,6 @@ def _launch_fwd(route, q, k, v, bias, scale, seed, p_drop, causal, out, lse):
     (batch, time, head) strides. f32 takes the key split of
     ``f32_fwd_plan``, with scratch for the splits' partials when there is
     more than one."""
-    global launches
     fn = "flash_attention_bthd_fwd"
     _check_qkv(fn, q, k, v)
     b, tq, h, dh = q.shape
@@ -814,19 +793,18 @@ def _launch_fwd(route, q, k, v, bias, scale, seed, p_drop, causal, out, lse):
         if splits > 1:
             part = torch.empty(splits * b * h * tq * (dh + 2),
                                dtype=torch.float32, device=q.device)
+    common, _seed_t = _common_args(q, k, bias, scale, seed, p_drop, causal)
     entry = kernels.function(_FWD_SOURCE, "pt_flash_attention_bthd_fwd",
                              _FWD_ARGS)
     rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, dh, _strides(q, k, v, out, lse),
-        *_common_args(q, k, bias, scale, seed, p_drop, causal),
+        b, tq, tk, h, dh, _strides(q, k, v, out, lse), *common,
         splits, split_keys, None if part is None else part.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(_FWD_SOURCE, rc, fn)
-    launches += 1
-    launch_counts[(route, "fwd")] += 1
+    kernels.count(("attention", route, "fwd"))
 
 
 def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
@@ -836,7 +814,6 @@ def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
     of ``passes``) and pass B (dq; bit 2). Every tensor is a BTHD view
     with any (batch, time, head) strides; lse and g_lse are [b, tq, h,
     1]."""
-    global bwd_launches
     fn = "flash_attention_bthd_bwd"
     _check_qkv(fn, q, k, v)
     b, tq, h, dh = q.shape
@@ -854,6 +831,7 @@ def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
     if g_lse is not None:
         g_lse = _rows(g_lse, torch.float32, q.device)
     delta = torch.empty((b, tq, h), dtype=torch.float32, device=q.device)
+    common, _seed_t = _common_args(q, k, bias, scale, seed, p_drop, causal)
     entry = kernels.function(_BWD_SOURCE, "pt_flash_attention_bthd_bwd",
                              _BWD_ARGS)
     rc = entry(
@@ -863,9 +841,7 @@ def _launch_bwd(route, q, k, v, bias, seed, out, lse, g, g_lse, scale,
         None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, tq, k.shape[1], h, dh,
-        _strides(q, k, v, out, g, lse, g_lse, dq, dk, dv),
-        *_common_args(q, k, bias, scale, seed, p_drop, causal), passes,
+        _strides(q, k, v, out, g, lse, g_lse, dq, dk, dv), *common, passes,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(_BWD_SOURCE, rc, fn)
-    bwd_launches += 1
-    launch_counts[(route, "bwd")] += 1
+    kernels.count(("attention", route, "bwd"))

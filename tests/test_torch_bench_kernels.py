@@ -26,6 +26,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
+from paddle_tpu_torch import kernels
 from paddle_tpu_torch.benchmarks import attn_ablate, conv_bwd, grouped_conv
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -221,10 +222,10 @@ def test_wrappers_check_their_inputs_on_the_cpu():
     q, k, v = attn_ablate.make_inputs(1, 1, 64, 16)
     with pytest.raises(ValueError, match="expected"):
         attn_ablate.make_fwd("full", 1, 2, 64, 16, 64, 64)(q, k, v)
-    before = (conv_bwd.launches, grouped_conv.launches, attn_ablate.launches)
+    sources = (conv_bwd.SOURCE, grouped_conv.SOURCE, attn_ablate.SOURCE)
+    before = [kernels.launch_counts[s] for s in sources]
     conv_bwd.combined_conv1x1_bwd(x, dy, w)
     grouped_conv.grouped_conv(xg, wg, 8)
     attn_ablate.make_fwd("full", 1, 1, 64, 16, 64, 64)(q, k, v)
     # CPU tensors take the plain versions: no launch is counted
-    assert before == (conv_bwd.launches, grouped_conv.launches,
-                      attn_ablate.launches)
+    assert before == [kernels.launch_counts[s] for s in sources]

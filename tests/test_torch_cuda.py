@@ -13,9 +13,11 @@ lse, f32 in both dtypes, 5e-6; dq/dk/dv relative to the largest
 mask is compared bit for bit. The kernel studies' tolerances stand above
 their tests."""
 
+import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import kernels
 from paddle_tpu_torch.parallel import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -46,11 +48,11 @@ def test_kernel_matches_plain(cuda, dtype, b, tq, tk, dh, causal, pad):
     if pad:
         bias = torch.where(torch.arange(tk, device=cuda) < tk - 5, 0.0,
                            -1e9)[None, None, None, :]
-    before = fa.launches
+    before = fa.launched("fwd")
     out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, None, None, 0.0,
                                            causal)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launched("fwd") == before + 1
     eff = fa._combined_causal_bias(bias, tq, tk, cuda) if causal else bias
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, eff)
     tol = 5e-6 if dtype == torch.float32 else 8e-3
@@ -69,15 +71,15 @@ def test_unported_regimes_raise_and_decode_stays_plain(cuda):
                           (1, 1024, "bhtd"), (1, 128, "dense")):
         assert fa.attention_route(tq, tk, h, dh) == route
         kv = torch.randn(1, tk, h, dh, device=cuda)
-        fa.reset_counts()
+        kernels.reset_counts()
         out, lse = fa.flash_attention_bthd_fwd(q[:, :tq], kv, kv)
         grads = fa.flash_attention_bthd_bwd(q[:, :tq], kv, kv, None, None,
                                             out, lse, out)
         torch.cuda.synchronize()
         kernel = route != "dense"
-        assert fa.launch_counts.get((route, "fwd"), 0) == int(kernel)
-        assert fa.launch_counts.get((route, "bwd"), 0) == int(kernel)
-        assert fa.dense_calls == 2 * (not kernel)
+        assert kernels.launch_counts["attention", route, "fwd"] == int(kernel)
+        assert kernels.launch_counts["attention", route, "bwd"] == int(kernel)
+        assert kernels.launch_counts["attention_dense"] == 2 * (not kernel)
         assert out.shape == (1, tq, h, dh) and grads[1].shape == kv.shape
 
 
@@ -116,11 +118,11 @@ def test_bwd_kernel_matches_plain(cuda, dtype, kind, tq, tk, p_drop):
     assert (out.float() - ref_out.float()).abs().max().item() <= \
         (5e-6 if f32 else 8e-3)
     assert (lse - ref_lse).abs().max().item() <= 5e-6
-    before = fa.bwd_launches
+    before = fa.launched("bwd")
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
                                         None, p_drop, causal)
     torch.cuda.synchronize()
-    assert fa.bwd_launches == before + 1
+    assert fa.launched("bwd") == before + 1
     refs = fa.attention_bthd_bwd_plain(q, k, v, eff, seed, out, lse, dout,
                                        None, p_drop)
     for got, ref in zip(grads, refs):
@@ -152,10 +154,10 @@ def test_bwd_kernel_head_widths_and_ragged(cuda, dh, tq, tk):
     (1, 5, 3, 3),
 ])
 def test_mask_dump_equals_plain_mask(cuda, b, h, tq, tk):
-    before = fa.mask_launches
+    before = kernels.launch_counts["attention_mask"]
     got = fa.dropout_keep_mask(123, b, h, tq, tk, 0.1, cuda)
     torch.cuda.synchronize()
-    assert fa.mask_launches == before + 1
+    assert kernels.launch_counts["attention_mask"] == before + 1
     ref = fa.dropout_keep_mask_plain(123, b, h, tq, tk, 0.1, cuda)
     assert torch.equal(got, ref.permute(0, 2, 1, 3))
 
@@ -164,11 +166,11 @@ def test_autograd_function_runs_the_backward_kernel(cuda):
     q, k, v, bias, _, dout = _bwd_inputs(cuda, torch.float32, 2, 128, 128,
                                          64, "pad")
     q, k, v = (x.requires_grad_() for x in (q, k, v))
-    before = fa.bwd_launches
+    before = fa.launched("bwd")
     out, _ = fa.flash_attention_bthd_with_lse(q, k, v, bias, 9, None, 0.1,
                                               True)
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-    assert fa.bwd_launches == before + 1
+    assert fa.launched("bwd") == before + 1
     q2, k2, v2 = (x.detach().cpu().requires_grad_() for x in (q, k, v))
     out2, _ = fa.attention_bthd_plain(
         q2, k2, v2, fa._combined_causal_bias(bias.cpu(), 128, 128, "cpu"),
@@ -221,14 +223,15 @@ def test_long_routes_match_plain(cuda, dtype, route, b, tq, tk, kind,
     q, k, v, bias, causal, dout = _long_inputs(cuda, dtype, b, tq, tk, kind)
     assert fa.attention_route(tq, tk, 8, 64) == route
     seed = 31 if p_drop else None
-    fa.reset_counts()
+    kernels.reset_counts()
     out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
                                            p_drop, causal)
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
                                         None, p_drop, causal)
     torch.cuda.synchronize()
-    assert fa.launch_counts[(route, "fwd")] == 1
-    assert fa.launch_counts[(route, "bwd")] == 1 and fa.dense_calls == 0
+    assert kernels.launch_counts["attention", route, "fwd"] == 1
+    assert kernels.launch_counts["attention", route, "bwd"] == 1
+    assert kernels.launch_counts["attention_dense"] == 0
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, bias, None, seed,
                                                p_drop, causal)
     f32 = dtype == torch.float32
@@ -248,13 +251,13 @@ def test_bhtd_layout_strides_and_lse_cotangent(cuda, causal):
     q, k, v, bias, _, dout = _long_inputs(cuda, torch.float32, 2, 512, 512,
                                           "pad", bhtd=True)
     g_lse = torch.randn(2, 8, 512, 1, device=cuda)
-    fa.reset_counts()
+    kernels.reset_counts()
     out, lse = fa.flash_attention_fwd(q, k, v, bias, causal=causal)
     grads = fa.flash_attention_bwd(q, k, v, bias, None, out, lse, dout,
                                    causal=causal, g_lse=g_lse)
     torch.cuda.synchronize()
-    assert fa.launch_counts[("bhtd", "fwd")] == 1
-    assert fa.launch_counts[("bhtd", "bwd")] == 1
+    assert kernels.launch_counts["attention", "bhtd", "fwd"] == 1
+    assert kernels.launch_counts["attention", "bhtd", "bwd"] == 1
     ref_out, ref_lse = fa.attention_plain(q, k, v, bias, causal=causal)
     assert out.shape == q.shape and lse.shape == (2, 8, 512, 1)
     assert _abs(out, ref_out) <= 5e-6 and _abs(lse, ref_lse) <= 5e-6
@@ -269,10 +272,10 @@ def test_decode_step_shape_launches_the_bhtd_forward(cuda):
     1024): the bhtd forward kernel, against the plain version."""
     q, k, v, bias, _, _ = _long_inputs(cuda, torch.float32, 4, 1, 1024,
                                        "pad")
-    fa.reset_counts()
+    kernels.reset_counts()
     out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias)
     torch.cuda.synchronize()
-    assert fa.launch_counts[("bhtd", "fwd")] == 1
+    assert kernels.launch_counts["attention", "bhtd", "fwd"] == 1
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, bias)
     assert _abs(out, ref_out) <= 5e-6 and _abs(lse, ref_lse) <= 5e-6
 
@@ -313,21 +316,21 @@ def _bwd_vs_plain(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
         gl = (torch.randn(lse.shape, device=cuda,
                           generator=torch.Generator(device=cuda)
                           .manual_seed(4)) if g_lse else None)
-        fa.reset_counts()
+        kernels.reset_counts()
         grads = fa.flash_attention_bwd(q, k, v, bias, seed, out, lse, dout,
                                        None, p_drop, causal=causal, g_lse=gl)
         torch.cuda.synchronize()
-        counts = dict(fa.launch_counts)
+        counts = fa.route_counts()
         refs = fa.attention_bwd_plain(q, k, v, bias, seed, out, lse, dout,
                                       None, p_drop, causal, gl)
         return grads, refs, counts
     out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
                                            p_drop, causal)
-    fa.reset_counts()
+    kernels.reset_counts()
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse, dout,
                                         None, p_drop, causal)
     torch.cuda.synchronize()
-    counts = dict(fa.launch_counts)
+    counts = fa.route_counts()
     route, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
     refs = fa.attention_bthd_bwd_plain(q, k, v, rbias, seed, out, lse, dout,
                                        None, p_drop, rcausal)
@@ -434,21 +437,22 @@ def test_bwd_refuses_what_the_kernel_does_not_take(cuda):
     """float16 raises before any launch, and so does a head dim past 256,
     which the kernels do not take."""
     q = torch.randn(1, 256, 2, 64, device=cuda).to(torch.float16)
-    before = fa.bwd_launches
+    before = fa.launched("bwd")
     with pytest.raises(TypeError):
         fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
                                     torch.zeros(1, 256, 2, 1, device=cuda),
                                     q)
-    assert fa.bwd_launches == before
+    assert fa.launched("bwd") == before
     q = torch.randn(1, 256, 2, 264, device=cuda).to(torch.bfloat16)
-    fa.reset_counts()
+    kernels.reset_counts()
     with pytest.raises(NotImplementedError, match="dh=264"):
         fa.flash_attention_bthd_fwd(q, q, q)
     with pytest.raises(NotImplementedError, match="dh=264"):
         fa.flash_attention_bthd_bwd(q, q, q, None, None, q,
                                     torch.zeros(1, 256, 2, 1, device=cuda),
                                     q)
-    assert fa.launches == fa.bwd_launches == fa.dense_calls == 0
+    assert fa.launched("fwd") == fa.launched("bwd") == 0
+    assert kernels.launch_counts["attention_dense"] == 0
 
 
 def _assert_f32_grads(grads, refs):
@@ -566,7 +570,7 @@ def _bf16_fwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
         qkv = torch.cat([x.reshape(b, tq, h * dh) for x in (q, k, v)], -1)
         q, k, v = (x.reshape(b, tq, h, dh) for x in qkv.split(h * dh, -1))
     seed = 37 if p_drop else None
-    fa.reset_counts()
+    kernels.reset_counts()
     if bhtd:
         out, lse = fa.flash_attention_fwd(q, k, v, bias, seed, None, p_drop,
                                           causal=causal)
@@ -579,7 +583,7 @@ def _bf16_fwd(cuda, b, tq, tk, h, dh, kind, p_drop=0.0, causal=False,
         _, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
         refs = fa.attention_bthd_plain(q, k, v, rbias, None, seed, p_drop,
                                        rcausal)
-    return (out, lse), refs, dict(fa.launch_counts)
+    return (out, lse), refs, fa.route_counts()
 
 
 def _assert_bf16_fwd(got, refs, shape):
@@ -609,7 +613,8 @@ def test_bf16_fwd_kernel_matches_plain(cuda, route, b, tq, tk, h, dh, kind,
     got, refs, counts = _bf16_fwd(cuda, b, tq, tk, h, dh, kind, p_drop,
                                   causal)
     assert fa.attention_route(tq, tk, h, dh) == route
-    assert counts[(route, "fwd")] == 1 and fa.dense_calls == 0
+    assert counts[(route, "fwd")] == 1
+    assert kernels.launch_counts["attention_dense"] == 0
     _assert_bf16_fwd(got, refs, (b, tq, h, dh))
 
 
@@ -699,11 +704,12 @@ def test_f32_decode_kernel_matches_plain(cuda, layout, b, tq, tk, kind,
         ref = fa.attention_bthd_plain(q, k, v, bias, None, seed, p_drop,
                                       causal)
     assert route != "dense"
-    fa.reset_counts()
+    kernels.reset_counts()
     out, lse = run()
     out2, lse2 = run()
     torch.cuda.synchronize()
-    assert fa.launch_counts[(route, "fwd")] == 2 and fa.dense_calls == 0
+    assert kernels.launch_counts["attention", route, "fwd"] == 2
+    assert kernels.launch_counts["attention_dense"] == 0
     assert _abs(out, ref[0]) <= 5e-6, _abs(out, ref[0])
     assert _abs(lse, ref[1]) <= 5e-6, _abs(lse, ref[1])
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
@@ -750,13 +756,14 @@ def test_wide_heads_launch_the_kernels(cuda, dtype, route, tq, tk, dh,
     q, k, v, bias, _, dout = _long_inputs(cuda, dtype, 1, tq, tk, "pad",
                                           h=2, dh=dh)
     assert fa.attention_route(tq, tk, 2, dh) == route
-    fa.reset_counts()
+    kernels.reset_counts()
     out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, causal=causal)
     grads = fa.flash_attention_bthd_bwd(q, k, v, bias, None, out, lse, dout,
                                         None, 0.0, causal)
     torch.cuda.synchronize()
-    assert fa.launch_counts[(route, "fwd")] == 1
-    assert fa.launch_counts[(route, "bwd")] == 1 and fa.dense_calls == 0
+    assert kernels.launch_counts["attention", route, "fwd"] == 1
+    assert kernels.launch_counts["attention", route, "bwd"] == 1
+    assert kernels.launch_counts["attention_dense"] == 0
     _, rbias, rcausal = fa._bthd_route(q, k, causal, bias)
     ref_out, ref_lse = fa.attention_bthd_plain(q, k, v, rbias, None, None,
                                                0.0, rcausal)
@@ -798,11 +805,11 @@ def test_conv1x1_bwd_kernel_matches_plain(cuda, n, ci, co):
     from paddle_tpu_torch.benchmarks import conv_bwd as cb
 
     x, dy, w = cb.make_inputs(n, ci, co, seed=1, device=cuda)
-    before = cb.launches
+    before = kernels.launch_counts[cb.SOURCE]
     dx, dw = cb.combined_conv1x1_bwd(x, dy, w)
     dx2, dw2 = cb.combined_conv1x1_bwd(x, dy, w)
     torch.cuda.synchronize()
-    assert cb.launches == before + 2
+    assert kernels.launch_counts[cb.SOURCE] == before + 2
     ref_dx, ref_dw = cb.combined_conv1x1_bwd_plain(x, dy, w)
     assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
     assert (dx.float() - ref_dx.float()).abs().max() <= \
@@ -849,11 +856,11 @@ def test_grouped_conv_kernel_matches_plain_and_library(cuda, n, h, w, c,
     from paddle_tpu_torch.benchmarks import grouped_conv as gc
 
     x, wg = gc.make_inputs(n, h, w, c, groups=groups, seed=1, device=cuda)
-    before = gc.launches
+    before = kernels.launch_counts[gc.SOURCE]
     y = gc.grouped_conv(x, wg, groups)
     y2 = gc.grouped_conv(x, wg, groups)
     torch.cuda.synchronize()
-    assert gc.launches == before + 2
+    assert kernels.launch_counts[gc.SOURCE] == before + 2
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
     for ref in (gc.grouped_conv_plain(x, wg, groups),
                 gc.conv_ref(x, wg, groups)):
@@ -889,10 +896,10 @@ def test_attn_ablate_kernel_matches_plain(cuda, variant, b, h, t, dh, bk):
 
     q, k, v = aa.make_inputs(b, h, t, dh, seed=1, device=cuda)
     fwd = aa.make_fwd(variant, b, h, t, dh, t, bk)
-    before = aa.launches
+    before = kernels.launch_counts[aa.SOURCE]
     out = fwd(q, k, v)
     torch.cuda.synchronize()
-    assert aa.launches == before + 1
+    assert kernels.launch_counts[aa.SOURCE] == before + 1
     ref = aa.attn_ablate_plain(q, k, v, variant, bk)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max() <= \
@@ -979,3 +986,249 @@ def test_vision_ops_run_on_the_card(cuda):
         assert np.isfinite(amp_loss) and abs(float(amp_loss) - float(cpu)) < 0.1
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# --- the dropout op's kernel and the device seeds ---
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((1,), 0),            # the tail alone
+    ((7,), 0),
+    ((13, 33), 0),        # ragged: a tail after the vectors
+    ((64, 250, 3), 0),
+    ((5, 1029), 3),       # an unaligned view: copied to 16 bytes first
+])
+@pytest.mark.parametrize("p,upscale", [(0.1, True), (0.5, False)])
+def test_dropout_kernel_bit_for_bit_against_plain(cuda, dtype, shape, offset,
+                                                  p, upscale):
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import nn_ops
+
+    n = int(torch.tensor(shape).prod())
+    base = torch.randn(n + offset, generator=torch.Generator(device=cuda)
+                       .manual_seed(9), device=cuda).to(dtype)
+    x = base[offset:].reshape(shape)
+    before = kernels.launch_counts["dropout"]
+    out, mask = nn_ops.dropout_fwd(x, 2024, p, upscale)
+    assert kernels.launch_counts["dropout"] == before + 1
+    ref_out, ref_mask = nn_ops.dropout_plain(x, 2024, p, upscale)
+    assert out.dtype == dtype and mask.dtype == torch.uint8
+    assert torch.equal(mask, ref_mask)
+    assert torch.equal(out.view(torch.uint8 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref_out.view(torch.uint8 if dtype == torch.bfloat16
+                                    else torch.int32))
+    # an int seed, the same seed in a device tensor, and a handle whose op
+    # seed is that seed give one mask
+    buf = torch.full((), 11, dtype=torch.int64, device=cuda)
+    handle = rng.SeedHandle(buf, 4)
+    want = rng.mix64(11, 4)
+    for seed in (torch.full((), want, dtype=torch.int64, device=cuda),
+                 handle):
+        assert torch.equal(nn_ops.dropout_fwd(x, seed, p, upscale)[1],
+                           nn_ops.dropout_fwd(x, want, p, upscale)[1])
+
+
+def test_attention_kernels_take_device_seeds(cuda):
+    """An int seed, its device tensor and a seed handle mixing to it give
+    the kernels one mask: forward outputs and gradients equal bit for
+    bit."""
+    from paddle_tpu_torch.core import rng
+
+    q, k, v, bias, _, dout = _bwd_inputs(cuda, torch.bfloat16, 2, 128, 128,
+                                         64, "pad")
+    buf = torch.full((), 5, dtype=torch.int64, device=cuda)
+    want = rng.mix64(5, 17)
+    results = []
+    for seed in (want, torch.full((), want, dtype=torch.int64, device=cuda),
+                 rng.SeedHandle(buf, 17)):
+        out, lse = fa.flash_attention_bthd_fwd(q, k, v, bias, seed, None,
+                                               0.2)
+        grads = fa.flash_attention_bthd_bwd(q, k, v, bias, seed, out, lse,
+                                            dout, None, 0.2)
+        results.append((out, *grads))
+    for other in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(results[0], other))
+    assert torch.equal(
+        fa.dropout_keep_mask(rng.SeedHandle(buf, 17), 2, 8, 128, 128, 0.2,
+                             cuda),
+        fa.dropout_keep_mask_plain(want, 2, 8, 128, 128, 0.2,
+                                   cuda).permute(0, 2, 1, 3))
+
+
+# --- the captured step ---
+
+
+def _tiny_training(dropout, seed=3):
+    """A two-layer Transformer training program (Adam) and its feeds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(src_vocab_size=37, trg_vocab_size=41,
+                              max_length=64, d_model=64, d_inner=128,
+                              n_head=2, n_layer=2, dropout=dropout,
+                              label_smooth_eps=0.1)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        with fluid.unique_name.guard():
+            model = T.build(cfg)
+            fluid.optimizer.Adam(1e-3).minimize(model["loss"])
+    main.random_seed = startup.random_seed = seed
+    feeds = [T.make_batch(cfg, 4, 32, 32, seed=i) for i in range(2)]
+    return fluid, main, startup, model, feeds
+
+
+def _dropout_masks(main):
+    return [op.outputs["Mask"][0] for op in main.global_block().ops
+            if op.type == "dropout"]
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_captured_steps_equal_eager_steps(cuda, dropout):
+    """Four steps through the captured path (step 1 eager, then capture
+    and replays) against four uncached eager runs from the same startup
+    state: the same losses, dropout masks and parameters, bit for bit,
+    and the kernels' launch counts alike."""
+    fluid, main, startup, model, feeds = _tiny_training(dropout)
+    masks = _dropout_masks(main)
+    fetch = [model["loss"]] + masks[:2]
+    runs = {}
+    for cached in (False, True):
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            kernels.reset_counts()
+            got = [exe.run(main, feed=feeds[i % 2], fetch_list=fetch,
+                           use_program_cache=cached) for i in range(4)]
+            counts = (fa.launched("fwd"), fa.launched("bwd"),
+                      fa.route_counts())
+            params = {p.name: scope.find_var(p.name).clone()
+                      for p in main.all_parameters()}
+        runs[cached] = (got, counts, params)
+        exe.close()
+    (eager, e_counts, e_params), (capt, c_counts, c_params) = (runs[False],
+                                                               runs[True])
+    assert e_counts == c_counts and e_counts[0] == 4 * 6
+    for step, (a, b) in enumerate(zip(eager, capt)):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y), step
+    if dropout:
+        # a new mask every step
+        assert not np.array_equal(eager[2][1], eager[3][1])
+    for n in e_params:
+        assert torch.equal(e_params[n], c_params[n]), n
+
+
+def test_run_steps_replays_the_window(cuda):
+    """run_steps(5) equals five runs, and the replays count their
+    launches: 6 forward and 6 backward attention launches a step."""
+    fluid, main, startup, model, feeds = _tiny_training(0.1)
+    results = []
+    for window in (True, False):
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            kernels.reset_counts()
+            if window:
+                (loss,) = exe.run_steps(main, feeds, 5, [model["loss"]])
+            else:
+                for i in range(5):
+                    (loss,) = exe.run(main, feed=feeds[i % 2],
+                                      fetch_list=[model["loss"]])
+            results.append((loss, fa.launched("fwd"), fa.launched("bwd")))
+        exe.close()
+    assert results[0] == results[1]
+    assert results[0][1] == results[0][2] == 5 * 6
+
+
+def test_fetches_survive_the_next_replay(cuda):
+    fluid, main, startup, model, feeds = _tiny_training(0.1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        exe.run(main, feed=feeds[0], fetch_list=[model["loss"]])
+        first = exe.run(main, feed=feeds[0], fetch_list=[model["loss"]],
+                        async_fetch=True)[0]
+        kept = first.clone()
+        second = exe.run(main, feed=feeds[1], fetch_list=[model["loss"]],
+                         async_fetch=True)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(first, kept) and not torch.equal(first, second)
+    exe.close()
+
+
+def _wide_mlp(fluid, width=1024, depth=4):
+    """A training program of ``depth`` fc layers (SGD) whose activations
+    dominate its memory at a large batch."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        with fluid.unique_name.guard():
+            x = fluid.layers.data("x", shape=[width], dtype="float32")
+            h = x
+            for _ in range(depth):
+                h = fluid.layers.fc(h, width, act="relu")
+            loss = fluid.layers.mean(h)
+            fluid.optimizer.SGD(1e-3).minimize(loss)
+    main.random_seed = startup.random_seed = 5
+    return main, startup, h, loss
+
+
+def test_graphs_of_one_executor_share_one_pool(cuda):
+    """One program with a second fetch list and at a second feed shape
+    captures three graphs; they share the executor's memory pool, so the
+    memory they reserve stays under 1.5x what the first capture reserved
+    (three private pools would hold about 2.5x)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, h, loss = _wide_mlp(fluid)
+    rng = np.random.default_rng(0)
+    big = {"x": rng.standard_normal((16384, 1024), np.float32)}
+    small = {"x": big["x"][:8192]}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        exe.run(main, feed=big, fetch_list=[loss])  # eager: the warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_reserved()
+        exe.run(main, feed=big, fetch_list=[loss])  # captured
+        torch.cuda.synchronize()
+        first = torch.cuda.memory_reserved() - base
+        for feed, fetch in ((big, [loss, h]), (small, [loss]),
+                            (small, [loss, h])):
+            for _ in range(3):
+                got = exe.run(main, feed=feed, fetch_list=fetch)
+            assert np.isfinite(got[0]) and got[-1].size in (
+                1, feed["x"].size)
+        torch.cuda.synchronize()
+        total = torch.cuda.memory_reserved() - base
+    exe.close()
+    # a 16384 x 1024 f32 activation is 64 MiB; the step holds several
+    assert first > 256 * 2**20, first
+    assert total < 1.5 * first, (first, total)
+
+
+def test_a_step_that_cannot_be_captured_raises(cuda):
+    """assign_value copies its constant from host memory, which a CUDA
+    graph cannot capture: the second run raises, naming the op, and does
+    not run eagerly instead; a block of host-seeded random fills (a
+    startup program) is never captured and runs at every call."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        c = fluid.layers.assign(np.arange(4, dtype=np.float32))
+        out = fluid.layers.elementwise_add(fluid.layers.fc(x, 4), c)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {"x": np.ones((2, 4), np.float32)}
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        exe.run(startup)
+        (first,) = exe.run(main, feed=feed, fetch_list=[out])
+        with pytest.raises(RuntimeError, match="assign_value"):
+            exe.run(main, feed=feed, fetch_list=[out])
+    assert first.shape == (2, 4)
+    exe.close()

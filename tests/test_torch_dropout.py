@@ -159,3 +159,107 @@ def test_dropout_op_and_its_grad_share_one_mask(impl):
     np.testing.assert_allclose(dx, np.where(keep, cot * s, 0.0), rtol=1e-6)
     t = 1.0 if impl == "upscale_in_train" else 1.0 - p
     np.testing.assert_allclose(y_test, x * t, rtol=1e-6)
+
+
+# --- the dropout op's mask (ops/nn_ops.py dropout_plain; the card's
+# dropout_apply_kernel gives the same bits, tests/test_torch_cuda.py) ---
+
+
+@pytest.mark.parametrize("p", [0.1, 0.3, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_op_mask_keep_rate_within_three_sigma(p, dtype):
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import nn_ops
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(64, 500).astype(
+        np.float32)).to(dtype)
+    out, mask = nn_ops.dropout_plain(x, 2024, p, True)
+    assert mask.dtype == torch.uint8 and out.dtype == dtype
+    n = mask.numel()
+    keep = mask.double().mean().item()
+    assert abs(keep - (1 - p)) <= 3 * np.sqrt(p * (1 - p) / n)
+    kept = mask.bool()
+    scaled = (x.float() * rng.keep_scale(p)).to(dtype)
+    assert torch.equal(out[kept], scaled[kept])
+    assert (out[~kept] == 0).all()
+    # the mask does not depend on the dtype, and downgrade_in_infer keeps x
+    out_d, mask_d = nn_ops.dropout_plain(x.float(), 2024, p, False)
+    assert torch.equal(mask_d, mask)
+    assert torch.equal(out_d[kept], x.float()[kept])
+
+
+def test_dropout_op_mask_from_int_tensor_and_handle_seeds():
+    """An int seed, the same op seed in a 0-d tensor, and a seed handle
+    whose buffer and index mix to it give the same bits; another seed
+    another mask."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.ops import nn_ops
+
+    x = torch.ones(7, 33)
+    want = rng.mix64(rng.step_seed(5, 2), 3)
+    ref = nn_ops.dropout_plain(x, want, 0.4, True)[1]
+    handle = rng.SeedHandle(torch.tensor(rng.step_seed(5, 2)), 3)
+    for seed in (torch.tensor(want), handle):
+        assert torch.equal(nn_ops.dropout_plain(x, seed, 0.4, True)[1], ref)
+    other = nn_ops.dropout_plain(x, want + 1, 0.4, True)[1]
+    assert (other != ref).double().mean().item() > 0.2
+    # element i hashes (hi32(i), lo32(i)): the mask of a prefix is the
+    # prefix of the mask
+    flat = nn_ops.dropout_plain(torch.ones(231), want, 0.4, True)[1]
+    assert torch.equal(flat, ref.reshape(-1))
+
+
+def test_dropout_op_masks_move_with_the_step_and_the_grad_follows():
+    """Each run of a program is another step: another mask; the grad of
+    every run consumes that run's mask."""
+    p = 0.35
+    x = np.random.RandomState(0).randn(8, 50).astype(np.float32)
+    cot = np.random.RandomState(1).randn(8, 50).astype(np.float32)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        xv = layers.data("x", shape=[8, 50], append_batch_size=False,
+                         stop_gradient=False)
+        out = layers.dropout(xv, p, dropout_implementation="upscale_in_train")
+        c = layers.data("cot", shape=[8, 50], append_batch_size=False)
+        loss = layers.reduce_sum(layers.elementwise_mul(out, c))
+        append_backward(loss, parameter_list=[])
+    mask_name = main.global_block().ops[0].outputs["Mask"][0]
+    exe = fluid.Executor(fluid.CPUPlace())
+    masks = []
+    with fluid.scope_guard(fluid.Scope()):
+        for _ in range(3):
+            y, dx, mask = exe.run(main, feed={"x": x, "cot": cot},
+                                  fetch_list=[out, "x@GRAD", mask_name])
+            keep = mask.astype(bool)
+            s = np.float32(1.0) / np.float32(1.0 - p)
+            np.testing.assert_array_equal(y, np.where(keep, x * s, 0.0))
+            np.testing.assert_allclose(dx, np.where(keep, cot * s, 0.0),
+                                       rtol=1e-6)
+            masks.append(mask)
+    assert not np.array_equal(masks[0], masks[1])
+    assert not np.array_equal(masks[1], masks[2])
+
+
+def test_attention_plain_versions_take_tensor_seeds():
+    """The attention plain versions (and the mask they share) give one
+    result for an int seed, the same op seed in a 0-d tensor, and a seed
+    handle mixing to it."""
+    from paddle_tpu_torch.core import rng
+
+    buf = torch.tensor(rng.step_seed(9, 4))
+    want = rng.mix64(rng.step_seed(9, 4), 6)
+    seeds = (want, torch.tensor(want), rng.SeedHandle(buf, 6))
+    masks = [fa.dropout_keep_mask_plain(s, 2, 3, 20, 24, 0.3) for s in seeds]
+    assert all(torch.equal(masks[0], m) for m in masks[1:])
+    q, k, v = _qkv(tq=32, tk=48)
+    outs = [fa.attention_bthd_plain(q, k, v, None, None, s, 0.3)
+            for s in seeds]
+    assert all(torch.equal(outs[0][0], o[0]) for o in outs[1:])
+    g = torch.ones_like(outs[0][0])
+    grads = [fa.attention_bthd_bwd_plain(q, k, v, None, s, *outs[0], g, None,
+                                         0.3) for s in seeds]
+    for other in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(grads[0], other))
+    bhtd = [fa.attention_plain(*(t.transpose(1, 2) for t in (q, k, v)), None,
+                               None, s, 0.3)[0] for s in seeds]
+    assert all(torch.equal(bhtd[0], o) for o in bhtd[1:])

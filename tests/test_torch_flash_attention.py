@@ -104,11 +104,11 @@ def test_decode_shape_takes_the_dense_path_on_cpu():
     composition, with a real lse, and no kernel launch."""
     b, tk, h, dh = 3, 12, 2, 8
     q, k, v, bias = _inputs(b, 1, tk, h, dh, "pad", seed=3)
-    before = tfa.launches
+    before = tfa.launched("fwd")
     out, lse = tfa.flash_attention_bthd_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(bias))
-    assert tfa.launches == before
+    assert tfa.launched("fwd") == before
     s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
                   k.astype(np.float64)) / np.sqrt(dh) + bias
     m = s.max(-1, keepdims=True)

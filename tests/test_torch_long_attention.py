@@ -29,11 +29,19 @@ from paddle_tpu.parallel import flash_attention as jfa
 
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch import io as tio
+from paddle_tpu_torch import kernels
 from paddle_tpu_torch import serving as tserving
 from paddle_tpu_torch import unique_name as tunique
 from paddle_tpu_torch.core.registry import get_op_def
+from paddle_tpu_torch.core.rng import SeedHandle
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.parallel import flash_attention as tfa
+
+
+def _seed_handle():
+    """A random op's seed as the interpreter passes it: the run's seed
+    buffer (step seed 0) and the op's index."""
+    return SeedHandle(torch.zeros((), dtype=torch.int64), 0)
 
 
 @pytest.fixture(autouse=True)
@@ -165,9 +173,9 @@ def test_decode_shape_takes_the_bhtd_route():
     assert tfa.attention_route(1, tk, h, dh) == "bhtd"
     q, k, v, bias, _ = _inputs(b, 1, tk, h, dh, "cross", seed=7)
     j_out, j_lse = jfa.flash_attention_bthd_fwd(*_j(q, k, v, bias))
-    before = tfa.dense_calls
+    before = kernels.launch_counts["attention_dense"]
     t_out, t_lse = tfa.flash_attention_bthd_fwd(*_t(q, k, v, bias))
-    assert tfa.dense_calls == before
+    assert kernels.launch_counts["attention_dense"] == before
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=2e-5,
                                rtol=0)
     np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), atol=1e-5,
@@ -259,7 +267,7 @@ def test_sdpa_op_pair_bhtd_matches_jax_op(tq, tk, causal):
     cpu = torch.device("cpu")
     fwd = get_op_def("scaled_dot_product_attention").compute(
         {s: _t(*a) for s, a in ins.items()}, dict(attrs), device=cpu,
-        generator=torch.Generator().manual_seed(0))
+        seed=_seed_handle())
     j_fwd = jax_op_def("scaled_dot_product_attention").compute(
         {s: _j(*a) for s, a in ins.items()}, dict(attrs),
         rng=jax.random.PRNGKey(0))
@@ -278,7 +286,7 @@ def test_sdpa_op_pair_bhtd_matches_jax_op(tq, tk, causal):
     gattrs = {**attrs, "forward_op_idx": 0}
     grads = get_op_def("scaled_dot_product_attention_grad").compute(
         {s_: _t(*a) for s_, a in gins.items()}, dict(gattrs), device=cpu,
-        generator=torch.Generator().manual_seed(0))
+        seed=_seed_handle())
     j_grads = jax_op_def("scaled_dot_product_attention_grad").compute(
         {s_: _j(*a) for s_, a in gins.items()}, dict(gattrs),
         rng=jax.random.PRNGKey(0))
@@ -324,12 +332,12 @@ def _pair(seq, make_opt):
         with pfluid.scope_guard(pscope):
             j = pexe.run(progs["jax"][0], feed=feed,
                          fetch_list=[progs["jax"][2]["loss"]] + fetch)
-        before = tfa.dense_calls
+        before = kernels.launch_counts["attention_dense"]
         with tfluid.scope_guard(tscope):
             t = texe.run(progs["torch"][0], feed=feed,
                          fetch_list=[progs["torch"][2]["loss"]] + fetch)
         # every attention of the step took a kernel route
-        assert tfa.dense_calls == before
+        assert kernels.launch_counts["attention_dense"] == before
         return [np.asarray(x) for x in j], t
 
     return progs["torch"][0], step
@@ -391,10 +399,10 @@ def test_long_serving_tokens_equal_jax_tokens():
         return [(list(h.tokens), h.outcome) for h in hs]
 
     jax_out = serve(pserving, PT, scope, pfluid.CPUPlace())
-    before = tfa.dense_calls
+    before = kernels.launch_counts["attention_dense"]
     port_out = serve(tserving, TT,
                      tio.scope_from_numpy(params, tfluid.CPUPlace()),
                      tfluid.CPUPlace())
-    assert tfa.dense_calls == before
+    assert kernels.launch_counts["attention_dense"] == before
     assert port_out == jax_out
     assert all(len(toks) > 0 for toks, _ in port_out)

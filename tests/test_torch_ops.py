@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.core.registry import get_op_def as jax_op_def
 from paddle_tpu_torch.core.registry import get_op_def, registered_ops
+from paddle_tpu_torch.core.rng import SeedHandle
 from paddle_tpu_torch.parallel import flash_attention as tfa
 
 # the op types of build(cfg), its startup program, Adam/SGD.minimize and
@@ -241,6 +242,8 @@ def _run_torch(op_type, ins, attrs):
     opdef = get_op_def(op_type)
     kwargs = {"device": torch.device("cpu")}
     if opdef.needs_rng:
+        kwargs["seed"] = SeedHandle(torch.zeros((), dtype=torch.int64), 0)
+    if opdef.host_rng:
         kwargs["generator"] = torch.Generator().manual_seed(0)
     tins = {k: [torch.from_numpy(np.array(v)) for v in vs]
             for k, vs in ins.items()}
