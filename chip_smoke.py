@@ -46,6 +46,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    with the same program run on the CPU; in turns (eager, captured,
    captured, eager), each engine running its programs eagerly or as
    captured CUDA graphs, with the same greedy tokens and launch counts;
+   every decode step's fetches come back as ``LazyFetches``, and an
+   engine whose fetches are read at once gives the same tokens and
+   launch counts;
 5. train Transformer-base (full depth, dropout 0.1, label smoothing 0.1,
    Adam 1e-4, bf16 AMP) through Executor.run_steps at batch 64 x seq 256
    and (5b) at seq 1024 x batch 8 and seq 4096 x batch 2: finite loss
@@ -63,7 +66,16 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    (CUDA graph replays), launches a step from the replay counters and,
    by kernel name, from the trace of a replayed step (the dropout
    kernel's too), and the share of an eager step's device time spent
-   re-running forwards inside derived grad ops;
+   re-running forwards inside derived grad ops; (5d) the training recipe
+   at batch 64 x seq 256: AdamW under amp.decorate's dynamic loss
+   scaling with a global-norm clip (``train_recipe``): nine steps
+   captured equal to eager ones bit for bit, loss-scaling state
+   included, the scale grown; the overflow drill inside the captured
+   graph (scale 1e38: parameters bit-unchanged, scale halved, skip
+   count + 1, finite loss; then an update); a save_persistables /
+   load_persistables resume equal to an uninterrupted run bit for bit;
+   the captured step's wall, device ms, idle share and tokens/s, and
+   what the recipe adds to plain Adam's step by kernel family;
 6. one f32 training step (dropout 0), captured, on the card against the
    same step on the CPU in f64: full widths and depth at batch 2 x seq
    32, and (6b) 2+2 layers at seq 768 (kblock route) and 1280 (bhtd
@@ -77,7 +89,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    family, top device kernels, in turns, eager and captured; one
    captured ResNet-50 step against two eager ones from one startup;
    (7c) walk both Programs and count the conv2d ops whose backward and
-   forward shapes are the ones phase 3c ran at;
+   forward shapes are the ones phase 3c ran at; and the ``top_k`` op
+   (which ``accuracy`` reads) at [128, 1000] bf16 logits full of ties
+   against the stable order;
 8. one f32 training step (TF32 off) of ResNet-50 and of SE-ResNeXt-50 (a
    head without dropout) at batch 4, 3 x 64 x 64, captured, on the card
    against the
@@ -94,9 +108,12 @@ Exits non-zero without a result when CUDA is unavailable or when the
 package is not next to this script.
 """
 
+import collections
+import hashlib
 import json
 import os
 import subprocess
+import tempfile
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -849,7 +866,8 @@ def run_captured(fluid, program, state, feed, fetch, before=None):
     return got
 
 
-def _same_runs(torch, np, fluid, program, startup, feeds, fetch, steps):
+def _same_runs(torch, np, fluid, program, startup, feeds, fetch, steps,
+               keep=()):
     """``steps`` steps of ``program`` four times, each on a fresh executor
     and scope from its startup (so the same startup state, executor steps
     and seeds): two eager sequences (uncached runs); one through the step
@@ -860,7 +878,8 @@ def _same_runs(torch, np, fluid, program, startup, feeds, fetch, steps):
     Returns the largest differences from the first eager sequence: of
     every step's fetches and of the final state for the second eager
     sequence and the ``run`` one, of the last step's fetches and of the
-    final state for the window; and each sequence's first fetch a step."""
+    final state for the window; each sequence's first fetch a step; and
+    the final values of the vars named in ``keep``, each sequence's."""
     runs = []
     for mode in ("eager", "eager", "run", "run_steps"):
         scope = fluid.Scope()
@@ -909,7 +928,8 @@ def _same_runs(torch, np, fluid, program, startup, feeds, fetch, steps):
             "eager_vs_run_steps": {"last_fetch": ew[0], "state": ew[1],
                                    "window_steps": steps - 1},
             "first_fetch": [[float(np.asarray(g[0]).reshape(-1)[0])
-                             for g in r[0]] for r in runs]}
+                             for g in r[0]] for r in runs],
+            "final": {n: [r[1][n].tolist() for r in runs] for n in keep}}
 
 
 def _held_same(r):
@@ -957,18 +977,42 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
             for n in lens]
     eager_exe = _eager_executor(fluid)
 
-    def engine(eager):
+    class SyncFetchExecutor(fluid.Executor):
+        """Every fetch read at once: the engine's decode fetches come back
+        as numpy lists, not LazyFetches."""
+
+        def run(self, *args, **kwargs):
+            kwargs["async_fetch"] = False
+            return super().run(*args, **kwargs)
+
+    def engine(eager, sync=False):
         eng = serving.ServingEngine(cfg, scope, slots=slots, src_len=src_len,
                                     max_len=max_len, place=dev_place)
         if eager:
             eng._exe = eager_exe(dev_place)
+        elif sync:
+            eng._exe = SyncFetchExecutor(dev_place)
         return eng
+
+    def noting_fetches(eng, kinds):
+        """Count the types of the engine's deferred fetches."""
+        run = eng._exe.run
+
+        def run_and_note(*args, **kwargs):
+            out = run(*args, **kwargs)
+            if kwargs.get("async_fetch"):
+                kinds[type(out).__name__] += 1
+            return out
+
+        eng._exe.run = run_and_note
 
     state_err = None
 
     def turn(eager):
         nonlocal state_err
         eng = engine(eager)
+        fetch_kinds = collections.Counter()
+        noting_fetches(eng, fetch_kinds)
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
@@ -977,6 +1021,8 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts(fa)
+        # every decode step's fetches came back as LazyFetches
+        assert fetch_kinds == {"LazyFetches": eng.decode_steps}, fetch_kinds
         outcomes = [h.outcome for h in handles]
         assert all(o in ("completed", "length") for o in outcomes), outcomes
         tokens = [list(h.tokens) for h in handles]
@@ -1035,7 +1081,8 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
                 "decode_device_ms": decode_device_ms,
                 "prefill_device_ms": prefill_device_ms,
                 "decode_idle_share": 1 - decode_device_ms / decode_ms,
-                "launches": launches, "greedy_tokens": tokens}
+                "launches": launches, "greedy_tokens": tokens,
+                "deferred_fetches": dict(fetch_kinds)}
 
     turns = _turns(turn)
     rows = turns["eager"] + turns["captured"]
@@ -1054,6 +1101,16 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
         solo.run_until_idle()
         solo.close()
         assert list(h.tokens) == tokens[i], (i, list(h.tokens), tokens[i])
+    # the same requests through an engine whose fetches are read at once
+    # (no LazyFetches): the same tokens and launch counts
+    synced = engine(False, sync=True)
+    kernels.reset_counts()
+    handles = [synced.submit(src, max_new_tokens=new_tokens) for src in srcs]
+    synced.run_until_idle()
+    synced.close()
+    assert [list(h.tokens) for h in handles] == tokens, "synced fetches"
+    assert _counts(fa) == rows[0]["launches"], (_counts(fa),
+                                                rows[0]["launches"])
 
     cap = turns["captured"][1]
     for r in rows:
@@ -1070,6 +1127,10 @@ def serve(torch, np, fluid, T, fa, serving, *, cfg, slots, src_len, max_len,
         "decode_device_ms": cap["decode_device_ms"],
         "prefill_device_ms": cap["prefill_device_ms"],
         "prefill_state_err": state_err, "launches": cap["launches"],
+        "deferred_fetches": cap["deferred_fetches"],
+        "synced_fetch_engine_same_tokens_and_launches": True,
+        "greedy_tokens_sha1": hashlib.sha1(
+            json.dumps(tokens).encode()).hexdigest(),
         "turns": _turn_summary(turns, (
             "tokens_per_s", "decode_step_ms", "decode_device_ms",
             "decode_idle_share", "prefill_ms", "prefill_device_ms",
@@ -1187,6 +1248,309 @@ def check_captured_equals_eager(torch, np, fluid, T, *, seq, batch,
     return out
 
 
+def _recipe_training(fluid, T, *, seq, batch, dropout):
+    """Transformer-base trained through the recipe: AdamW(1e-4, weight
+    decay 0.01) under ``amp.decorate`` (bf16, dynamic loss scaling from
+    2^15, growth every 4 clean steps) with a global-norm clip of 1.0;
+    label smoothing 0.1; four batches of batch x seq."""
+    cfg = T.TransformerConfig(max_length=256, dropout=dropout)
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup):
+        model = T.build(cfg)
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(1.0))
+        try:
+            opt = fluid.amp.decorate(
+                fluid.optimizer.AdamW(1e-4, weight_decay=0.01),
+                init_loss_scaling=2.0 ** 15, use_dynamic_loss_scaling=True,
+                incr_every_n_steps=4)
+            opt.minimize(model["loss"])
+        finally:
+            fluid.clip.set_gradient_clip(None)
+    startup.random_seed = main_prog.random_seed = SEED
+    feeds = [T.make_batch(cfg, batch, seq, seq, seed=SEED + i)
+             for i in range(4)]
+    return main_prog, startup, model, opt, feeds
+
+
+def _captured(exe, scope):
+    """The step runners of ``scope`` that replay a captured graph, with
+    their call counts."""
+    return [r.calls for r in exe._runners.get(scope, {}).values()
+            if r.graph is not None]
+
+
+def _overflow_drill(torch, np, fluid, exe, scope, prog, startup, loss,
+                    opt, staged):
+    """Phase 5d (b), in ``scope`` on ``exe``: the startup and two steps
+    (the warm-up and the capture), then three replays of the captured
+    step. 1: the scale set to 1e38 through ``scope.set`` on a full batch:
+    the loss is a mean over ~12k target tokens, so every gradient of the
+    unscaled loss is far below 1 and none overflows; the parameters move
+    (the direct divide by 1e38 keeps them, where a multiply by its
+    subnormal reciprocal could flush them to 0). 2, the drill: the scale
+    at the largest finite f32, on the same batch with one target token
+    counted (``trg_pad_mask`` 0 but at [0, 0]: the mean's divisor is 1,
+    and the output projection's gradient, |h| * 0.9 with |h| the final
+    layer norm's output, overflows once |h| > 1.1; at 1e38 it would take
+    |h| > 3.8, which a layer norm's output reaches only at some tokens):
+    every parameter bit-unchanged, the scale halved, the skip count + 1,
+    the fetched loss finite. 3: the next full batch at the halved scale
+    updates the parameters."""
+    scale = opt.loss_scaling_name
+    skips = opt.skip_count_name
+    params = [p.name for p in prog.all_parameters() if p.trainable]
+
+    def snapshot():
+        return {n: scope.find_var(n).clone() for n in params}
+
+    def moved(snap):
+        return [n for n in params if not torch.equal(scope.find_var(n),
+                                                      snap[n])]
+
+    exe.run(startup)
+    for i in range(2):  # eager, then captured and replayed
+        exe.run(prog, feed=staged[i], fetch_list=[loss])
+    snap = snapshot()
+    scope.set(scale, np.array([1e38], np.float32))
+    (full_loss,) = exe.run(prog, feed=staged[2], fetch_list=[loss])
+    drill = {"at_1e38_full_batch": {
+        "loss": float(full_loss), "params_moved": len(moved(snap)),
+        "skips": float(scope.find_var(skips)[0]),
+        "scale_after": float(scope.find_var(scale)[0])}}
+    assert drill["at_1e38_full_batch"]["skips"] == 0.0, drill
+    assert drill["at_1e38_full_batch"]["params_moved"] >= \
+        0.9 * len(params), drill
+
+    one_target = dict(staged[2])
+    mask = torch.zeros_like(one_target["trg_pad_mask"])
+    mask[0, 0] = 1.0
+    one_target["trg_pad_mask"] = mask
+    snap = snapshot()
+    top = np.finfo(np.float32).max
+    scope.set(scale, np.array([top], np.float32))
+    (drill_loss,) = exe.run(prog, feed=one_target, fetch_list=[loss])
+    assert _captured(exe, scope) == [4], _captured(exe, scope)
+    drill.update({
+        "scale_set": float(top), "loss": float(drill_loss),
+        "scale_after": float(scope.find_var(scale)[0]),
+        "skips_after": float(scope.find_var(skips)[0]),
+        "params_bit_unchanged": len(params) - len(moved(snap)),
+        "params": len(params)})
+    assert drill["params_bit_unchanged"] == len(params), drill
+    assert drill["scale_after"] == float(top * np.float32(0.5)), drill
+    assert drill["skips_after"] == 1.0, drill
+    assert np.isfinite(drill["loss"]), drill
+
+    (next_loss,) = exe.run(prog, feed=staged[3], fetch_list=[loss])
+    updated = moved(snap)
+    drill.update(next_loss=float(next_loss), params_updated=len(updated),
+                 not_updated=sorted(set(params) - set(updated))[:8],
+                 skips_next=float(scope.find_var(skips)[0]),
+                 scale_next=float(scope.find_var(scale)[0]))
+    assert np.isfinite(drill["next_loss"]), drill
+    assert drill["skips_next"] == 1.0, drill
+    assert drill["scale_next"] == drill["scale_after"], drill
+    assert len(updated) >= 0.9 * len(params), drill
+    return drill
+
+
+def train_recipe(torch, np, fluid, T, fa, plain, *, seq, batch, window=8):
+    """Phase 5d: Transformer-base at full width and depth trained through
+    the recipe (``_recipe_training``) by Executor.run / run_steps on the
+    card. (a) Nine steps at dropout 0.1, two eager sequences and two
+    through the captured step (``_same_runs``): losses, two dropout
+    masks and the final state (the loss-scaling vars among it) bit for
+    bit, and the scale grown. (b) The overflow drill inside the captured
+    graph (``_overflow_drill``): the scale set through ``scope.set`` (to
+    1e38, where a full batch does not overflow, then to the largest f32
+    on a batch of one target token), a replay that overflows leaves every parameter
+    bit-unchanged, halves the scale, adds 1 to the skip count and
+    fetches a finite loss, and the next replay updates the parameters.
+    (c) At dropout 0, 3 steps, ``save_persistables``, and in a fresh
+    Scope and Executor ``load_persistables`` and 3 more: the losses and
+    the final state equal 6 uninterrupted steps bit for bit (the
+    executor's step counter is no persistable, so masks would differ
+    after a resume at dropout > 0, as in the JAX package). (d) Captured,
+    timed: step wall and device ms, idle share and target tokens/s; the
+    launches of the attention kernels and the dropout kernel a step from
+    the counters, set to 0 just before the timed windows; and the device
+    ms and launches a step by kernel family beside ``plain`` (phase 5's
+    captured t = 256 row: plain Adam, no clip, no loss scaling) and the
+    op types the recipe adds to the program."""
+    from paddle_tpu_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    out = {"seq": seq, "batch": batch}
+
+    # (a) captured equals eager
+    prog, startup, model, opt, feeds = _recipe_training(
+        fluid, T, seq=seq, batch=batch, dropout=0.1)
+    loss = model["loss"]
+    scale, good, bad, _ = prog._amp_scale_vars
+    skips = opt.skip_count_name
+    staged = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+              for f in feeds]
+    masks = [op.outputs["Mask"][0] for op in prog.global_block().ops
+             if op.type == "dropout"][:2]
+    same = _same_runs(torch, np, fluid, prog, startup, staged,
+                      [loss] + masks, 9, keep=(scale, good, bad, skips))
+    _held_same(same)
+    for key in ("eager_vs_eager", "eager_vs_captured"):
+        assert same[key]["fetch"] == same[key]["state"] == 0.0, same
+    assert same["eager_vs_run_steps"]["last_fetch"] == \
+        same["eager_vs_run_steps"]["state"] == 0.0, same
+    assert same["later_fetches_move"], "a dropout mask repeated"
+    final = same["final"]
+    assert all(v == final[n][0] for n in final for v in final[n]), final
+    assert final[scale][0][0] > 2.0 ** 15, final  # the scale grew
+    out["captured_vs_eager"] = same
+    torch.cuda.empty_cache()
+
+    # (b) the overflow drill inside the captured graph
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        out["overflow_drill"] = _overflow_drill(torch, np, fluid, exe, scope,
+                                                prog, startup, loss, opt,
+                                                staged)
+
+        # (d) captured, timed: the same executor's replays
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (value,) = exe.run_steps(prog, staged, window, [loss])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = _counts(fa)
+        launches["dropout"] = kernels.launch_counts["dropout"]
+        per_step = {k: n / (2 * window) for k, n in launches.items()}
+        n_drop = sum(op.type == "dropout" for op in prog.global_block().ops)
+        want = {k: 0.0 for k in per_step}
+        want["small/fwd"] = want["small/bwd"] = 3.0 * 6
+        want["dropout"] = float(n_drop)
+        assert per_step == want, per_step
+        assert np.isfinite(value), value
+        counts, trace = {}, {}
+        times = _device_times(lambda: exe.run_steps(
+            prog, staged[:1], 1, [loss]), iters=2, counts=counts,
+            replay=True, trace=trace)
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    tokens = sum(float(staged[i % 4]["trg_pad_mask"].sum())
+                 for i in range(window))
+    device_ms = sum(times.values())
+    step_ms = [w / window * 1e3 for w in walls]
+    fams = _families(times, counts)
+    base = plain["by_family"]
+    added_ops = collections.Counter(
+        op.type for op in prog.global_block().ops)
+    added_ops.subtract(plain["op_types"])
+    out["timing"] = {
+        "window_steps": window, "step_ms": step_ms,
+        "step_device_ms": device_ms,
+        "idle_share": [1 - device_ms / ms for ms in step_ms],
+        "target_tokens_per_s": [tokens / w for w in walls],
+        "last_loss": float(value), "launches_per_step": per_step,
+        "trace_let_off": trace,
+        "plain_adam_phase5": {k: plain[k] for k in (
+            "step_ms", "step_device_ms", "idle_share",
+            "target_tokens_per_s")},
+        "by_family": fams,
+        "added_by_family": {f: {k: fams[f][k] - base[f][k]
+                                for k in ("device_ms", "launches")}
+                            for f in fams},
+        "added_device_ms": device_ms - plain["step_device_ms"],
+        "added_launches": (sum(counts.values())
+                           - sum(v["launches"] for v in base.values())),
+        "ops_added_by_type": {k: v for k, v in sorted(added_ops.items())
+                              if v},
+        "top_kernels_ms": [[k[:80], ms] for k, ms in sorted(
+            times.items(), key=lambda kv: -kv[1])[:12]],
+    }
+
+    # (c) resume at dropout 0
+    prog0, startup0, model0, _, _ = _recipe_training(
+        fluid, T, seq=seq, batch=batch, dropout=0.0)
+    names = [v.name for v in prog0.list_vars() if v.persistable]
+
+    def steps(exe, idx):
+        return [float(exe.run(prog0, feed=staged[i % 4],
+                              fetch_list=[model0["loss"]])[0]) for i in idx]
+
+    def run(parts, tmp):
+        """The losses and final state of 6 steps, cut after the steps of
+        ``parts[0]`` by a save and a load into a fresh Scope and Executor
+        when there are two parts."""
+        losses = []
+        for j, idx in enumerate(parts):
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            with fluid.scope_guard(scope):
+                if j == 0:
+                    exe.run(startup0)
+                else:
+                    fluid.io.load_persistables(exe, tmp, prog0)
+                losses += steps(exe, idx)
+                if j + 1 < len(parts):
+                    fluid.io.save_persistables(exe, tmp, prog0)
+                state = {n: scope.find_var(n).clone() for n in names}
+            exe.close()
+            del scope
+        return losses, state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        resumed = run([range(3), range(3, 6)], tmp)
+        resume_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(tmp, "__params__.npz"))
+    whole = run([range(6)], None)
+    differ = [n for n in names if not torch.equal(resumed[1][n],
+                                                  whole[1][n])]
+    out["resume"] = {"losses_resumed": resumed[0],
+                     "losses_uninterrupted": whole[0],
+                     "state_vars": len(names), "state_vars_differ": differ,
+                     "file_bytes": nbytes, "resumed_run_s": resume_s}
+    assert resumed[0] == whole[0] and not differ, out["resume"]
+    del resumed, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_top_k_ties(torch, np):
+    """Phase 7's check of the ``top_k`` op (which ``accuracy`` reads) at
+    the vision step's logits shape, [128, 1000] bf16, with ties put in:
+    every value on a grid of 1/4 and eight rows all equal. Indices and
+    values equal the stable order (among equal values the lower index
+    first, as jax.lax.top_k orders them), at k = 1 and 5."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.randn(128, 1000, generator=gen, device="cuda") * 4).round()
+    x[:8] = 0.0
+    x = (x / 4).to(torch.bfloat16)
+    host = x.float().cpu().numpy()
+    top_k = get_op_def("top_k").compute
+    out = {}
+    for k in (1, 5):
+        got = top_k({"X": [x]}, {"k": k}, x.device)
+        idx = np.argsort(-host, axis=-1, kind="stable")[:, :k]
+        vals = np.take_along_axis(host, idx, -1)
+        srt = -np.sort(-host, axis=-1)
+        out[f"k{k}"] = {
+            "rows_tied_at_the_cut": int((srt[:, k - 1] == srt[:, k]).sum()),
+            "indices_equal": bool(np.array_equal(
+                got["Indices"][0].cpu().numpy(), idx)),
+            "values_equal": bool(np.array_equal(
+                got["Out"][0].float().cpu().numpy(), vals))}
+        assert out[f"k{k}"]["indices_equal"] and \
+            out[f"k{k}"]["values_equal"], out
+        assert out[f"k{k}"]["rows_tied_at_the_cut"] >= 8, out
+    return out
+
+
 def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
           repeated=8, window=8, amp=True, rerun=False):
     """Phase 5/5b/5c: train Transformer-base through Executor.run_steps at
@@ -1285,7 +1649,8 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
                     "last_loss": float(value), "launches": launches,
                     "trace_let_off": trace,
                     "launches_per_step": per_step,
-                    "traced_launches_per_step": traced, "times": times}
+                    "traced_launches_per_step": traced, "times": times,
+                    "counts": counts}
 
         turns = _turns(turn)
         t0 = time.perf_counter()
@@ -1299,9 +1664,10 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
                 use_program_cache=False))
     exe.close()
     cap = turns["captured"][1]
-    times = cap.pop("times")
+    times, counts = cap.pop("times"), cap.pop("counts")
     for r in turns["eager"] + turns["captured"]:
         r.pop("times", None)
+        r.pop("counts", None)
     # the attention runs in bf16 under AMP, else in f32: its backward
     # passes are read under that dtype's kernel names
     bwd_names = BWD_KERNELS[dname]
@@ -1330,6 +1696,9 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         "launches": cap["launches"],
         "launches_per_step": cap["launches_per_step"],
         "traced_launches_per_step": cap["traced_launches_per_step"],
+        "by_family": _families(times, counts),
+        "op_types": dict(collections.Counter(
+            op.type for op in main_prog.global_block().ops)),
         "eager_lowering_ms": lower_ms,
         "derived_grad_rerun_device_ms": rerun_ms and rerun_ms[0],
         "eager_profile_device_ms": rerun_ms and rerun_ms[1],
@@ -1670,6 +2039,14 @@ def _kernel_families(times):
         out[next((family for family, patterns in _KERNEL_FAMILIES
                   if any(p in kernel for p in patterns)), "other")] += ms
     return out
+
+
+def _families(times, counts):
+    """{family: {"device_ms": ..., "launches": ...}} a step, of a replay's
+    trace ({kernel name: ms} and {kernel name: launches})."""
+    ms = _kernel_families(times)
+    launches = _kernel_families(counts)
+    return {f: {"device_ms": ms[f], "launches": launches[f]} for f in ms}
 
 
 def train_vision(torch, np, fluid, imagenet, name, build, *, batch, lr,
@@ -2208,6 +2585,19 @@ def main() -> int:
 
     phase_done("5c")
 
+    # 5d. the training recipe at t = 256: loss scaling, clip, AdamW
+    rec = train_recipe(torch, np, fluid, T, fa, t, seq=TRAIN_T,
+                       batch=TRAIN_B)
+    print("train_recipe " + json.dumps(rec), flush=True)
+    tr = rec["timing"]
+    print(f"training Transformer-base through the recipe on {card}: step "
+          f"{tr['step_ms']} ms wall, {tr['step_device_ms']:.2f} ms device "
+          f"busy ({tr['added_device_ms']:+.2f} ms and "
+          f"{tr['added_launches']:+.0f} launches over plain Adam), "
+          f"{tr['target_tokens_per_s']} target tokens/s", flush=True)
+
+    phase_done("5d")
+
     # 6. one training step on the card against the CPU
     c = train_vs_cpu(torch, np, fluid, T, fa, n_layer=6, seq=32, batch=2)
     print("train_vs_cpu " + json.dumps(c), flush=True)
@@ -2240,6 +2630,8 @@ def main() -> int:
     live = live_shapes(vision_progs["resnet50"], vision_progs["se_resnext50"],
                        VISION_BATCH, cb.SHAPES, gc.SHAPES)
     print("live_shapes " + json.dumps(live), flush=True)
+    print("top_k_ties " + json.dumps(check_top_k_ties(torch, np)),
+          flush=True)
     del vision_progs
 
     phase_done("7")

@@ -11,9 +11,12 @@ Hopper (parallel/flash_attention.py, csrc/). Entry points run on
 from paddle_tpu_torch import (  # noqa: F401
     amp,
     backward,
+    clip,
     initializer,
+    io,
     layers,
     optimizer,
+    regularizer,
     unique_name,
 )
 from paddle_tpu_torch.executor import (  # noqa: F401

@@ -121,6 +121,69 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+class LazyFetches:
+    """Deferred fetch results (``run`` / ``run_steps`` with
+    ``async_fetch=True`` and ``return_numpy``): list-like, one element per
+    fetch, numpy by the time an element is read, as in the JAX package.
+
+    Construction queues every device-to-host copy without blocking: each
+    fetch on the card is copied into pinned host memory on the stream
+    that computed it (the current one: a replay and its fetch copies run
+    there), and one CUDA event is recorded after the copies. A fetch on
+    the CPU is kept as it is. The numpy conversion happens on first
+    element access or ``wait()``, which waits for that event alone, so
+    step N's fetches arrive while step N+1 is queued."""
+
+    __slots__ = ("_tensors", "_host", "_event", "_values")
+
+    def __init__(self, tensors):
+        self._tensors = list(tensors)
+        self._values = None
+        self._event = None
+        self._host = []
+        for t in self._tensors:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+                if self._event is None:
+                    self._event = torch.cuda.Event()
+            else:
+                self._host.append(t)
+        if self._event is not None:
+            self._event.record(torch.cuda.current_stream(
+                next(t.device for t in self._tensors if t.is_cuda)))
+
+    @property
+    def ready(self) -> bool:
+        """Whether the fetches have already materialized to numpy."""
+        return self._values is not None
+
+    def wait(self) -> list:
+        """Materialize every fetch to numpy (idempotent)."""
+        if self._values is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._values = [to_numpy(h) for h in self._host]
+            # release the device and pinned buffers
+            self._tensors = self._host = self._event = None
+        return self._values
+
+    def __len__(self):
+        vals = self._values
+        return len(vals if vals is not None else self._tensors)
+
+    def __getitem__(self, i):
+        return self.wait()[i]
+
+    def __iter__(self):
+        return iter(self.wait())
+
+    def __repr__(self):
+        state = "ready" if self.ready else "pending"
+        return f"LazyFetches({len(self)} fetches, {state})"
+
+
 class Executor:
     """Runs programs on one device: ``place`` defaults to ``CUDAPlace(0)``
     and raises when CUDA is absent; pass ``CPUPlace()`` for the CPU. See
@@ -149,13 +212,15 @@ class Executor:
         use_program_cache: bool = True,
         async_fetch: bool = False,
     ):
-        """Run block 0 of ``program``. Returns the fetches as numpy arrays,
-        or as device tensors when ``return_numpy`` is False or
-        ``async_fetch`` (the caller materializes them later, after it has
-        queued more work; a replay's fetches are copies out of the graph's
-        pool, which the next replay leaves alone). ``use_program_cache=
-        False`` lowers the program afresh, keeps nothing and runs eagerly.
-        The arguments come in the JAX package's order."""
+        """Run block 0 of ``program``. Returns the fetches as numpy arrays;
+        with ``async_fetch`` as ``LazyFetches``, whose copies to the host
+        are queued now and read later, after the caller has queued more
+        work (a replay's fetches are copies out of the graph's pool, which
+        the next replay leaves alone); as device tensors when
+        ``return_numpy`` is False, whatever ``async_fetch`` says.
+        ``use_program_cache=False`` lowers the program afresh, keeps
+        nothing and runs eagerly. The arguments come in the JAX package's
+        order."""
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         fetches = self._run_step(program, feed or {}, self._fetch_names(
@@ -169,8 +234,10 @@ class Executor:
 
     @staticmethod
     def _format(fetches, return_numpy, async_fetch):
-        if async_fetch or not return_numpy:
+        if not return_numpy:
             return list(fetches)
+        if async_fetch:
+            return LazyFetches(fetches)
         return [to_numpy(t) for t in fetches]
 
     def _run_step(self, program, feed, fetch_names, scope,

@@ -3,3 +3,4 @@
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.more import *  # noqa: F401,F403

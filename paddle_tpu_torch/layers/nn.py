@@ -12,10 +12,11 @@ from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "relu", "sigmoid", "abs", "mean", "accuracy", "topk",
-    "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
-    "elementwise_add", "elementwise_mul", "elementwise_div",
-    "elementwise_max", "reduce_sum", "reduce_max", "scale", "cast",
+    "dropout", "relu", "sigmoid", "sqrt", "abs", "mean", "accuracy",
+    "topk", "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_pow", "elementwise_max", "reduce_sum",
+    "reduce_max", "scale", "cast", "clip", "clip_by_norm", "sums",
     "fill_constant_like", "one_hot", "argmax", "equal", "less_than",
     "logical_and", "logical_not", "where", "reshape", "split", "unsqueeze",
     "scatter",
@@ -342,6 +343,10 @@ def sigmoid(x, name=None):
     return _single_op("sigmoid", x, name=name)
 
 
+def sqrt(x, name=None):
+    return _single_op("sqrt", x, name=name)
+
+
 def abs(x, name=None):
     return _single_op("abs", x, name=name)
 
@@ -435,12 +440,20 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_mul", x, y, axis, act, name)
 
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_pow", x, y, axis, act, name)
 
 
 def elementwise_max(x, y, axis=-1, act=None, name=None):
@@ -480,6 +493,25 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
 def cast(x, dtype):
     dtype = convert_np_dtype_to_dtype_(dtype)
     return _single_op("cast", x, attrs={"out_dtype": dtype}, dtype=dtype)
+
+
+def clip(x, min, max, name=None):
+    return _single_op("clip", x, attrs={"min": float(min), "max": float(max)},
+                      name=name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single_op("clip_by_norm", x,
+                      attrs={"max_norm": float(max_norm)}, name=name)
+
+
+def sums(input, out=None):
+    """The ``sum`` op over a list of vars."""
+    helper = LayerHelper("sum")
+    out = out or helper.create_variable_for_type_inference(
+        dtype=input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": out})
+    return out
 
 
 def fill_constant_like(x, value):

@@ -13,7 +13,7 @@ from paddle_tpu_torch.framework import (
 )
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "fill_constant", "assign"]
+__all__ = ["create_global_var", "fill_constant", "assign", "zeros_like"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -69,3 +69,10 @@ def assign(input, output=None):
             },
         )
     return output
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("fill_zeros_like")
+    out = out or helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("fill_zeros_like", inputs={"X": x}, outputs={"Out": out})
+    return out

@@ -15,4 +15,5 @@ def _unary(name, fn):
 
 _unary("relu", torch.relu)
 _unary("abs", torch.abs)
+_unary("sqrt", torch.sqrt)
 _unary("sigmoid", torch.sigmoid)

@@ -37,8 +37,10 @@ def _make_elementwise(name, fn):
 
 
 _make_elementwise("elementwise_add", torch.add)
+_make_elementwise("elementwise_sub", torch.sub)
 _make_elementwise("elementwise_mul", torch.mul)
 _make_elementwise("elementwise_div", torch.div)
+_make_elementwise("elementwise_pow", torch.pow)
 _make_elementwise("elementwise_max", torch.maximum)
 
 
@@ -51,6 +53,7 @@ def _make_compare(name, fn):
 
 _make_compare("equal", torch.eq)
 _make_compare("less_than", torch.lt)
+_make_compare("greater_equal", torch.ge)
 
 
 @register_op("logical_and", no_grad=True)
@@ -126,3 +129,35 @@ def _scale(ins, attrs, device):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
+
+
+@register_op("clip")
+def _clip(ins, attrs, device):
+    return {"Out": [torch.clamp(_x(ins), attrs.get("min"), attrs.get("max"))]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ins, attrs, device):
+    """x scaled to L2 norm ``max_norm`` where its norm exceeds it, else
+    unchanged (the norm guarded below by 1e-12)."""
+    x = _x(ins)
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12), 1.0)
+    return {"Out": [x * scale]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ins, attrs, device):
+    return {"Out": [torch.sum(torch.square(_x(ins))).reshape(1)]}
+
+
+@register_op("isfinite", no_grad=True,
+             doc="one all-finite flag over every input")
+def _isfinite(ins, attrs, device):
+    """One 0-d bool: every element of every input of X is finite."""
+    flags = [torch.isfinite(x).all() for x in ins["X"]]
+    if len(flags) == 1:
+        return {"Out": [flags[0]]}
+    return {"Out": [torch.stack(flags).all()]}

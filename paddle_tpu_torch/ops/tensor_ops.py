@@ -30,6 +30,11 @@ def _fill_constant(ins, attrs, device):
                                device=device)]}
 
 
+@register_op("fill_zeros_like", no_grad=True)
+def _fill_zeros_like(ins, attrs, device):
+    return {"Out": [torch.zeros_like(_x(ins))]}
+
+
 @register_op("fill_any_like", no_grad=True)
 def _fill_any_like(ins, attrs, device):
     return {"Out": [torch.full_like(_x(ins), attrs.get("value", 0.0))]}
@@ -152,9 +157,12 @@ def _lookup_table(ins, attrs, device):
 @register_op("top_k", no_grad=True)
 def _top_k(ins, attrs, device):
     """The k largest entries of the last dim, largest first, and their
-    int64 indices (the order among equal entries is torch.topk's)."""
-    vals, idx = torch.topk(_x(ins), attrs["k"], dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    int64 indices; among equal entries the lower index comes first, as
+    ``jax.lax.top_k`` orders them (the first k of a stable descending
+    sort: ``torch.topk`` promises no order among ties)."""
+    k = attrs["k"]
+    vals, idx = torch.sort(_x(ins), dim=-1, descending=True, stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 @register_op("arg_max", no_grad=True)

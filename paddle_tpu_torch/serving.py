@@ -10,9 +10,10 @@ The port of the JAX package's ``serving.ServingEngine``:
   request's cross-attention K/V into slot-indexed device-resident cache
   tensors; each decode step appends one self-attention K/V row per slot
   and emits one greedy token per slot.
-- **Deferred fetch**: a decode step's fetches stay on the device
-  (``Executor.run(async_fetch=True)``) until the next scheduler tick, so
-  the host reads step N's tokens at the start of the next tick.
+- **Deferred fetch**: a decode step's fetches come back as
+  ``executor.LazyFetches`` (``Executor.run(async_fetch=True)``): their
+  copies to the host are queued with the step, and the host reads step
+  N's tokens at the start of the next scheduler tick.
 - **Backpressure and deadlines**: ``submit`` raises ``QueueFull`` past
   ``queue_depth``; a request past its deadline is evicted at the next
   token boundary (outcome ``expired``), and deadline-aware admission
@@ -37,7 +38,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from paddle_tpu_torch.executor import Executor, Scope, scope_guard, to_numpy
+from paddle_tpu_torch.executor import Executor, Scope, scope_guard
 
 
 class QueueFull(RuntimeError):
@@ -435,7 +436,7 @@ class ServingEngine:
             fetches, snapshot, t0 = self._pending
             self._pending = None
         try:
-            emit, live, pos, maxabs = [to_numpy(t) for t in fetches]
+            emit, live, pos, maxabs = [np.asarray(a) for a in fetches]
         except Exception as e:
             self._fail(e)
             raise

@@ -1151,10 +1151,10 @@ def test_fetches_survive_the_next_replay(cuda):
         exe.run(startup)
         exe.run(main, feed=feeds[0], fetch_list=[model["loss"]])
         first = exe.run(main, feed=feeds[0], fetch_list=[model["loss"]],
-                        async_fetch=True)[0]
+                        return_numpy=False)[0]
         kept = first.clone()
         second = exe.run(main, feed=feeds[1], fetch_list=[model["loss"]],
-                         async_fetch=True)[0]
+                         return_numpy=False)[0]
         torch.cuda.synchronize()
         assert torch.equal(first, kept) and not torch.equal(first, second)
     exe.close()
@@ -1231,4 +1231,124 @@ def test_a_step_that_cannot_be_captured_raises(cuda):
         with pytest.raises(RuntimeError, match="assign_value"):
             exe.run(main, feed=feed, fetch_list=[out])
     assert first.shape == (2, 4)
+    exe.close()
+
+
+# --- the training recipe and the deferred fetches (slice 11) --------------
+
+
+def _replays(exe, scope):
+    """Call counts of the scope's step runners that replay a graph."""
+    return sorted(r.calls for r in exe._runners[scope].values()
+                  if r.graph is not None)
+
+
+def test_overflow_skip_in_a_captured_step(cuda):
+    """amp.decorate's dynamic loss scaling inside a replayed CUDA graph
+    (tests/test_amp.py's net and feeds): an overflowing replay leaves the
+    weights bit-unchanged, halves the scale, counts one skip and fetches
+    a finite loss; the next replay updates the weights."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.fc(x, 2, bias_attr=False))
+        opt = fluid.amp.decorate(fluid.optimizer.SGD(0.1),
+                                 init_loss_scaling=1e30,
+                                 use_dynamic_loss_scaling=True)
+        opt.minimize(loss)
+    w = main.all_parameters()[0].name
+    ok = {"x": np.ones((2, 4), np.float32)}
+    huge = {"x": np.full((2, 4), 1e10, np.float32)}  # 1e40 gradients
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(2):  # eager, then captured
+            exe.run(main, feed=ok, fetch_list=[loss])
+        before = scope.find_var(w).clone()
+        (value,) = exe.run(main, feed=huge, fetch_list=[loss])
+        assert _replays(exe, scope) == [3]
+        assert torch.equal(scope.find_var(w), before)
+        assert np.isfinite(value)
+        assert float(scope.find_var(opt.loss_scaling_name)[0]) == float(
+            np.float32(1e30) * np.float32(0.5))
+        assert float(scope.find_var(opt.skip_count_name)[0]) == 1.0
+        exe.run(main, feed=ok, fetch_list=[loss])
+        assert not torch.equal(scope.find_var(w), before)
+    exe.close()
+
+
+def test_lazy_fetches_on_the_card(cuda):
+    """async_fetch=True on the card: LazyFetches whose pinned host copies
+    are queued with the step; read after the next step was queued, each
+    equals the same step's synced fetch bit for bit (bf16 logits as
+    float32 numpy); return_numpy=False gives device tensors."""
+    fluid, main, startup, model, feeds = _tiny_training(0.0)
+    fluid.amp.enable_amp(main)
+    fetch = [model["loss"], model["logits"]]
+    got = {}
+    for lazy in (True, False):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            runs = [exe.run(main, feed=feeds[i % 2], fetch_list=fetch,
+                            async_fetch=lazy) for i in range(4)]
+            if lazy:
+                assert all(isinstance(r, fluid.executor.LazyFetches)
+                           for r in runs)
+                assert not runs[-1].ready
+                assert runs[-1]._host[0].is_pinned()
+                runs = [r.wait() for r in runs]
+            got[lazy] = runs
+            tensors = exe.run(main, feed=feeds[0], fetch_list=fetch,
+                              return_numpy=False, async_fetch=True)
+            assert tensors[1].is_cuda and tensors[1].dtype == torch.bfloat16
+        exe.close()
+    for a, b in zip(got[True], got[False]):
+        assert a[1].dtype == np.float32
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_ema_apply_restore_through_the_captured_step(cuda):
+    """ExponentialMovingAverage.apply puts tensors of its own into the
+    Scope, which the captured step copies into its buffers before the
+    next replay: that replay computes from the debiased shadows, and after
+    restore the next one from the parameters as they were (fc output
+    against a host product, atol 1e-5)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[8], dtype="float32")
+        y = fluid.layers.fc(x, 3)
+        fluid.optimizer.SGD(0.5).minimize(fluid.layers.mean(y))
+        ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+        ema.update()
+    w, b = (p.name for p in main.all_parameters())
+    feed = {"x": np.random.RandomState(0).randn(4, 8).astype(np.float32)}
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+
+    def host_y():
+        return feed["x"] @ scope.find_var(w).cpu().numpy() + \
+            scope.find_var(b).cpu().numpy()
+
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(3):  # eager, captured, replayed
+            exe.run(main, feed=feed, fetch_list=[y])
+        live = {n: scope.find_var(n).clone() for n in (w, b)}
+        with ema.apply():
+            applied = host_y()
+            assert not np.allclose(scope.find_var(w).cpu().numpy(),
+                                   live[w].cpu().numpy())
+            (got,) = exe.run(main, feed=feed, fetch_list=[y])
+            np.testing.assert_allclose(got, applied, atol=1e-5, rtol=0)
+        for n in (w, b):
+            assert torch.equal(scope.find_var(n), live[n])
+        restored = host_y()
+        (got,) = exe.run(main, feed=feed, fetch_list=[y])
+        np.testing.assert_allclose(got, restored, atol=1e-5, rtol=0)
+        assert _replays(exe, scope) == [5]
     exe.close()

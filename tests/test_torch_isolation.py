@@ -31,7 +31,8 @@ def test_every_module_of_the_port_is_scanned():
                 "paddle_tpu_torch/dataset/imagenet.py",
                 "paddle_tpu_torch/models/resnet.py",
                 "paddle_tpu_torch/models/se_resnext.py",
-                "paddle_tpu_torch/ops/nn_ops.py", "chip_smoke.py"):
+                "paddle_tpu_torch/ops/nn_ops.py",
+                "paddle_tpu_torch/layers/more.py", "chip_smoke.py"):
         assert rel in scanned, rel
 
 
@@ -66,7 +67,7 @@ leaked = sorted(n for n in sys.modules
 assert not leaked, leaked
 for name in ("benchmarks.conv_bwd", "benchmarks.grouped_conv",
              "benchmarks.attn_ablate", "dataset.imagenet", "models.resnet",
-             "models.se_resnext"):
+             "models.se_resnext", "layers.more"):
     assert "paddle_tpu_torch." + name in sys.modules, name
 print("isolated", len([n for n in sys.modules
                        if n.startswith("paddle_tpu_torch")]))

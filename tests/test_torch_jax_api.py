@@ -15,7 +15,13 @@ holds the port to the same result:
 - the layers' JAX keywords (every public layer the port shares with the
   JAX package takes the JAX package's parameters in its order);
 - heads up to 256 wide (the JAX small kernel's dh = 256) take the
-  kernels on the card, with no dense call; a wider head raises there.
+  kernels on the card, with no dense call; a wider head raises there;
+- ``async_fetch=True`` returns ``LazyFetches`` (numpy elements, ``ready``,
+  ``wait()``) from ``run`` and ``run_steps``, as the JAX package does,
+  and ``return_numpy=False`` still returns tensors;
+- ``top_k`` puts the lower index first among equal values, as
+  ``jax.lax.top_k`` does, index for index, and ``accuracy`` on tied
+  logits reads the same share in both packages.
 
 The JAX side runs its Pallas kernels in interpret mode. Inputs come from
 numpy seeds; tolerances are stated at each test."""
@@ -30,11 +36,13 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as pfluid
+from paddle_tpu import executor as pexecutor
 from paddle_tpu import io as pio
 from paddle_tpu import layers as players
 from paddle_tpu.parallel import flash_attention as jfa
 
 import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import executor as texecutor
 from paddle_tpu_torch import framework as tframework
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch import kernels
@@ -182,6 +190,95 @@ def test_run_steps_takes_return_numpy():
         main, [{"x": _X}, {"x": _X * 2}], 2, [y], None, False))
     assert isinstance(t[0], torch.Tensor)
     np.testing.assert_allclose(t[0].numpy(), np.asarray(j[0]), atol=1e-6)
+
+
+# --- async_fetch: LazyFetches ----------------------------------------------
+
+
+@pytest.mark.parametrize("entry", ["run", "run_steps"])
+def test_async_fetch_returns_lazy_fetches(entry):
+    """run / run_steps(..., async_fetch=True) return LazyFetches in both
+    packages: list-like, not materialized until read, numpy elements
+    (values atol 1e-6), ``wait()`` idempotent; with return_numpy=False
+    the port still returns its tensors."""
+    def call(fluid, exe, main, y, **kw):
+        if entry == "run":
+            return exe.run(main, {"x": _X}, [y], **kw)
+        return exe.run_steps(main, [{"x": _X}, {"x": _X * 2}], 2, [y],
+                             **kw)
+
+    j, t, _ = _run_both(lambda fluid, exe, main, y: call(
+        fluid, exe, main, y, async_fetch=True))
+    assert isinstance(j, pexecutor.LazyFetches)
+    assert isinstance(t, texecutor.LazyFetches)
+    assert len(t) == 1 and not t.ready
+    got = t.wait()
+    assert t.ready and t.wait() is got
+    assert isinstance(got, list) and isinstance(t[0], np.ndarray)
+    assert [type(a) for a in t] == [np.ndarray]
+    np.testing.assert_allclose(t[0], np.asarray(j[0]), atol=1e-6)
+    _, tt, _ = _run_both(lambda fluid, exe, main, y: call(
+        fluid, exe, main, y, return_numpy=False, async_fetch=True))
+    assert isinstance(tt, list) and isinstance(tt[0], torch.Tensor)
+    np.testing.assert_allclose(tt[0].numpy(), t[0], atol=0)
+
+
+# --- top_k: the order among ties --------------------------------------------
+
+
+def _tied_rows():
+    """(rows, k): a row of the ROADMAP's, an all-zero row, and 4 x 1000
+    values in {0, 1, 2}."""
+    r = np.random.RandomState(12)
+    return [
+        (np.array([[1, 3, 3, 3, 0, 3, 2, 3]], np.float32), 3),
+        (np.zeros((1, 40), np.float32), 5),
+        (r.randint(0, 3, (4, 1000)).astype(np.float32), 5),
+    ]
+
+
+def _run_layer(fluid, layers, build, feeds):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        v = {n: layers.data(n, shape=list(a.shape[1:]), dtype=a.dtype.name)
+             for n, a in feeds.items()}
+        outs = build(layers, v)
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        return [np.asarray(o) for o in exe.run(main, feeds, list(outs))]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_top_k_breaks_ties_as_jax(case):
+    """Equal values come lowest index first, as jax.lax.top_k orders
+    them: the port's top_k op equals the JAX package's index for index
+    (and value for value) on rows full of ties."""
+    x, k = _tied_rows()[case]
+    want = _run_layer(pfluid, players,
+                      lambda L, v: L.topk(v["x"], k), {"x": x})
+    got = _run_layer(tfluid, tlayers,
+                     lambda L, v: L.topk(v["x"], k), {"x": x})
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    if case == 0:
+        np.testing.assert_array_equal(got[1], [[1, 2, 3]])
+
+
+def test_accuracy_on_tied_logits_matches_jax():
+    """accuracy reads top_k's indices: on logits tied at their maximum
+    (values in {0, 1} over 40 classes), each label is the 3rd or the 8th
+    index holding the row's maximum, inside or outside a stable top 5;
+    both packages report the same share (exactly), 0.5."""
+    r = np.random.RandomState(13)
+    x = r.randint(0, 2, (8, 40)).astype(np.float32)
+    label = np.array([[np.flatnonzero(row == row.max())[2 if i % 2 else 7]]
+                      for i, row in enumerate(x)], np.int64)
+    feeds = {"x": x, "label": label}
+    build = lambda L, v: [L.accuracy(v["x"], v["label"], k=5)]  # noqa: E731
+    want = _run_layer(pfluid, players, build, feeds)[0]
+    got = _run_layer(tfluid, tlayers, build, feeds)[0]
+    assert float(got) == float(want) == 0.5
 
 
 # --- io.load_params --------------------------------------------------------

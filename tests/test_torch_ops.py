@@ -1,5 +1,5 @@
-"""Every op type of the serving path, the port's compute against the JAX
-package's (``paddle_tpu.core.registry.get_op_def(t).compute``) on the same
+"""Every op type of the serving and training paths (the training
+recipe's too), the port's compute against the JAX package's (``paddle_tpu.core.registry.get_op_def(t).compute``) on the same
 numpy inputs: f32 results within atol 1e-5, integer and bool results
 exact, dtypes equal.
 
@@ -218,6 +218,84 @@ CASES = [
 ]
 
 
+# the op types of the training recipe: the clips, the decays, the other
+# optimizers and amp.decorate's loss-scaling state machine
+RECIPE_OP_TYPES = sorted({
+    "adadelta", "adagrad", "adamax", "adamw", "clip", "clip_by_norm",
+    "decayed_adagrad", "elementwise_pow", "elementwise_sub",
+    "fill_zeros_like", "ftrl", "greater_equal", "isfinite", "lamb",
+    "lars_momentum", "rmsprop", "sqrt", "squared_l2_norm",
+})
+
+
+def _lr(v=0.01):
+    return [np.array([v], np.float32)]
+
+
+def _pos(*shape):
+    return np.abs(_f(*shape)) + 0.1
+
+
+_POW = [np.array([0.81], np.float32)]
+_POW2 = [np.array([0.998], np.float32)]
+_ADAM_ATTRS = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+_WITH_INF = _f(3, 4)
+_WITH_INF[1, 2] = np.inf
+
+CASES += [
+    ("adadelta", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                  "AvgSquaredGrad": [_pos(3, 4)],
+                  "AvgSquaredUpdate": [_pos(3, 4)], "LearningRate": _lr()},
+     {"rho": 0.95, "epsilon": 1e-6}),
+    ("adagrad", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                 "Moment": [_pos(3, 4)], "LearningRate": _lr()},
+     {"epsilon": 1e-6}),
+    ("adamax", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                "Moment": [_f(3, 4)], "InfNorm": [_pos(3, 4)],
+                "Beta1Pow": _POW, "LearningRate": _lr()}, _ADAM_ATTRS),
+    ("adamw", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+               "Moment1": [_f(3, 4)], "Moment2": [_pos(3, 4)],
+               "Beta1Pow": _POW, "Beta2Pow": _POW2, "LearningRate": _lr()},
+     dict(_ADAM_ATTRS, weight_decay=0.05)),
+    ("clip", {"X": [_f(3, 4)]}, {"min": -0.5, "max": 0.7}),
+    ("clip_by_norm", {"X": [_f(3, 4)]}, {"max_norm": 1.0}),
+    ("clip_by_norm", {"X": [_f(3, 4)]}, {"max_norm": 100.0}),
+    ("decayed_adagrad", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                         "Moment": [_pos(3, 4)], "LearningRate": _lr()},
+     {"decay": 0.95, "epsilon": 1e-6}),
+    ("elementwise_pow", {"X": [_pos(2, 3)], "Y": [_f(2, 3)]}, {"axis": -1}),
+    ("elementwise_pow", {"X": [np.array([2.0], np.float32)],
+                         "Y": [np.array([1.0], np.float32)]}, {"axis": -1}),
+    ("elementwise_sub", {"X": [_f(2, 3, 4)], "Y": [_f(4)]}, {"axis": 2}),
+    ("fill_zeros_like", {"X": [_f(3, 2)]}, {}),
+    ("ftrl", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+              "SquaredAccumulator": [_pos(3, 4)],
+              "LinearAccumulator": [_f(3, 4)], "LearningRate": _lr(0.1)},
+     {"l1": 0.01, "l2": 0.01, "lr_power": -0.5}),
+    ("greater_equal", {"X": [_i(0, 3, 8).astype(np.float32)],
+                       "Y": [_i(0, 3, 8).astype(np.float32)]}, {}),
+    ("isfinite", {"X": [_f(3, 4), _f(5)]}, {}),
+    ("isfinite", {"X": [_f(5), _WITH_INF, _f(2)]}, {}),
+    ("lamb", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+              "Moment1": [_f(3, 4)], "Moment2": [_pos(3, 4)],
+              "Beta1Pow": _POW, "Beta2Pow": _POW2, "LearningRate": _lr()},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6, "weight_decay": 0.01}),
+    ("lars_momentum", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                       "Velocity": [_f(3, 4)], "LearningRate": _lr(0.1)},
+     {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005}),
+    ("rmsprop", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                 "MeanSquare": [_pos(3, 4)], "Moment": [_f(3, 4)],
+                 "LearningRate": _lr()},
+     {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9, "centered": False}),
+    ("rmsprop", {"Param": [_f(3, 4)], "Grad": [_f(3, 4)],
+                 "MeanSquare": [_pos(3, 4) + 2.0], "Moment": [_f(3, 4)],
+                 "MeanGrad": [_f(3, 4) * 0.1], "LearningRate": _lr()},
+     {"decay": 0.95, "epsilon": 1e-6, "momentum": 0.9, "centered": True}),
+    ("sqrt", {"X": [_pos(3, 4)]}, {}),
+    ("squared_l2_norm", {"X": [_f(3, 4)]}, {}),
+]
+
+
 # the op types the vision path added; test_torch_vision_ops.py holds
 # their cases
 VISION_OP_TYPES = [
@@ -227,8 +305,10 @@ VISION_OP_TYPES = [
 
 
 def test_cases_cover_exactly_the_path_op_types():
-    assert sorted({c[0] for c in CASES}) == PATH_OP_TYPES
-    assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES)
+    assert sorted({c[0] for c in CASES}) == sorted(PATH_OP_TYPES
+                                                   + RECIPE_OP_TYPES)
+    assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES
+                                      + RECIPE_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):

@@ -316,7 +316,7 @@ def test_amp_runs_the_vision_stream_in_bf16():
         exe.run(ts)
         loss, logits = exe.run(tm, feed=_batch(32, 10),
                                fetch_list=[tmodel["loss"], tmodel["logits"]],
-                               async_fetch=True)
+                               return_numpy=False)
     import torch
 
     assert logits.dtype == torch.bfloat16 and loss.dtype == torch.float32
