@@ -99,7 +99,30 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    held, a named set of gradients printed; and the same step in f64,
    which holds every named gradient tightly (the f32 step of a 50-layer
    net at initialization cannot: see TOL_VISION_F32);
-9. print the kernels' JSON line, the card line, and the result line.
+9. export and deploy, weights from seed 1234: (9a) Transformer-base's
+   is_test program through save_inference_model / load_inference_model
+   into a fresh executor and Scope, a b16 x t128 batch's logits bit for
+   bit equal to the source program's, the export's bytes and seconds; a
+   Predictor with batch buckets [8, 16] at batch sizes 5, 16 and 21
+   (rows within 1e-5, at most two captured graphs); a bf16 Predictor
+   (enable_bf16) within 2e-2 of the largest logit, its argmax agreement
+   and small/fwd launches; (9b) int8 post-training quantization:
+   Calibrator abs_max, then KL, over four b16 x t128 batches on the card,
+   save_int8_inference_model, the artifact's bytes beside 9a's, and
+   ServingEngine(cfg, artifact dir) at phase 4's 128 geometry:
+   engine.int8, its weights the host dequantization bit for bit, a
+   second int8 engine and an engine over a Scope of the same dequantized
+   weights giving the same greedy tokens, the agreement with the fp32
+   engine printed, small/fwd and dense launches, decode step ms and
+   tokens/s; (9c) ResNet-50's is_test program at b = 128 exported and
+   run by a Predictor (top-1 equal), calibrated (abs_max, two batches of
+   32) into the int8 artifact (batch-norm statistics in f32), whose
+   frozen program runs within 0.2 of the f32 logits, top-1 agreement and
+   bytes printed; (9d) QuantizationTransformPass on the t = 256
+   Transformer-base training step at b = 16, dropout 0.1: four steps
+   captured equal to eager, finite losses, and the device ms and
+   launches a step the pass adds;
+10. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -2265,6 +2288,439 @@ def vision_vs_cpu(torch, np, fluid, name, build, names, head, *, double,
     return row
 
 
+# Phase 9 (export and deploy): tolerances. The exported program runs the
+# same ops at the same shapes on the same card as its source, so its
+# logits are held bit for bit; a bucketed Predictor pads a batch up to a
+# bucket, where cuBLAS may pick another kernel for the other row count:
+# rows within 1e-5 of the largest |logit|; the bf16 Predictor rounds
+# every matmul's inputs to bf16 (8 significant bits): within 2e-2 of the
+# largest |logit|; the int8 ResNet-50 within 0.2 of it
+# (tests/test_calibration.py:155).
+TOL_BUCKET_REL = 1e-5
+TOL_BF16_LOGIT_REL = 2e-2
+TOL_INT8_LOGIT_REL = 0.2
+# phase 9b's serving geometry: phase 4's 128 shape
+SERVE_SLOTS, SERVE_LEN, SERVE_REQ, SERVE_NEW = 8, 128, 16, 32
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _graphs(exe):
+    """The CUDA graphs an executor's compiled steps have captured."""
+    return sum(r.graph is not None for runners in exe._runners.values()
+               for r in runners.values())
+
+
+def _rel_err(np, got, want):
+    """max |got - want| over max |want|."""
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+def _transformer_is_test(fluid, T, cfg):
+    """The is_test Transformer (logits and the masked loss) with its
+    startup seeded: the same weights at every build."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        model = T.build(cfg, is_test=True)
+    startup.random_seed = SEED
+    return main, startup, model
+
+
+def export_transformer(torch, np, fluid, T, fa, tmp):
+    """Phase 9a: Transformer-base's ``is_test`` program exported by
+    ``io.save_inference_model`` and loaded by ``load_inference_model``
+    into a fresh executor and Scope: a b16 x t128 batch's logits bit for
+    bit equal to the source program's (eager, then captured); a
+    ``Predictor`` over the export with batch buckets [8, 16] at batch
+    sizes 5, 16 and 21 (rows within TOL_BUCKET_REL of the exact runs, at
+    most two captured graphs); and a bf16 ``Predictor`` (``enable_bf16``)
+    on the same batch against f32 (TOL_BF16_LOGIT_REL), its ``small/fwd``
+    launches read from its runs alone."""
+    from paddle_tpu_torch import inference, io, kernels
+
+    cfg = T.base()
+    main, startup, model = _transformer_is_test(fluid, T, cfg)
+    place = fluid.CUDAPlace(0)
+    batch = T.make_batch(cfg, 32, 128, 128, seed=SEED)
+    feed_names = ["src_ids", "src_pad_mask", "trg_ids", "trg_pad_mask"]
+    full16 = {k: v[:16] for k, v in batch.items()}
+    d = os.path.join(tmp, "transformer_fp32")
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        kernels.reset_counts()
+        src = [exe.run(main, feed=full16, fetch_list=[model["logits"]])[0]
+               for _ in range(2)]
+        src_launches = _counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        io.save_inference_model(d, feed_names, [model["logits"]], exe, main)
+        export_s = time.perf_counter() - t0
+    exe.close()
+    lscope, lexe = fluid.Scope(), fluid.Executor(place)
+    with fluid.scope_guard(lscope):
+        t0 = time.perf_counter()
+        prog, feeds, fetches = io.load_inference_model(d, lexe)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert sorted(feeds) == sorted(feed_names), feeds
+        kernels.reset_counts()
+        loaded = [lexe.run(prog, feed={k: full16[k] for k in feeds},
+                           fetch_list=fetches)[0] for _ in range(2)]
+        loaded_launches = _counts(fa)
+        assert loaded_launches["small/fwd"] == 2 * 3 * cfg.n_layer, \
+            loaded_launches
+        for a, b in zip(src, loaded):
+            assert a.shape == (16, 128, cfg.trg_vocab_size), a.shape
+            assert np.isfinite(a).all()
+            assert np.array_equal(a, b), "loaded logits differ from the " \
+                f"source's (max {float(np.abs(a - b).max())})"
+
+        def rows(lo, n):
+            return {k: batch[k][lo:lo + n] for k in feeds}
+
+        cases = ((0, 5), (5, 16), (0, 21))
+        exact = {c: lexe.run(prog, feed=rows(*c), fetch_list=fetches)[0]
+                 for c in cases}
+    lexe.close()
+    pred = inference.create_predictor(
+        inference.Config(d).set_batch_buckets([8, 16]))
+    bucket_err = {}
+    for c in cases:
+        (got,) = pred.run(rows(*c))
+        assert got.shape[0] == c[1], got.shape
+        bucket_err[f"b{c[1]}"] = _rel_err(np, got, exact[c])
+    graphs = _graphs(pred._exe)
+    pred.close()
+    assert max(bucket_err.values()) <= TOL_BUCKET_REL, bucket_err
+    assert graphs <= 2, graphs
+    bf16 = inference.create_predictor(inference.Config(d).enable_bf16())
+    kernels.reset_counts()
+    outs = [bf16.run({k: full16[k] for k in feeds})[0] for _ in range(2)]
+    bf16_launches = _counts(fa)
+    bf16.close()
+    assert bf16_launches["small/fwd"] > 0, bf16_launches
+    assert np.array_equal(outs[0], outs[1]), "bf16 eager and captured differ"
+    bf16_err = _rel_err(np, outs[0], src[0])
+    assert bf16_err <= TOL_BF16_LOGIT_REL, bf16_err
+    mask = full16["trg_pad_mask"] > 0
+    agree = float((outs[0].argmax(-1) == src[0].argmax(-1))[mask].mean())
+    torch.cuda.empty_cache()
+    return {"export_bytes": _dir_bytes(d), "export_s": export_s,
+            "load_s": load_s,
+            "files": {f: os.path.getsize(os.path.join(d, f))
+                      for f in sorted(os.listdir(d))},
+            "ops_exported": len(prog.global_block().ops),
+            "ops_source": len(main.global_block().ops),
+            "logits_bit_equal": True, "source_launches": src_launches,
+            "loaded_launches": loaded_launches,
+            "bucket_rel_err": bucket_err, "bucket_graphs": graphs,
+            "bf16_rel_err": bf16_err, "bf16_argmax_agreement": agree,
+            "bf16_launches": bf16_launches}, d
+
+
+def _serve_requests(torch, np, fluid, fa, serving, cfg, weights):
+    """Phase 4's 128 geometry through a fresh ``ServingEngine(cfg,
+    weights)``: greedy tokens, wall, launches read from this run alone,
+    then the decode step's wall with every slot live (phase 4 traces its
+    device time). Returns (row, engine); the caller closes the engine."""
+    from paddle_tpu_torch import kernels
+
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, SERVE_LEN + 1, SERVE_REQ)
+    srcs = [rng.randint(3, cfg.src_vocab_size, n).astype(np.int64)
+            for n in lens]
+    eng = serving.ServingEngine(cfg, weights, slots=SERVE_SLOTS,
+                                src_len=SERVE_LEN, max_len=SERVE_LEN,
+                                place=fluid.CUDAPlace(0))
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    hs = [eng.submit(s, max_new_tokens=SERVE_NEW) for s in srcs]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(fa)
+    tokens = [list(h.tokens) for h in hs]
+    assert all(h.outcome in ("completed", "length") for h in hs)
+    n_tok = sum(map(len, tokens))
+    dec = eng._progs["decode"]
+    for i in range(SERVE_SLOTS):
+        eng.submit(srcs[i % len(srcs)], max_new_tokens=1)
+    eng.run_until_idle()
+    active = np.ones(SERVE_SLOTS, bool)
+
+    def decode_once():
+        with fluid.scope_guard(eng.scope):
+            eng._exe.run(eng._progs["decode_program"],
+                         feed={dec["feeds"][0].name: active},
+                         fetch_list=[dec["emit"]])
+
+    for _ in range(2):
+        decode_once()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(16):
+        decode_once()
+    decode_ms = (time.perf_counter() - t1) / 16 * 1e3
+    return {"tokens": tokens, "n_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "decode_steps": eng.decode_steps,
+            "decode_step_ms": decode_ms, "launches": launches}, eng
+
+
+def int8_transformer(torch, np, fluid, T, fa, serving, tmp, fp32_dir):
+    """Phase 9b: Transformer-base calibrated on the card by
+    ``Calibrator`` with abs_max and then KL over four b16 x t128
+    batches, exported by ``save_int8_inference_model`` (the KL scales),
+    and served from the artifact directory by ``ServingEngine(cfg,
+    dir)`` at phase 4's 128 geometry: ``engine.int8``; its Scope holds
+    the host dequantization of the int8 weights bit for bit and the
+    float32 rest as saved; a second int8 engine and an engine over a
+    Scope of the same dequantized weights give the same greedy tokens;
+    the token agreement with the fp32 engine printed (random weights)."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.slim import calibration
+
+    cfg = T.base()
+    main, startup, model = _transformer_is_test(fluid, T, cfg)
+    place = fluid.CUDAPlace(0)
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    batches = [T.make_batch(cfg, 16, 128, 128, seed=SEED + 10 + i)
+               for i in range(4)]
+    calib = {}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for algo in ("abs_max", "KL"):
+            t0 = time.perf_counter()
+            c = calibration.Calibrator(main, exe, scope=scope, algo=algo)
+            for b in batches:
+                c.sample(b)
+            scales = c.compute_scales()
+            calib[algo] = (c, scales, time.perf_counter() - t0)
+        c, kl, _ = calib["KL"]
+        ab = calib["abs_max"][1]
+        assert set(kl) == set(ab) and all(
+            0 < kl[n] <= ab[n] * (1 + 1e-6) for n in kl), (kl, ab)
+        d = os.path.join(tmp, "transformer_int8")
+        t0 = time.perf_counter()
+        calibration.save_int8_inference_model(
+            d, ["src_ids", "src_pad_mask", "trg_ids", "trg_pad_mask"],
+            [model["logits"]], exe, main, c, scope=scope)
+        save_s = time.perf_counter() - t0
+        source = {n: io._to_numpy(scope.find_var(n))
+                  for n in scope.var_names()}
+    exe.close()
+    del scope
+    with open(os.path.join(d, "__int8_scales__.json")) as f:
+        wscales = json.load(f)["weight_scales"]
+    with np.load(os.path.join(d, "__params_int8__.npz")) as q8, \
+            np.load(os.path.join(d, "__params__.npz")) as f32:
+        dequant = {n: q8[n].astype(np.float32) * wscales[n] / 127.0
+                   for n in q8.files}
+        rest = {n: f32[n] for n in f32.files}
+    n_int8 = sum(v.size for v in dequant.values())
+    n_f32 = sum(v.size for v in rest.values())
+    assert set(dequant) == set(c.weight_names), sorted(dequant)
+
+    first, eng = _serve_requests(torch, np, fluid, fa, serving, cfg, d)
+    assert eng.int8 and eng.stats()["int8"], eng.stats()
+    for n, want in list(dequant.items()) + list(rest.items()):
+        got = eng.scope.find_var(n).cpu().numpy()
+        assert got.dtype == np.float32 and np.array_equal(got, want), n
+    eng.close()
+    second, eng = _serve_requests(torch, np, fluid, fa, serving, cfg, d)
+    eng.close()
+    held = io.scope_from_numpy({**rest, **dequant}, place)
+    from_scope, eng = _serve_requests(torch, np, fluid, fa, serving, cfg,
+                                      held)
+    assert not eng.int8
+    eng.close()
+    fp32, eng = _serve_requests(torch, np, fluid, fa, serving, cfg,
+                                io.scope_from_numpy(source, place))
+    eng.close()
+    tokens = first["tokens"]
+    assert second["tokens"] == tokens, "a second int8 engine differs"
+    assert from_scope["tokens"] == tokens, \
+        "an engine over the same dequantized weights differs"
+    assert first["launches"]["small/fwd"] == SERVE_REQ * cfg.n_layer, \
+        first["launches"]
+    pairs = [(a, b) for x, y in zip(tokens, fp32["tokens"])
+             for a, b in zip(x, y)]
+    agree = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+    torch.cuda.empty_cache()
+    for r in (first, second, from_scope, fp32):
+        r.pop("tokens")
+    fp32_bytes = _dir_bytes(fp32_dir)
+    return {"calibration_s": {a: v[2] for a, v in calib.items()},
+            "activations": len(kl),
+            "kl_over_abs_max": [min(kl[n] / ab[n] for n in kl),
+                                max(kl[n] / ab[n] for n in kl)],
+            "save_s": save_s, "artifact_bytes": _dir_bytes(d),
+            "fp32_bytes": fp32_bytes,
+            "fp32_over_int8": fp32_bytes / _dir_bytes(d),
+            "int8_weights": len(dequant), "int8_elements": n_int8,
+            "f32_elements": n_f32,
+            "files": {f: os.path.getsize(os.path.join(d, f))
+                      for f in sorted(os.listdir(d))},
+            "engine_weights_equal_host_dequant": True,
+            "second_engine_same_tokens": True,
+            "dequant_scope_engine_same_tokens": True,
+            "tokens_agree_with_fp32": agree,
+            "greedy_tokens_sha1": hashlib.sha1(
+                json.dumps(tokens).encode()).hexdigest(),
+            "int8_engine": first, "int8_engine_again": second,
+            "dequant_scope_engine": from_scope, "fp32_engine": fp32}
+
+
+def vision_export_int8(torch, np, fluid, R, imagenet, tmp):
+    """Phase 9c: ResNet-50's ``is_test`` program at b = 128, 3 x 224 x
+    224: exported and run through a ``Predictor`` (top-1 equal to the
+    source program's); calibrated (abs_max) over two batches of 32 and
+    exported as the int8 artifact (batch-norm statistics float32, none in
+    the int8 file), whose frozen program a ``Predictor`` runs on the card
+    within TOL_INT8_LOGIT_REL of f32."""
+    from paddle_tpu_torch import inference, io
+    from paddle_tpu_torch.slim import calibration
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("data", shape=[3, 224, 224], dtype="float32")
+        logits = R.resnet_imagenet(img, class_dim=1000, depth=50,
+                                   is_test=True)
+    startup.random_seed = SEED
+    x = next(imagenet.batched(128, 1, seed=SEED)())["data"]
+    warm = [b["data"] for b in imagenet.batched(32, 2, seed=SEED + 1)()]
+    d, d8 = os.path.join(tmp, "resnet50_fp32"), os.path.join(tmp,
+                                                              "resnet50_int8")
+    scope, exe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        (ref,) = exe.run(main, feed={"data": x}, fetch_list=[logits])
+        t0 = time.perf_counter()
+        io.save_inference_model(d, ["data"], [logits], exe, main)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = calibration.Calibrator(main, exe, scope=scope, algo="abs_max")
+        for b in warm:
+            c.sample({"data": b})
+        calibration.save_int8_inference_model(d8, ["data"], [logits], exe,
+                                              main, c, scope=scope)
+        int8_s = time.perf_counter() - t0
+    exe.close()
+    del scope
+    pred = inference.create_predictor(inference.Config(d))
+    (got,) = pred.run([x])
+    pred.close()
+    assert np.isfinite(ref).all() and ref.shape == (len(x), 1000)
+    assert np.array_equal(got.argmax(1), ref.argmax(1)), "top-1 differs"
+    stats = {n for op in main.global_block().ops if op.type == "batch_norm"
+             for n in op.inputs["Mean"] + op.inputs["Variance"]}
+    with np.load(os.path.join(d8, "__params_int8__.npz")) as q8, \
+            np.load(os.path.join(d8, "__params__.npz")) as f32:
+        assert not stats & set(q8.files), sorted(stats & set(q8.files))
+        assert all(f32[n].dtype == np.float32 for n in stats)
+        n_int8 = len(q8.files)
+    p8 = inference.create_predictor(inference.Config(d8))
+    (q,) = p8.run([x])
+    n_qdq = sum(op.type == "quantize_dequantize_static"
+                for op in p8.program.global_block().ops)
+    p8.close()
+    err = _rel_err(np, q, ref)
+    assert err < TOL_INT8_LOGIT_REL, err
+    torch.cuda.empty_cache()
+    return {"batch": len(x), "fp32_bytes": _dir_bytes(d),
+            "int8_bytes": _dir_bytes(d8),
+            "fp32_over_int8": _dir_bytes(d) / _dir_bytes(d8),
+            "export_s": export_s, "calibrate_and_int8_s": int8_s,
+            "predictor_top1_equal": True, "int8_weights": n_int8,
+            "bn_stats_f32": len(stats), "qdq_ops": n_qdq,
+            "int8_rel_err": err,
+            "int8_top1_agreement": float((q.argmax(1) == ref.argmax(1))
+                                         .mean())}
+
+
+def _qat_training(fluid, T, slim, *, seq, batch, qat):
+    """Transformer-base training at dropout 0.1 (label smoothing 0.1,
+    Adam 1e-4, bf16 AMP) with, when ``qat``, ``QuantizationTransformPass``
+    applied before ``minimize``; four batches of batch x seq."""
+    cfg = T.TransformerConfig(max_length=256, dropout=0.1)
+    main_prog, startup = fluid.Program(), fluid.Program()
+    n = 0
+    with fluid.program_guard(main_prog, startup):
+        model = T.build(cfg)
+        if qat:
+            n = slim.QuantizationTransformPass().apply(main_prog)
+        fluid.optimizer.Adam(1e-4).minimize(model["loss"])
+    fluid.amp.enable_amp(main_prog)
+    startup.random_seed = main_prog.random_seed = SEED
+    feeds = [T.make_batch(cfg, batch, seq, seq, seed=SEED + i)
+             for i in range(4)]
+    return main_prog, startup, model["loss"], feeds, n
+
+
+def qat_training(torch, np, fluid, T, fa, *, seq, batch, steps=4):
+    """Phase 9d: the t = 256 Transformer-base training step at b = 16,
+    dropout 0.1, bf16 AMP, through ``QuantizationTransformPass`` (a
+    ``fake_quantize_dequantize`` on every input of every ``mul``): four
+    steps captured equal to eager ones (``_same_runs``, as phase 5),
+    finite losses; then the captured step's device ms and launches
+    beside the same step without the pass, each from a trace of replays
+    on its own executor, and the attention kernels' launches a step."""
+    from paddle_tpu_torch import kernels, slim
+
+    dev = fluid.CUDAPlace(0).torch_device()
+    out = {"seq": seq, "batch": batch}
+    step = {}
+    for qat in (True, False):
+        prog, startup, loss, feeds, n = _qat_training(
+            fluid, T, slim, seq=seq, batch=batch, qat=qat)
+        staged = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+                  for f in feeds]
+        if qat:
+            same = _same_runs(torch, np, fluid, prog, startup, staged,
+                              [loss], steps)
+            _held_same(same)
+            assert all(np.isfinite(v) for r in same["first_fetch"]
+                       for v in r), same["first_fetch"]
+            out["fake_quant_ops"] = n
+            out["captured_vs_eager"] = same
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            for _ in range(2):  # the warm-up, then the capture
+                exe.run_steps(prog, staged[:1], 1, [loss])
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (value,) = exe.run_steps(prog, staged, steps, [loss])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            launches = {k: v / steps for k, v in _counts(fa).items()}
+            counts, trace = {}, {}
+            times = _device_times(lambda: exe.run_steps(
+                prog, staged[:1], 1, [loss]), iters=2, counts=counts,
+                replay=True, trace=trace)
+        exe.close()
+        del scope
+        torch.cuda.empty_cache()
+        assert np.isfinite(value), value
+        assert launches["small/fwd"] == launches["small/bwd"] == 18, launches
+        step["qat" if qat else "plain"] = {
+            "step_ms": wall, "step_device_ms": sum(times.values()),
+            "launches_per_step": sum(counts.values()),
+            "attention_launches": launches, "trace_let_off": trace,
+            "last_loss": float(value)}
+    q, p = step["qat"], step["plain"]
+    out.update(step)
+    out["added_device_ms"] = q["step_device_ms"] - p["step_device_ms"]
+    out["added_launches"] = q["launches_per_step"] - p["launches_per_step"]
+    return out
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -2657,6 +3113,29 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase_done("8")
+
+    # 9. export and deploy: the __model__ format and the Predictor, int8
+    # post-training quantization served on the card, and QAT
+    with tempfile.TemporaryDirectory() as tmp:
+        ex, fp32_dir = export_transformer(torch, np, fluid, T, fa, tmp)
+        print("export " + json.dumps(ex), flush=True)
+        q8 = int8_transformer(torch, np, fluid, T, fa, serving, tmp,
+                              fp32_dir)
+        print("int8_serve " + json.dumps(q8), flush=True)
+        eng8 = q8["int8_engine"]
+        print(f"serving Transformer-base from its int8 artifact on {card}: "
+              f"{q8['artifact_bytes']} bytes ({q8['fp32_over_int8']:.2f}x "
+              f"smaller than fp32), {eng8['tokens_per_s']:.1f} tokens/s, "
+              f"decode step {eng8['decode_step_ms']:.3f} ms, "
+              f"{eng8['launches']['small/fwd']} small/fwd and "
+              f"{eng8['launches']['dense_calls']} dense attention calls",
+              flush=True)
+        v8 = vision_export_int8(torch, np, fluid, R, imagenet, tmp)
+        print("resnet50_export " + json.dumps(v8), flush=True)
+    qat = qat_training(torch, np, fluid, T, fa, seq=TRAIN_T, batch=16)
+    print("qat " + json.dumps(qat), flush=True)
+
+    phase_done("9")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
 
     t1k, t4k = long_train[1024], long_train[4096]

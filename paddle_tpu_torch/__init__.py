@@ -12,11 +12,13 @@ from paddle_tpu_torch import (  # noqa: F401
     amp,
     backward,
     clip,
+    inference,
     initializer,
     io,
     layers,
     optimizer,
     regularizer,
+    slim,
     unique_name,
 )
 from paddle_tpu_torch.executor import (  # noqa: F401

@@ -3,8 +3,12 @@
 The define-then-run contract of the JAX package's framework.py, kept in
 plain Python: layers append ops into the blocks of a Program, and the
 executor runs a block's ops eagerly on a ``torch.device``
-(core/lowering.py). Serialization (protobuf ``ProgramDesc``, the
-``__model__`` format) is not part of this package yet.
+(core/lowering.py). A Program serializes to the JAX package's
+``ProgramDesc`` bytes (``desc_str`` / ``parse_from_string``), written and
+read by the port's own proto2 codec (proto/framework_wire.py, no protobuf
+runtime), so a ``__model__`` written by either package loads in the
+other; ``clone(for_test)`` goes through those bytes, as in the JAX
+package.
 
 Shape and dtype inference is advisory: every appended op's compute runs
 over tensors on ``device="meta"`` (no memory, no arithmetic) to fill its
@@ -14,6 +18,7 @@ output variables' metadata. Where that cannot run, the gap is recorded
 
 from __future__ import annotations
 
+import hashlib
 import logging
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -27,6 +32,7 @@ from paddle_tpu_torch.core.registry import (
     get_op_def,
     has_op,
 )
+from paddle_tpu_torch.proto import framework_wire as pb
 
 # Sentinel used to stand in for a symbolic (-1) batch dim during abstract
 # shape inference. Prime and unlikely to appear as a real static dim.
@@ -99,6 +105,31 @@ class Variable:
         self.trainable = trainable
         self.kind = kind
 
+    @property
+    def grad_name(self) -> str:
+        return grad_var_name(self.name)
+
+    def to_proto(self) -> pb.VarDesc:
+        d = pb.VarDesc(name=self.name, kind=self.kind)
+        if self.dtype is not None:
+            d.dtype = self.dtype
+        if self.shape is not None:
+            d.shape.extend(self.shape)
+        d.persistable = self.persistable
+        d.stop_gradient = self.stop_gradient
+        d.is_parameter = self.is_parameter
+        d.trainable = self.trainable
+        return d
+
+    @property
+    def ndim(self):
+        return len(self.shape) if self.shape is not None else None
+
+    def astype(self, dtype):
+        from paddle_tpu_torch import layers
+
+        return layers.cast(self, dtype)
+
     def __repr__(self):
         return (
             f"Var({self.name}, shape={self.shape}, dtype={self.dtype}"
@@ -148,6 +179,12 @@ class Operator:
         self.outputs: Dict[str, List[str]] = _normalize_slots(outputs)
         self.attrs: Dict[str, Any] = dict(attrs or {})
 
+    def input(self, slot: str) -> List[str]:
+        return self.inputs.get(slot, [])
+
+    def output(self, slot: str) -> List[str]:
+        return self.outputs.get(slot, [])
+
     @property
     def input_arg_names(self) -> List[str]:
         return [n for ns in self.inputs.values() for n in ns]
@@ -155,6 +192,24 @@ class Operator:
     @property
     def output_arg_names(self) -> List[str]:
         return [n for ns in self.outputs.values() for n in ns]
+
+    def attr(self, name: str, default=None):
+        return self.attrs.get(name, default)
+
+    def _set_attr(self, name: str, val):
+        self.attrs[name] = val
+
+    def to_proto(self) -> pb.OpDesc:
+        d = pb.OpDesc(type=self.type)
+        for slot, names in self.inputs.items():
+            d.inputs.append(pb.OpDesc.Var(parameter=slot, arguments=names))
+        for slot, names in self.outputs.items():
+            d.outputs.append(pb.OpDesc.Var(parameter=slot, arguments=names))
+        for k, val in self.attrs.items():
+            a = pb.OpDesc.Attr(name=k)
+            _attr_to_proto(a, val)
+            d.attrs.append(a)
+        return d
 
     def __repr__(self):
         ins = ", ".join(f"{s}={n}" for s, n in self.inputs.items())
@@ -173,6 +228,89 @@ def _normalize_slots(slots) -> Dict[str, List[str]]:
         if names:
             out[slot] = names
     return out
+
+
+def _attr_to_proto(a: pb.OpDesc.Attr, val):
+    """One attr value into ``a``, by the JAX package's type rules: bool
+    before int, an int as LONG, a float as FLOAT64, an empty list as
+    LONGS; anything else (a numpy integer, None) raises TypeError."""
+    if isinstance(val, bool):
+        a.type, a.b = pb.BOOLEAN, val
+    elif isinstance(val, int):
+        a.type, a.l = pb.LONG, val
+    elif isinstance(val, float):
+        a.type, a.float64 = pb.FLOAT64, val
+    elif isinstance(val, str):
+        a.type, a.s = pb.STRING, val
+    elif isinstance(val, Block):
+        a.type, a.block_idx = pb.BLOCK, val.idx
+    elif isinstance(val, (list, tuple)):
+        if all(isinstance(x, bool) for x in val) and val:
+            a.type = pb.BOOLEANS
+            a.bools.extend(val)
+        elif all(isinstance(x, int) for x in val):
+            a.type = pb.LONGS
+            a.longs.extend(val)
+        elif all(isinstance(x, float) for x in val):
+            a.type = pb.FLOATS
+            a.floats.extend(float(x) for x in val)
+        elif all(isinstance(x, str) for x in val):
+            a.type = pb.STRINGS
+            a.strings.extend(val)
+        elif all(isinstance(x, Block) for x in val):
+            a.type = pb.BLOCKS
+            a.blocks_idx.extend(b.idx for b in val)
+        else:
+            raise TypeError(f"unsupported list attr {val!r}")
+    else:
+        raise TypeError(f"unsupported attr {val!r} ({type(val)})")
+
+
+def _attr_from_proto(a: pb.OpDesc.Attr, program: "Program"):
+    t = a.type
+    if t == pb.BOOLEAN:
+        return a.b
+    if t == pb.LONG:
+        return int(a.l)
+    if t == pb.INT:
+        return int(a.i)
+    if t == pb.FLOAT:
+        return float(a.f)
+    if t == pb.FLOAT64:
+        return float(a.float64)
+    if t == pb.STRING:
+        return a.s
+    if t == pb.BLOCK:
+        return program.blocks[a.block_idx]
+    if t == pb.BOOLEANS:
+        return list(a.bools)
+    if t == pb.LONGS:
+        return [int(x) for x in a.longs]
+    if t == pb.INTS:
+        return [int(x) for x in a.ints]
+    if t == pb.FLOATS:
+        return [float(x) for x in a.floats]
+    if t == pb.STRINGS:
+        return list(a.strings)
+    if t == pb.BLOCKS:
+        return [program.blocks[i] for i in a.blocks_idx]
+    raise TypeError(f"unsupported proto attr type {t}")
+
+
+def _canonical_attr_bytes(val) -> bytes:
+    """Deterministic cross-process rendering of one op attr for
+    Program.content_digest: blocks as their index (the block content is
+    digested in block order), arrays as a data digest, floats via repr
+    (full precision)."""
+    if isinstance(val, Block):
+        return f"block:{val.idx}".encode()
+    if isinstance(val, np.ndarray):
+        data = hashlib.sha256(np.ascontiguousarray(val).tobytes())
+        return f"ndarray:{val.shape}:{val.dtype}:{data.hexdigest()[:16]}" \
+            .encode()
+    if isinstance(val, (list, tuple)):
+        return b"[" + b",".join(_canonical_attr_bytes(x) for x in val) + b"]"
+    return repr(val).encode()
 
 
 class Block:
@@ -234,6 +372,14 @@ class Block:
         self._infer_shapes(op)
         return op
 
+    def _prepend_op(self, type: str, inputs=None, outputs=None,
+                    attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        self._infer_shapes(op)
+        return op
+
     def _infer_shapes(self, op: Operator):
         """Run the op's compute on meta tensors to fill output metadata."""
         outs, gap = infer_op_outputs(self, op)
@@ -249,6 +395,14 @@ class Block:
             # build abort
             _note_infer_gap(op.type,
                             f"eval_failed:{type(e).__name__}: {e}")
+
+    def to_proto(self) -> pb.BlockDesc:
+        d = pb.BlockDesc(idx=self.idx, parent_idx=self.parent_idx)
+        for v in self.vars.values():
+            d.vars.append(v.to_proto())
+        for op in self.ops:
+            d.ops.append(op.to_proto())
+        return d
 
     def __repr__(self):
         lines = [f"block {self.idx} (parent {self.parent_idx}):"]
@@ -367,6 +521,8 @@ class Program:
         self._amp = False
         # param name -> its gradient var (backward.append_backward)
         self._param_grad_map: Dict[str, str] = {}
+        # (version, digest) of content_digest
+        self._content_digest_cache: Optional[tuple] = None
 
     def _bump_version(self):
         self._version += 1
@@ -387,6 +543,102 @@ class Program:
 
     def all_parameters(self) -> List[Parameter]:
         return [v for b in self.blocks for v in b.all_parameters()]
+
+    def content_digest(self) -> str:
+        """sha256 hex digest of the program's content (blocks, vars, ops
+        with slot-keyed arguments and canonical attrs, random_seed) with
+        no process-local identity in it: programs built alike in two
+        processes, or parsed from the same bytes in either package,
+        digest alike. Cached per version."""
+        cache = self._content_digest_cache
+        if cache is not None and cache[0] == self._version:
+            return cache[1]
+        h = hashlib.sha256()
+        h.update(repr(self.random_seed).encode())
+        for b in self.blocks:
+            h.update(f"B{b.idx}:{b.parent_idx}".encode())
+            for name in sorted(b.vars):
+                v = b.vars[name]
+                h.update(repr((
+                    name, v.shape, str(v.dtype), bool(v.persistable),
+                    bool(v.stop_gradient), bool(v.is_parameter),
+                    v.kind,
+                )).encode())
+            for op in b.ops:
+                h.update(op.type.encode())
+                h.update(repr(sorted(op.inputs.items())).encode())
+                h.update(repr(sorted(op.outputs.items())).encode())
+                for k in sorted(op.attrs):
+                    h.update(k.encode())
+                    h.update(_canonical_attr_bytes(op.attrs[k]))
+        digest = h.hexdigest()
+        self._content_digest_cache = (self._version, digest)
+        return digest
+
+    # --- serialization ---
+
+    def to_proto(self) -> pb.ProgramDesc:
+        d = pb.ProgramDesc(version=self._version)
+        if self.random_seed is not None:
+            d.random_seed = self.random_seed
+        for b in self.blocks:
+            d.blocks.append(b.to_proto())
+        return d
+
+    def desc_str(self) -> bytes:
+        return self.to_proto().SerializeToString()
+
+    @staticmethod
+    def from_proto(d: pb.ProgramDesc) -> "Program":
+        p = Program()
+        p.blocks = [Block(p, bd.idx, bd.parent_idx) for bd in d.blocks]
+        for bd, b in zip(d.blocks, p.blocks):
+            for vd in bd.vars:
+                shape = tuple(vd.shape) if vd.shape else None
+                if vd.is_parameter:
+                    b.create_parameter(vd.name, shape, vd.dtype or "float32",
+                                       trainable=vd.trainable)
+                else:
+                    b.create_var(name=vd.name, shape=shape,
+                                 dtype=vd.dtype or None,
+                                 persistable=vd.persistable,
+                                 stop_gradient=vd.stop_gradient,
+                                 trainable=vd.trainable, kind=vd.kind)
+            for od in bd.ops:
+                b.ops.append(Operator(
+                    b, od.type,
+                    inputs={v.parameter: list(v.arguments) for v in od.inputs},
+                    outputs={v.parameter: list(v.arguments)
+                             for v in od.outputs},
+                    attrs={a.name: _attr_from_proto(a, p) for a in od.attrs},
+                ))
+        p._version = d.version
+        if d.HasField("random_seed"):
+            p.random_seed = d.random_seed
+        return p
+
+    @staticmethod
+    def parse_from_string(s: bytes) -> "Program":
+        d = pb.ProgramDesc()
+        d.ParseFromString(s)
+        return Program.from_proto(d)
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy through the program's bytes (a new program to the
+        executor's cache, which captures its own graphs); ``for_test``
+        sets every op's ``is_test`` attr where it has one, and dropout's
+        and batch_norm's always."""
+        p = Program.parse_from_string(self.desc_str())
+        p._param_grad_map = dict(self._param_grad_map)
+        p._amp = self._amp
+        if for_test:
+            for b in p.blocks:
+                for op in b.ops:
+                    if ("is_test" in op.attrs
+                            or op.type in ("dropout", "batch_norm")):
+                        op.attrs["is_test"] = True
+        p._bump_version()
+        return p
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)

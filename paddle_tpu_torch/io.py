@@ -13,6 +13,17 @@ the other. A bf16 tensor is written as the JAX package writes one (numpy
 holds it as 2-byte void elements, the bf16 bits) and read back into a
 bf16 tensor.
 
+``save_inference_model`` exports the JAX package's ``__model__`` format:
+the program pruned to what the fetches need from the feeds
+(``clone(for_test=True)`` first), its ``ProgramDesc`` bytes in
+``__model__``, the feed and fetch names in ``__meta__.json`` and the
+persistables the pruned program reads in ``__params__.npz``; either
+package's ``load_inference_model`` reads what the other wrote. The
+export is staged in ``<dirname>.tmp``, every file fsynced, and published
+by rename; an earlier export is parked at ``<dirname>.old.tmp`` during
+the swap, and the next save or load recovers a parked copy that a crash
+left behind.
+
 ``scope_from_numpy`` builds a Scope from a JAX-package scope's arrays
 (``{n: np.asarray(scope.find_var(n))}``); ``scope_from_params_file``
 reads a saved file into a new Scope. Optimizer state moves by
@@ -23,18 +34,28 @@ reads a saved file into a new Scope. Optimizer state moves by
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Mapping, Optional, Sequence
+import shutil
+import time
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.lowering import as_tensor
 from paddle_tpu_torch.executor import Scope, global_scope
-from paddle_tpu_torch.framework import default_main_program, resolve_device
+from paddle_tpu_torch.framework import (
+    Program,
+    Variable,
+    default_main_program,
+    resolve_device,
+)
 
-# the JAX package's combined-parameters file (paddle_tpu/io.py)
+# the JAX package's file names (paddle_tpu/io.py)
 PARAMS_FILE = "__params__.npz"
+_MODEL_FILE = "__model__"
+_META_FILE = "__meta__.json"
 # how numpy holds a bf16 array it has no dtype for: 2-byte void elements
 _BF16_VOID = np.dtype("V2")
 
@@ -153,6 +174,146 @@ def load_params(executor, dirname, main_program=None, filename=None):
     None) from ``dirname/filename`` into the current scope."""
     load_vars(executor, dirname, main_program, predicate=_is_parameter,
               filename=filename)
+
+
+def _fsync_file(path: str):
+    """Flush an already-written file's data to disk."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _fsync_dir(path: str):
+    """Durably record a rename or create in its directory."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass  # some filesystems refuse a directory fsync
+    finally:
+        os.close(fd)
+
+
+def _prune_for_inference(program: Program, feeded_var_names, target_vars):
+    """The program's test clone keeping only the ops the targets need
+    from the feeds."""
+    pruned = program.clone(for_test=True)
+    block = pruned.global_block()
+    needed = {v.name if isinstance(v, Variable) else str(v)
+              for v in target_vars}
+    feeds = set(feeded_var_names)
+    keep = []
+    for idx in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[idx]
+        if any(n in needed for n in op.output_arg_names):
+            keep.append(idx)
+            needed.update(n for n in op.input_arg_names if n not in feeds)
+    keep.reverse()
+    block.ops = [block.ops[i] for i in keep]
+    pruned._bump_version()
+    return pruned
+
+
+def save_inference_model(dirname: str, feeded_var_names: Sequence[str],
+                         target_vars: Sequence, executor,
+                         main_program: Optional[Program] = None,
+                         model_filename: Optional[str] = None,
+                         params_filename: Optional[str] = None,
+                         export_for_deployment: bool = True) -> List[str]:
+    """Export the pruned program, the feed / fetch names and the
+    persistables of the current Scope to ``dirname`` (reference:
+    io.py:903); returns the fetch names. The export owns ``dirname``:
+    re-exporting replaces the whole directory. It is staged in
+    ``<dirname>.tmp`` and published by rename once every file is on
+    disk, so a crash leaves the previous complete export (perhaps parked
+    at ``<dirname>.old.tmp``, which the next save or load restores) or
+    none. ``export_for_deployment`` is taken for the JAX package's
+    signature and changes nothing, as there."""
+    # The JAX package's "io.export" fault site sits between the model and
+    # the parameter writes; the port has no faults plane yet.
+    program = main_program or default_main_program()
+    pruned = _prune_for_inference(program, feeded_var_names, target_vars)
+    base = dirname.rstrip("/\\")
+    stage, old = base + ".tmp", base + ".old.tmp"
+    if not os.path.isdir(dirname) and os.path.isdir(old):
+        # an earlier export crashed between the two publish renames:
+        # bring the complete old export back before replacing it
+        try:
+            os.rename(old, dirname)
+        except OSError:
+            pass  # a concurrent recoverer won the rename
+    if os.path.isdir(stage):  # what an earlier crashed export left
+        shutil.rmtree(stage)
+    os.makedirs(stage)
+    with open(os.path.join(stage, model_filename or _MODEL_FILE), "wb") as f:
+        f.write(pruned.desc_str())
+    meta = {
+        "feed_names": list(feeded_var_names),
+        "fetch_names": [v.name if isinstance(v, Variable) else str(v)
+                        for v in target_vars],
+    }
+    with open(os.path.join(stage, _META_FILE), "w") as f:
+        json.dump(meta, f)
+    save_persistables(executor, stage, pruned, filename=params_filename)
+    # durable before published: a rename can reach the disk before the
+    # staged files' data does
+    for fn in os.listdir(stage):
+        _fsync_file(os.path.join(stage, fn))
+    # publish: swap the staged dir in (atomic when dirname is absent; an
+    # existing export is parked first, then dropped). Tried twice: a
+    # concurrent loader's recovery can recreate dirname between the two
+    # renames, and the new export must win.
+    for attempt in range(2):
+        if os.path.isdir(dirname):
+            shutil.rmtree(old, ignore_errors=True)
+            os.rename(dirname, old)
+        try:
+            os.rename(stage, dirname)
+            break
+        except OSError:
+            if attempt:
+                raise
+    _fsync_dir(os.path.dirname(base) or ".")
+    shutil.rmtree(old, ignore_errors=True)
+    return meta["fetch_names"]
+
+
+def load_inference_model(dirname: str, executor,
+                         model_filename: Optional[str] = None,
+                         params_filename: Optional[str] = None):
+    """(reference: io.py:1083) -> (program, feed_names, fetch_vars), the
+    persistables loaded into the current Scope on ``executor``'s device.
+    Recovers an export that a crash in ``save_inference_model``'s swap
+    left parked at ``<dirname>.old.tmp``."""
+    base = dirname.rstrip("/\\")
+    if not os.path.isdir(dirname) and os.path.isdir(base + ".old.tmp"):
+        # a live exporter's swap passes through this state for a few
+        # microseconds: wait a beat before taking the parked copy for a
+        # crash's leftover
+        time.sleep(0.05)
+        if not os.path.isdir(dirname):
+            try:
+                os.rename(base + ".old.tmp", dirname)
+            except OSError:
+                pass  # a concurrent loader or exporter recovered it
+    with open(os.path.join(dirname, model_filename or _MODEL_FILE),
+              "rb") as f:
+        program = Program.parse_from_string(f.read())
+    with open(os.path.join(dirname, _META_FILE)) as f:
+        meta = json.load(f)
+    load_persistables(executor, dirname, program, filename=params_filename)
+    fetch_vars = [program.global_block().var(n) for n in meta["fetch_names"]]
+    return program, meta["feed_names"], fetch_vars
 
 
 def scope_from_numpy(params: Dict[str, np.ndarray], place=None) -> Scope:

@@ -12,7 +12,8 @@ from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-    "dropout", "relu", "sigmoid", "sqrt", "abs", "mean", "accuracy",
+    "dropout", "relu", "sigmoid", "sqrt", "abs", "log", "softmax",
+    "log_softmax", "mean", "accuracy",
     "topk", "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
     "elementwise_div", "elementwise_pow", "elementwise_max", "reduce_sum",
@@ -349,6 +350,20 @@ def sqrt(x, name=None):
 
 def abs(x, name=None):
     return _single_op("abs", x, name=name)
+
+
+def log(x, name=None):
+    return _single_op("log", x, name=name)
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    """``use_cudnn`` is taken for the JAX package's signature and changes
+    nothing, as there."""
+    return _single_op("softmax", input, attrs={"axis": axis}, name=name)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _single_op("log_softmax", input, attrs={"axis": axis}, name=name)
 
 
 # --- losses ---

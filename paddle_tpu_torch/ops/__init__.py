@@ -7,6 +7,7 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     math_ops,
     nn_ops,
     optimizer_ops,
+    quant_ops,
     serving_ops,
     tensor_ops,
 )

@@ -17,3 +17,4 @@ _unary("relu", torch.relu)
 _unary("abs", torch.abs)
 _unary("sqrt", torch.sqrt)
 _unary("sigmoid", torch.sigmoid)
+_unary("log", torch.log)

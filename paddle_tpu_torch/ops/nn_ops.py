@@ -257,6 +257,16 @@ def _dropout_grad(ins, attrs, device):
     return {"GRAD::X": [dx]}
 
 
+@register_op("softmax")
+def _softmax(ins, attrs, device):
+    return {"Out": [torch.softmax(_x(ins), dim=attrs.get("axis", -1))]}
+
+
+@register_op("log_softmax")
+def _log_softmax(ins, attrs, device):
+    return {"Out": [torch.log_softmax(_x(ins), dim=attrs.get("axis", -1))]}
+
+
 @register_op("softmax_with_cross_entropy", diff_inputs=("Logits",))
 def _softmax_with_cross_entropy(ins, attrs, device):
     logits, label = _x(ins, "Logits"), _x(ins, "Label")

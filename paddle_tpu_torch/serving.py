@@ -32,12 +32,14 @@ from __future__ import annotations
 
 import collections
 import itertools
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from paddle_tpu_torch import io as _io
 from paddle_tpu_torch.executor import Executor, Scope, scope_guard
 
 
@@ -92,6 +94,35 @@ class ServeRequest:
         self.outcome = outcome
 
 
+def _load_weights_into(scope: Scope, weights, exe: Executor) -> bool:
+    """Install model weights into the engine's Scope from a Scope (its
+    tensors shared, not copied: no op writes a weight), a Predictor (its
+    Scope), or a saved inference-model directory (the fp32 export or the
+    int8 artifact, read as tensors on ``exe``'s device). Returns True
+    when the int8 artifact was loaded."""
+    from paddle_tpu_torch import inference as _inference
+    from paddle_tpu_torch.slim import calibration
+
+    if isinstance(weights, _inference.Predictor):
+        weights = weights.scope
+    if isinstance(weights, Scope):
+        for name in weights.var_names():
+            scope.set(name, weights.find_var(name))
+        return False
+    if isinstance(weights, str):
+        if os.path.exists(os.path.join(weights,
+                                       calibration.INT8_PARAMS_FILE)):
+            calibration.load_int8_inference_model(weights, exe, scope=scope)
+            return True
+        with np.load(os.path.join(weights, _io.PARAMS_FILE)) as data:
+            for name in data.files:
+                scope.set(name, _io._to_tensor(data[name], exe.device))
+        return False
+    raise TypeError(
+        f"weights must be a Scope, Predictor or model dir, got "
+        f"{type(weights).__name__}")
+
+
 class _Slot:
     """Host-side view of one batch slot."""
 
@@ -111,8 +142,12 @@ class ServingEngine:
     ``drain()`` stops admissions and finishes the in-flight set;
     ``close()`` drains and releases the device state. ``weights`` is a
     Scope (``io.scope_from_numpy`` / ``io.scope_from_params_file`` carry
-    the JAX package's weights into one); its tensors are shared, not
-    copied, as no op updates a weight in place. ``place`` defaults to
+    the JAX package's weights into one; its tensors are shared, not
+    copied, as no op updates a weight in place), a ``Predictor`` (its
+    Scope), or a directory that either package's
+    ``save_inference_model`` (fp32) or ``save_int8_inference_model``
+    (int8: the weights dequantized on the host, ``engine.int8`` True)
+    wrote. ``place`` defaults to
     ``CUDAPlace(0)`` (raising without CUDA); pass ``CPUPlace()`` for the
     CPU. ``queue_depth``, ``deadline_ms`` and ``admission_control``
     default to the JAX package's ``serve_queue_depth`` (64),
@@ -142,8 +177,7 @@ class ServingEngine:
                                        self.max_len, bos_id=self.bos_id,
                                        end_id=self.end_id)
         self.scope = Scope()
-        for name in weights.var_names():
-            self.scope.set(name, weights.find_var(name))
+        self.int8 = _load_weights_into(self.scope, weights, self._exe)
         # device-resident serving state, zero-initialized (live=False
         # everywhere: every slot starts free)
         for name, (shape, dtype) in self._progs["state_specs"].items():
@@ -518,4 +552,5 @@ class ServingEngine:
                 None if not self._step_walls
                 else round(float(np.percentile(
                     list(self._step_walls), 99)) * 1e3, 3)),
+            "int8": self.int8,
         }

@@ -1352,3 +1352,158 @@ def test_ema_apply_restore_through_the_captured_step(cuda):
         np.testing.assert_allclose(got, restored, atol=1e-5, rtol=0)
         assert _replays(exe, scope) == [5]
     exe.close()
+
+
+# --- export and deploy ---------------------------------------------------
+
+
+def _mlp_export(tmp_path, place):
+    """An fc net exported on ``place``; returns (dir, feed, probs)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[16], dtype="float32")
+        probs = fluid.layers.softmax(fluid.layers.fc(
+            fluid.layers.fc(x, 32, act="relu"), 4))
+    d = str(tmp_path / "model")
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    xv = np.random.RandomState(0).randn(21, 16).astype(np.float32)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(d, ["x"], [probs], exe, main)
+    exe.close()
+    return d, xv
+
+
+def test_bucketed_predictor_captures_one_graph_a_bucket(cuda, tmp_path):
+    """Batch sizes 1..21 through buckets [4, 8]: at most two captured
+    graphs, each size's rows within 1e-5 of an exact-shape run."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+
+    d, xv = _mlp_export(tmp_path, fluid.CUDAPlace(0))
+    exact = inference.create_predictor(inference.Config(d))
+    pred = inference.create_predictor(
+        inference.Config(d).set_batch_buckets([4, 8]))
+    for n in (1, 3, 4, 5, 8, 13, 21, 2, 7):
+        (got,) = pred.run([xv[:n]])
+        (want,) = exact.run([xv[:n]])
+        assert got.shape == (n, 4)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    graphs = [r.graph is not None for rs in pred._exe._runners.values()
+              for r in rs.values()]
+    assert len(graphs) == 2 and all(graphs)
+    pred.close()
+    exact.close()
+
+
+def test_pruning_after_a_captured_step_reaches_the_next_replay(cuda):
+    """UniformPruneStrategy on the fc weight after a captured SGD step: the
+    mask multiplies the Scope's tensor in place, so the next replay
+    computes from the masked weight (its fc output against a host
+    product, atol 1e-5); the optimizer step moves the pruned rows and
+    ``on_batch_end`` zeroes them again."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import slim
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[8], dtype="float32")
+        y = fluid.layers.fc(x, 6, param_attr=fluid.ParamAttr(name="fc_w"),
+                            bias_attr=fluid.ParamAttr(name="fc_b"))
+        fluid.optimizer.SGD(0.5).minimize(fluid.layers.mean(
+            fluid.layers.elementwise_mul(y, y)))
+    feed = {"x": np.random.RandomState(0).randn(4, 8).astype(np.float32)}
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(2):  # eager, then captured
+            exe.run(main, feed=feed, fetch_list=[y])
+        strat = slim.UniformPruneStrategy(target_ratio=0.5,
+                                          pruned_params="fc_w")
+        w = scope.find_var("fc_w")
+        masks = strat.on_compression_begin(scope)
+        assert scope.find_var("fc_w") is w
+        pruned = np.where(masks["fc_w"] == 0)[0]
+        assert len(pruned) == 4 and not w[pruned].any()
+        host = feed["x"] @ w.cpu().numpy() + \
+            scope.find_var("fc_b").cpu().numpy()
+        (got,) = exe.run(main, feed=feed, fetch_list=[y])
+        np.testing.assert_allclose(got, host, atol=1e-5, rtol=0)
+        assert w[pruned].abs().sum().item() > 0  # SGD moved them
+        strat.on_batch_end(scope)
+        assert scope.find_var("fc_w") is w and not w[pruned].any()
+        assert _replays(exe, scope) == [3]
+    exe.close()
+
+
+def test_int8_engine_is_deterministic_on_the_card(cuda, tmp_path):
+    """A tiny Transformer calibrated on the card and exported as the int8
+    artifact: two engines over it give the same greedy tokens, and the
+    engine's weights are the host dequantization bit for bit."""
+    import json
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.slim import calibration
+
+    cfg = T.TransformerConfig(src_vocab_size=37, trg_vocab_size=41,
+                              max_length=64, d_model=32, d_inner=64,
+                              n_head=2, n_layer=2, dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        model = T.build(cfg, is_test=True)
+    startup.random_seed = 7
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    d = str(tmp_path / "int8")
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        calib = calibration.Calibrator(main, exe, scope=scope, algo="KL")
+        for s in range(2):
+            calib.sample(T.make_batch(cfg, 4, 12, 12, seed=s))
+        calibration.save_int8_inference_model(
+            d, ["src_ids", "src_pad_mask", "trg_ids", "trg_pad_mask"],
+            [model["logits"]], exe, main, calib, scope=scope)
+    exe.close()
+    r = np.random.RandomState(3)
+    srcs = [r.randint(3, 37, (n,)).astype(np.int64) for n in (9, 4, 12, 6)]
+    with open(tmp_path / "int8" / "__int8_scales__.json") as f:
+        wscales = json.load(f)["weight_scales"]
+    q8 = np.load(tmp_path / "int8" / "__params_int8__.npz")
+    runs = []
+    for _ in range(2):
+        eng = serving.ServingEngine(cfg, d, slots=2, src_len=16,
+                                    max_len=10)
+        assert eng.int8 and eng.stats()["int8"]
+        assert eng._exe.device.type == "cuda"
+        for n in q8.files:
+            want = q8[n].astype(np.float32) * wscales[n] / 127.0
+            assert np.array_equal(eng.scope.find_var(n).cpu().numpy(), want)
+        hs = [eng.submit(s) for s in srcs]
+        eng.run_until_idle()
+        runs.append([list(h.tokens) for h in hs])
+        eng.close()
+    assert runs[0] == runs[1] and all(runs[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op_type,attrs", [
+    ("quantize_dequantize_static", {"scale": 1.7, "bits": 8}),
+    ("fake_quantize_dequantize", {"bits": 8}),
+    ("fake_quantize_abs_max", {"bit_length": 4}),
+])
+def test_qdq_op_on_the_card_equals_the_cpu_bit_for_bit(cuda, dtype,
+                                                        op_type, attrs):
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    x = torch.randn(64, 512, generator=torch.Generator().manual_seed(1))
+    x = (x * 3).to(dtype)
+    op = get_op_def(op_type)
+    cpu = op.compute({"X": [x]}, dict(attrs), device=torch.device("cpu"))
+    dev = op.compute({"X": [x.to(cuda)]}, dict(attrs), device=cuda)
+    for slot in cpu:
+        a, b = cpu[slot][0], dev[slot][0].cpu()
+        assert a.dtype == b.dtype == (dtype if slot == "Out" else a.dtype)
+        assert torch.equal(a, b), (slot, (a.float() - b.float()).abs().max())

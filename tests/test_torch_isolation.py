@@ -1,7 +1,8 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor any module of
 the JAX package (paddle_tpu) or of its benchmark scripts (benchmarks/),
-and neither does chip_smoke.py, which runs on machines that have no
-JAX."""
+nor protobuf (``google``: the port reads and writes program bytes with
+its own codec), and neither does chip_smoke.py, which runs on machines
+that have no JAX and no protobuf."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "paddle_tpu", "benchmarks"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "paddle_tpu", "benchmarks", "google"}
 
 
 def _port_sources():
@@ -32,7 +33,14 @@ def test_every_module_of_the_port_is_scanned():
                 "paddle_tpu_torch/models/resnet.py",
                 "paddle_tpu_torch/models/se_resnext.py",
                 "paddle_tpu_torch/ops/nn_ops.py",
-                "paddle_tpu_torch/layers/more.py", "chip_smoke.py"):
+                "paddle_tpu_torch/layers/more.py",
+                "paddle_tpu_torch/proto/framework_wire.py",
+                "paddle_tpu_torch/inference.py",
+                "paddle_tpu_torch/ops/quant_ops.py",
+                "paddle_tpu_torch/slim/quantization.py",
+                "paddle_tpu_torch/slim/calibration.py",
+                "paddle_tpu_torch/slim/prune.py",
+                "paddle_tpu_torch/slim/distill.py", "chip_smoke.py"):
         assert rel in scanned, rel
 
 
@@ -57,17 +65,21 @@ def test_sources_import_no_jax_and_no_jax_package():
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["google.protobuf"] = None   # nor of protobuf
 import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-leaked = sorted(n for n in sys.modules
-                if n in ("paddle_tpu", "benchmarks")
-                or n.startswith(("paddle_tpu.", "benchmarks.")))
+leaked = sorted(n for n, m in sys.modules.items() if m is not None and (
+                n in ("paddle_tpu", "benchmarks", "google.protobuf")
+                or n.startswith(("paddle_tpu.", "benchmarks.",
+                                 "google.protobuf."))))
 assert not leaked, leaked
 for name in ("benchmarks.conv_bwd", "benchmarks.grouped_conv",
              "benchmarks.attn_ablate", "dataset.imagenet", "models.resnet",
-             "models.se_resnext", "layers.more"):
+             "models.se_resnext", "layers.more", "proto.framework_wire",
+             "inference", "ops.quant_ops", "slim.quantization",
+             "slim.calibration", "slim.prune", "slim.distill"):
     assert "paddle_tpu_torch." + name in sys.modules, name
 print("isolated", len([n for n in sys.modules
                        if n.startswith("paddle_tpu_torch")]))

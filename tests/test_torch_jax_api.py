@@ -363,6 +363,11 @@ _KEYWORD_CALLS = {
     "softmax_with_cross_entropy(numeric_stable_mode)": (
         lambda L, fluid, v: L.softmax_with_cross_entropy(
             v["x"], v["label"], False, -100, True), ["x", "label"]),
+    "softmax(use_cudnn, axis)": (lambda L, fluid, v: L.softmax(
+        v["x"], use_cudnn=True, name=None, axis=0), ["x"]),
+    "log_softmax(axis)": (lambda L, fluid, v: L.log_softmax(
+        v["x"], axis=-1), ["x"]),
+    "log": (lambda L, fluid, v: L.log(L.abs(v["x"])), ["x"]),
     "create_global_var(force_cpu)": (lambda L, fluid, v: L.elementwise_add(
         v["x"], L.create_global_var([1], 0.5, "float32", True, True,
                                     name="kw_gv")), ["x"]),

@@ -296,6 +296,26 @@ CASES += [
 ]
 
 
+# the op types of export and deploy: distillation's (cases
+# here) and the quant ops (tests/test_torch_slim.py holds their cases)
+DEPLOY_OP_TYPES = ["log", "log_softmax", "softmax"]
+QUANT_OP_TYPES = [
+    "dequantize", "fake_channel_wise_dequantize_max_abs",
+    "fake_channel_wise_quantize_abs_max", "fake_dequantize_max_abs",
+    "fake_quantize_abs_max", "fake_quantize_dequantize",
+    "fake_quantize_dequantize_moving_average_abs_max",
+    "fake_quantize_moving_average_abs_max", "fake_quantize_range_abs_max",
+    "moving_average_abs_max_scale", "quantize",
+    "quantize_dequantize_static", "requantize",
+]
+
+CASES += [
+    ("log", {"X": [_pos(3, 4)]}, {}),
+    ("log_softmax", {"X": [_f(3, 5) * 4]}, {"axis": -1}),
+    ("softmax", {"X": [_f(3, 5) * 4]}, {"axis": -1}),
+    ("softmax", {"X": [_f(2, 3, 4) * 4]}, {"axis": 1}),
+]
+
 # the op types the vision path added; test_torch_vision_ops.py holds
 # their cases
 VISION_OP_TYPES = [
@@ -305,10 +325,11 @@ VISION_OP_TYPES = [
 
 
 def test_cases_cover_exactly_the_path_op_types():
-    assert sorted({c[0] for c in CASES}) == sorted(PATH_OP_TYPES
-                                                   + RECIPE_OP_TYPES)
+    assert sorted({c[0] for c in CASES}) == sorted(
+        PATH_OP_TYPES + RECIPE_OP_TYPES + DEPLOY_OP_TYPES)
     assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES
-                                      + RECIPE_OP_TYPES)
+                                      + RECIPE_OP_TYPES + DEPLOY_OP_TYPES
+                                      + QUANT_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):
