@@ -151,7 +151,24 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     captured give bit-equal bundles, the loss-scale and grad-norm gauges
     equal the in-graph values, and the device ms and launches the stats
     op adds to a captured step;
-11. print the kernels' JSON line, the card line, and the result line.
+11. the fleet front door (``fleet_front_door``), Transformer-base at
+    full width, weights from seed 1234, ServingFleet over supervised
+    replicas on the one card, every stream held byte for byte to an
+    engine run alone: (11a) 3 replicas serve 48 requests at src_len 128
+    (every replica serves, no restart), tokens/s beside one warm engine
+    at the same offered load; (11b) ``router.replica_crash:
+    raise(replica=1)`` kills a replica mid-decode, at 128 with 3 replicas
+    and at src_len = max_len = 1024 with 2 replicas of 4 slots: monotone
+    streams, one trace tid a request; (11c) a rolling rollout to weights
+    from seed 1235 under traffic: nothing rejected, each stream equal to
+    an engine alone on the weights of the generation that served it;
+    (11d) the autoscaler up under saturation (seconds from the decision
+    to the new replica's first token, its lowerings and captures) and
+    down when idle; (11e) the capture gate's record over the phase: no
+    capture failed, no pump error, no restart, reserved memory after the
+    fleets close within 0.25 GiB of before the phase; captures that
+    waited and the longest wait;
+12. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -161,6 +178,7 @@ package is not next to this script.
 """
 
 import collections
+import gc
 import hashlib
 import json
 import os
@@ -2763,13 +2781,13 @@ TOL_RESTART_RESERVED_GIB = 0.25
 WEDGE_TIMEOUT_MS, WEDGE_DELAY_S = 250, 1.0
 
 
-def _serving_weights(fluid, T, cfg):
-    """Transformer-base's is_test weights on the card from SEED: the
-    Scope every phase 10 engine serves."""
+def _serving_weights(fluid, T, cfg, seed=SEED):
+    """Transformer-base's is_test weights on the card from ``seed``: the
+    Scope every phase 10 and 11 engine serves."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         T.build(cfg, is_test=True)
-    startup.random_seed = SEED
+    startup.random_seed = seed
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     with fluid.scope_guard(scope):
@@ -3302,6 +3320,361 @@ def serving_planes(torch, np, fluid, T, fa, tmp):
     return out, short_launches, long_launches, recipe_launches
 
 
+# Phase 11 (the fleet front door): ServingFleet over supervised replicas
+# on one card, Transformer-base at full width, weights from SEED, at
+# SERVE_GEOM (and SERVE_LONG_GEOM for one drill). Every stream is held
+# byte for byte to an engine run alone (``_undisturbed``). A fault plan
+# is armed only once every replica's decode graph is captured and every
+# request of the drill has streamed a token, and fires at the router's
+# next pump tick, never after a sleep; every wait is bounded.
+FLEET_REPLICAS, FLEET_REQUESTS = 3, 48
+FLEET_POLL_S = 0.002
+FLEET_WAIT_S = 120.0
+# the replicas' watchdog: far above a replayed step, below a capture that
+# holds a replica back for seconds (which must not restart it)
+FLEET_WEDGE_TIMEOUT_MS = 1000
+ROLLOUT_SEED = SEED + 1
+# the kill drills' new tokens: enough decode steps after the first token
+# for the kill to land on work in flight
+DRILL_TOKENS = 64
+
+
+def _released_gib(torch):
+    """Reserved GiB once everything unreferenced is released: garbage
+    collected, the cuBLAS workspaces of every thread dropped, the
+    allocator's cache emptied (read the same way before and after the
+    phase)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def _wait_until(pred, what, timeout=FLEET_WAIT_S):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout} s waiting for "
+                                 f"{what}")
+        time.sleep(0.0005)
+
+
+class _FleetRecord:
+    """Builds the phase's fleets on the card and keeps every supervisor
+    they made (the phase's restart record) and every fleet (its pump
+    errors)."""
+
+    def __init__(self, serving, fleet_serving):
+        self._serving, self._fleet_serving = serving, fleet_serving
+        self.sups, self.fleets = [], []
+
+    def _factory(self, cfg, weights, **kw):
+        sup = self._serving.EngineSupervisor(
+            cfg, weights, wedge_timeout_ms=FLEET_WEDGE_TIMEOUT_MS, **kw)
+        self.sups.append(sup)
+        return sup
+
+    def fleet(self, cfg, weights, replicas, geom, **kw):
+        f = self._fleet_serving.ServingFleet(
+            cfg, weights, replicas=replicas, poll_s=FLEET_POLL_S,
+            replica_factory=self._factory, **geom, **kw)
+        self.fleets.append(f)
+        return f
+
+    def restarts(self):
+        return sum(s.restarts for s in self.sups)
+
+    def pump_errors(self):
+        errs = [(f.pump_errors, f.last_pump_error) for f in self.fleets]
+        return sum(n for n, _ in errs), [e for n, e in errs if n]
+
+
+def _warm_replicas(fleet, srcs):
+    """Two requests through each replica's supervisor, one after the
+    other: every replica lowers and captures its prefill and decode."""
+    for rep in list(fleet._replicas.values()):
+        for s in srcs[:2]:
+            h = rep.sup.submit(s, max_new_tokens=4)
+            h.result(timeout=FLEET_WAIT_S)
+        eng = rep.sup.engine
+        runs = [eng._runs[eng._progs[k]._uid]
+                for k in ("prefill_program", "decode_program")]
+        assert min(runs) >= 2 and len(eng._exe._cache) == 2, runs
+        assert eng._wedge_armed()
+
+
+def _drill_kill(faults, monitor, fleet, srcs, clean, new_tokens, replica):
+    """Kill the ``replica``-th live replica mid-decode: streams equal
+    ``clean``, every view the client read is a prefix of the next (no
+    duplicate, no gap), and each re-homed request's trace events lie on
+    its one tid with one submit."""
+    import threading
+
+    monitor.reset()  # an empty trace ring for this drill's requests
+    frs = [fleet.submit(s, max_new_tokens=new_tokens) for s in srcs]
+    live = sorted(fleet._replicas.values(), key=lambda r: r.id)
+    victim = live[replica].id
+    mine = [fr for fr in frs if fr.replica_id == victim]
+    assert mine, "the router gave the victim no request"
+    # mid-decode: every request the victim was given has streamed a
+    # token (or ended); armed then, the kill lands at the next pump tick
+    _wait_until(lambda: all(len(fr.tokens) >= 1 or fr.done for fr in mine),
+                "the victim's first tokens")
+    assert any(not fr.done for fr in mine), \
+        "the victim holds no request in flight"
+    views = {id(fr): [] for fr in frs}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            for fr in frs:
+                views[id(fr)].append(list(fr.tokens))
+            time.sleep(0.0005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    failovers0 = fleet.failovers
+    faults.arm(f"router.replica_crash:raise(replica={replica})@1")
+    try:
+        streams = [fr.result(timeout=FLEET_WAIT_S) for fr in frs]
+    finally:
+        faults.disarm()
+        stop.set()
+        watcher.join(timeout=30)
+    assert not watcher.is_alive()
+    assert fleet.failovers == failovers0 + 1, fleet.failovers
+    assert all(fr.outcome in ("completed", "length") for fr in frs)
+    assert streams == clean, "a fleet stream differs from the oracle"
+    for fr, final in zip(frs, streams):
+        seen = views[id(fr)] + [final]
+        for a, b in zip(seen, seen[1:]):
+            assert b[:len(a)] == a, (fr.trace_id, a, b)
+    rehomed = [fr for fr in frs if fr.failovers >= 1]
+    assert rehomed, "no request was re-homed"
+    for fr in rehomed:
+        evs = [e for e in monitor.trace_events()
+               if e.get("args", {}).get("req") == fr.trace_id]
+        assert {e["tid"] for e in evs} == {fr.trace_tid}, fr.trace_id
+        assert [e["name"] for e in evs].count("submit") == 1, fr.trace_id
+    return {"requests": len(frs), "new_tokens": new_tokens,
+            "killed_replica": victim, "rehomed": len(rehomed),
+            "replicas_after": fleet.stats()["replica_count"],
+            "monotone": True, "one_trace_tid": True,
+            "byte_identical": True}
+
+
+def fleet_front_door(torch, np, fluid, T, fa, tmp):
+    """Phase 11: the fleet on the card (see the module docstring).
+    Returns one JSON-able row per sub-phase and the attention launches
+    the phase made, by route. Every fleet is closed on the way out, also
+    when a check fails."""
+    from paddle_tpu_torch import fleet_serving, serving
+
+    rec = _FleetRecord(serving, fleet_serving)
+    try:
+        return _fleet_phase(torch, np, fluid, T, fa, tmp, rec)
+    finally:
+        for f in rec.fleets:  # closed already unless a check failed
+            f.close(drain_timeout_s=0.0)
+
+
+def _fleet_phase(torch, np, fluid, T, fa, tmp, rec):
+    """The body of ``fleet_front_door``, sub-phase by sub-phase; ``rec``
+    builds and records its fleets."""
+    from paddle_tpu_torch import faults, flags, kernels, monitor, serving
+    from paddle_tpu_torch.core.lowering import GATE
+
+    place = fluid.CUDAPlace(0)
+    cfg = T.base()
+    g = SERVE_GEOM
+    geom = dict(slots=g["slots"], src_len=g["src_len"],
+                max_len=g["max_len"], place=place)
+    new_tokens = g["new_tokens"]
+    reserved0 = _released_gib(torch)
+    weights = _serving_weights(fluid, T, cfg)
+    srcs = _sources(np, cfg, FLEET_REQUESTS, g["src_len"], g["min_len"])
+    kernels.reset_counts()
+    GATE.reset_stats()
+    out = {}
+
+    # 11a: 3 replicas against one engine at the same offered load
+    clean = _undisturbed(serving, cfg, weights, srcs, geom, new_tokens)
+    eng = serving.ServingEngine(cfg, weights, **geom)
+    for s in srcs[:2]:  # warm: prefill and decode captured
+        eng.submit(s, max_new_tokens=4)
+        eng.run_until_idle()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(s, max_new_tokens=new_tokens) for s in srcs]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    eng.close()
+    assert [list(h.tokens) for h in hs] == clean
+    one_tokens = sum(len(h.tokens) for h in hs)
+    fleet = rec.fleet(cfg, weights, FLEET_REPLICAS, geom)
+    _warm_replicas(fleet, srcs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frs = [fleet.submit(s, max_new_tokens=new_tokens) for s in srcs]
+    streams = [fr.result(timeout=FLEET_WAIT_S) for fr in frs]
+    fleet_wall = time.perf_counter() - t0
+    assert streams == clean, "a fleet stream differs from the oracle"
+    rows = fleet.stats()["replicas"]
+    assert all(r["routed"] >= 1 for r in rows), rows
+    assert fleet.failovers == 0 and rec.restarts() == 0
+    fleet_tokens = sum(len(s) for s in streams)
+    out["11a"] = {
+        "replicas": FLEET_REPLICAS, "requests": len(srcs),
+        "new_tokens": new_tokens, "tokens": fleet_tokens,
+        "routed": [r["routed"] for r in rows],
+        "fleet_wall_s": fleet_wall,
+        "fleet_tokens_per_s": fleet_tokens / fleet_wall,
+        "one_engine_wall_s": one_wall,
+        "one_engine_tokens_per_s": one_tokens / one_wall,
+        "fleet_over_one_engine": (fleet_tokens / fleet_wall)
+        / (one_tokens / one_wall),
+        "restarts": 0, "byte_identical": True}
+
+    # 11b: kill one replica mid-decode at 128, on the warm fleet
+    flags.set_flags({"telemetry": True, "trace_dir": tmp,
+                     "trace_every_n_steps": 16})
+    try:
+        kill = srcs[:24]
+        clean_kill = _undisturbed(serving, cfg, weights, kill, geom,
+                                  DRILL_TOKENS)
+        out["11b"] = {"128": _drill_kill(faults, monitor, fleet, kill,
+                                         clean_kill, DRILL_TOKENS,
+                                         replica=1)}
+    finally:
+        flags.set_flags({"telemetry": False, "trace_dir": "",
+                         "trace_every_n_steps": 1})
+    assert fleet.pump_errors == 0, fleet.last_pump_error
+
+    # 11c: a rolling rollout to a second weight set under traffic
+    weights2 = _serving_weights(fluid, T, cfg, seed=ROLLOUT_SEED)
+    roll = srcs[:32]
+    oracle = {0: _undisturbed(serving, cfg, weights, roll, geom,
+                              new_tokens),
+              1: _undisturbed(serving, cfg, weights2, roll, geom,
+                              new_tokens)}
+    assert oracle[0] != oracle[1]
+    captures0 = GATE.stats()["captures"]
+    pre = [fleet.submit(s, max_new_tokens=new_tokens) for s in roll[:16]]
+    _wait_until(lambda: all(len(fr.tokens) >= 1 or fr.done for fr in pre),
+                "the rollout's first tokens")
+    t0 = time.perf_counter()
+    res = fleet.rollout(weights2)
+    rollout_s = time.perf_counter() - t0
+    post = [fleet.submit(s, max_new_tokens=new_tokens) for s in roll[16:]]
+    got = [fr.result(timeout=FLEET_WAIT_S) for fr in pre + post]
+    outcomes = collections.Counter(fr.outcome for fr in pre + post)
+    assert set(outcomes) <= {"completed", "length"}, outcomes
+    gens = [fr.generation for fr in pre + post]
+    for i, (fr, toks) in enumerate(zip(pre + post, got)):
+        assert toks == oracle[fr.generation][i], (i, fr.generation)
+    assert all(gn == 1 for gn in gens[16:])
+    assert res == {"generation": 1, "replicas_rotated": FLEET_REPLICAS - 1,
+                   "replicas": FLEET_REPLICAS - 1}, res
+    out["11c"] = {
+        "requests": len(roll), "rollout_s": rollout_s,
+        "replicas_rotated": res["replicas_rotated"],
+        "generations": dict(collections.Counter(gens)),
+        "rejected": 0, "captures_during_rollout":
+        GATE.stats()["captures"] - captures0,
+        "each_stream_equals_its_generations_oracle": True}
+    fleet.close()
+
+    # 11b at src_len = max_len = 1024: 2 replicas of 4 slots
+    long_cfg = T.TransformerConfig(max_length=1026)
+    long_weights = _serving_weights(fluid, T, long_cfg)
+    lg = dict(SERVE_LONG_GEOM, place=place)
+    long_srcs = _sources(np, long_cfg, 8, lg["src_len"], 513)
+    clean_long = _undisturbed(serving, long_cfg, long_weights, long_srcs,
+                              lg, DRILL_TOKENS)
+    lfleet = rec.fleet(long_cfg, long_weights, 2, lg)
+    _warm_replicas(lfleet, long_srcs)
+    flags.set_flags({"telemetry": True, "trace_dir": tmp,
+                     "trace_every_n_steps": 16})
+    try:
+        out["11b"]["1024"] = _drill_kill(faults, monitor, lfleet, long_srcs,
+                                         clean_long, DRILL_TOKENS,
+                                         replica=1)
+    finally:
+        flags.set_flags({"telemetry": False, "trace_dir": "",
+                         "trace_every_n_steps": 1})
+    lfleet.close()
+
+    # 11d: autoscale up under saturation, then down when idle
+    flags.set_flags({"serve_fleet_autoscale_window": 2,
+                     "serve_fleet_scale_down_idle_ticks": 3,
+                     "serve_fleet_scale_up_queue_factor": 0.5})
+    try:
+        afleet = rec.fleet(cfg, weights, 1, geom, queue_depth=16,
+                           min_replicas=1, max_replicas=2)
+        _warm_replicas(afleet, srcs)
+        (old,) = afleet._replicas.values()
+        frs = [afleet.submit(s, max_new_tokens=new_tokens)
+               for s in srcs[:8]]
+        _wait_until(lambda: afleet.stats()["queue_depth"] == 0,
+                    "the first eight admitted")
+        frs += [afleet.submit(s, max_new_tokens=new_tokens)
+                for s in srcs[8:24]]
+        assert afleet.autoscale_tick() is None
+        t0 = time.perf_counter()
+        assert afleet.autoscale_tick() == "up"
+        (new,) = [r for r in afleet._replicas.values() if r is not old]
+        frs += [afleet.submit(s, max_new_tokens=new_tokens)
+                for s in srcs[24:32]]
+        _wait_until(lambda: new.sup.engine.tokens_emitted > 0,
+                    "the new replica's first token")
+        first_token_s = time.perf_counter() - t0
+        got = [fr.result(timeout=FLEET_WAIT_S) for fr in frs]
+        assert got == clean[:32], "an autoscaled stream differs"
+        lowered, captured = _graph_costs(new.sup.engine._exe)
+        assert afleet.drain(timeout_s=FLEET_WAIT_S)
+        acts = [afleet.autoscale_tick() for _ in range(3)]
+        assert acts[-1] == "down", acts
+        assert afleet.stats()["replica_count"] == 1
+        out["11d"] = {
+            "scale_up_to_first_token_s": first_token_s,
+            "spin_up_lowerings": lowered, "spin_up_graph_captures":
+            captured, "new_replica_routed": new.routed,
+            "scale_ups": afleet.scale_ups,
+            "scale_downs": afleet.scale_downs}
+        afleet.close()
+    finally:
+        flags.set_flags({
+            name: flags._DEFS[name][1]
+            for name in ("serve_fleet_autoscale_window",
+                         "serve_fleet_scale_down_idle_ticks",
+                         "serve_fleet_scale_up_queue_factor")})
+    launches = _counts(fa)
+
+    # 11e: the gate's record over the whole phase
+    gate = GATE.stats()
+    pump_errors, pump_texts = rec.pump_errors()
+    restarts, n_sups = rec.restarts(), len(rec.sups)
+    # every fleet is closed: drop what still holds the weights (the
+    # supervisors and fleets keep theirs) and the loop threads' cuBLAS
+    # workspaces
+    rec.sups.clear()
+    rec.fleets.clear()
+    del fleet, lfleet, afleet, old, new, weights, weights2, long_weights
+    reserved1 = _released_gib(torch)
+    assert gate["capture_failures"] == 0, gate
+    assert pump_errors == 0, pump_texts
+    assert restarts == 0, restarts
+    assert abs(reserved1 - reserved0) <= TOL_RESTART_RESERVED_GIB, (
+        reserved0, reserved1)
+    out["11e"] = {**gate, "pump_errors": 0, "wedge_restarts": 0,
+                  "supervisors": n_sups,
+                  "reserved_gib_before_after": [reserved0, reserved1]}
+    return out, launches
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -3741,7 +4114,28 @@ def main() -> int:
           f"({f10['instrumented_vars']} vars)", flush=True)
 
     phase_done("10")
+
+    # 11. the fleet front door: replicas side by side on the card under
+    # the capture gate, the kill drills, a rollout, autoscale
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet11, p11 = fleet_front_door(torch, np, fluid, T, fa, tmp)
+    for key in ("11a", "11b", "11c", "11d", "11e"):
+        print(f"fleet_{key} " + json.dumps(fleet11[key]), flush=True)
+    a11, d11, e11 = fleet11["11a"], fleet11["11d"], fleet11["11e"]
+    print(f"serving fleet on {card}: {a11['replicas']} replicas "
+          f"{a11['fleet_tokens_per_s']:.1f} tokens/s against one engine's "
+          f"{a11['one_engine_tokens_per_s']:.1f} at {a11['requests']} "
+          f"requests; scale-up to first token "
+          f"{d11['scale_up_to_first_token_s']:.3f} s "
+          f"({d11['spin_up_lowerings']} lowerings, "
+          f"{d11['spin_up_graph_captures']} captures); {e11['captures']} "
+          f"captures, {e11['captures_waited']} waited (longest "
+          f"{e11['longest_capture_wait_s']:.3f} s), "
+          f"{e11['capture_failures']} failed", flush=True)
+
+    phase_done("11")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
+    assert phase_s["11"] < 150, phase_s["11"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
@@ -3770,7 +4164,8 @@ def main() -> int:
             "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
             "tiles; small route, serving prefill)", _SRC_FWD,
             f"{_TPU_FA}:808",
-            s["launches"]["small/fwd"] + p10_short["small/fwd"],
+            s["launches"]["small/fwd"] + p10_short["small/fwd"]
+            + p11["small/fwd"],
             fwd_prefill, err(fwd_prefill)),
         _kernel_entry(
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
@@ -3817,7 +4212,8 @@ def main() -> int:
             "flash_attention_fwd, f32 fwd_decode_kernel + fwd_merge_kernel "
             "(CUDA cores, split-KV; bhtd route, decode step)", _SRC_FWD,
             f"{_TPU_FA}:126",
-            sl["launches"]["bhtd/fwd"] + p10_long["bhtd/fwd"], bh_decode,
+            sl["launches"]["bhtd/fwd"] + p10_long["bhtd/fwd"]
+            + p11["bhtd/fwd"], bh_decode,
             err(bh_decode)),
         _kernel_entry(
             "flash_attention_bwd pass B, dq, bwd_dq_wgmma_kernel (bhtd route, "
@@ -3837,7 +4233,8 @@ def main() -> int:
             "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
             "tiles, with fwd_merge_kernel where the keys split; kblock "
             "route, serving prefill at 1024)", _SRC_FWD, f"{_TPU_FA}:964",
-            sl["launches"]["kblock/fwd"] + p10_long["kblock/fwd"],
+            sl["launches"]["kblock/fwd"] + p10_long["kblock/fwd"]
+            + p11["kblock/fwd"],
             kb_fwd_f32, err(kb_fwd_f32)),
         _kernel_entry(
             "flash_attention_bthd_bwd (kblock route)", _SRC_BWD,

@@ -7,7 +7,8 @@ need (forward with dropout, backward) are hand-written CUDA kernels for
 Hopper (parallel/flash_attention.py, csrc/). Entry points run on
 ``CUDAPlace(0)`` unless the caller passes ``CPUPlace()``. The serving
 planes (flags, faults, retry, monitor, numerics, serving_trace) are the
-JAX package's, with the card's device reads.
+JAX package's, with the card's device reads; ``fleet_serving`` routes
+requests over several supervised replicas on one card.
 """
 
 from paddle_tpu_torch import (  # noqa: F401
@@ -16,6 +17,7 @@ from paddle_tpu_torch import (  # noqa: F401
     clip,
     faults,
     flags,
+    fleet_serving,
     inference,
     initializer,
     io,

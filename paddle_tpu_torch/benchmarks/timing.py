@@ -45,8 +45,12 @@ def _int64_elementwise(name: str) -> bool:
     opens with them (its seed written with ``fill_``, or derived from the
     step counter inside a CUDA graph, one element each), and H100 traces
     of two steps counted them 1 or 3 times, trace after trace, where the
-    calls launched 2 or 4: a count of the trace, not of the calls."""
-    return "vectorized_elementwise_kernel<2," in name and "<long>" in name
+    calls launched 2 or 4: a count of the trace, not of the calls. A
+    functor over int64 operands prints as ``<long, long, long, ...``
+    (the seed derivation's shifts: an H100 trace of three replays of the
+    recipe step counted one 10 times, where they launched 9)."""
+    return ("vectorized_elementwise_kernel<2," in name
+            and ("<long>" in name or "<long, long" in name))
 
 
 def device_times(fn, iters: int = 20, expect=None, tries: int = 5,
@@ -56,10 +60,12 @@ def device_times(fn, iters: int = 20, expect=None, tries: int = 5,
     time, without the host's launch overhead.
 
     A trace can lose kernels (H100 traces have lost a few of theirs, all
-    of them, and, trace after trace, the first kernel or two of the
-    window: marker kernels, ``torch.cuda._sleep``'s ``spin_kernel``, now
-    open the window and are left out), so it is held against what the
-    calls launched: some device work, and every kernel's event count a
+    of them, and, trace after trace, the first kernels of the window: so
+    each trace opens with a warm-up step, one call whose events the
+    profiler drops, and marker kernels, ``torch.cuda._sleep``'s
+    ``spin_kernel``, open the window and are left out), so it is held
+    against what the calls launched: some device work, and every kernel's
+    event count a
     multiple of ``iters`` (each call launches the same kernels; copies and
     cuDNN's layout conversions may differ); ``expect`` ({name part or
     tuple of parts: launches a call}) fixes the count of the kernels that
@@ -76,20 +82,30 @@ def device_times(fn, iters: int = 20, expect=None, tries: int = 5,
     launch short of (or None), and ``int64``, {name: launches traced} of
     the one-element int64 kernels whose count was no multiple of
     ``iters`` (their time is the trace's, not the calls')."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(_MARKERS):
-                torch.cuda._sleep(1000)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        got = []
+        # step 0 warms the trace up (one call, its events dropped: an
+        # H100 trace of two ResNet-50 replays lost the first call's first
+        # three kernels, five traces running); step 1 is the window read
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: got.append(
+                         p.key_averages())) as prof:
+            for calls in (1, iters):
+                for _ in range(_MARKERS):
+                    torch.cuda._sleep(1000)
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         # device work only, without the markers: the trace also lists host
         # runtime calls (cudaDeviceSynchronize, buffer requests)
-        events = [evt for evt in prof.key_averages()
+        events = [evt for evt in (got[0] if got else [])
                   if getattr(evt, "device_time_total",
                              getattr(evt, "cuda_time_total", 0.0)) > 0
                   and _MARKER not in evt.key]

@@ -41,17 +41,37 @@ signature. It owns
 Its first call runs eagerly (the warm-up: kernel builds, cuBLAS handles,
 autograd's first use); the second captures the step and replays it; every
 later call replays. Each replay adds to the kernel wrappers' launch
-counters what they counted while the step was captured (kernels.py), so
-the counts keep meaning launches the device ran. On the CPU the same
-runner calls the step function directly instead of a graph, with the same
-buffers and seeds: the CPU tests reach its bookkeeping that way. A
-capture or replay that fails raises, naming the program and, where the
-failing op is known, the op; nothing gives way to an eager run.
+counters what the capturing thread counted while the step was captured
+(kernels.py ``recording``), so the counts keep meaning launches the
+device ran. On the CPU the same runner calls the step function directly
+instead of a graph, with the same buffers and seeds, and its first such
+call takes the gate and records its launches as a capture does: the CPU
+tests reach its bookkeeping that way. A capture or replay that fails
+raises, naming the program and, where the failing op is known, the op;
+nothing gives way to an eager run.
+
+**The capture gate** (``GATE``). A capture runs in CUDA's global
+capture mode, which is what catches a stray call: any CUDA call another
+thread makes while it runs (a launch on the legacy default stream, a
+synchronize, an event query, a pinned or device allocation) invalidates
+the capture. Several executors of one process (the replicas of a serving
+fleet, each on its own loop thread) share the card, so the rule is
+process-wide: a capture excludes every other CUDA call of the port's
+executors. Every run, replay, eager step, deferred fetch and
+synchronizing read of an executor holds the gate shared; a capture holds
+it exclusively and synchronizes the device before it begins. A capture
+waiting for the gate is served before new shared holders (so a busy
+fleet cannot starve it), and the gate records which threads wait and
+when each wait ended, which a serving engine's watchdog reads so that a
+replica held back by another's capture is not declared wedged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -62,6 +82,163 @@ from paddle_tpu_torch import kernels
 from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.interp import exec_ops, resolve_op_def
 from paddle_tpu_torch.framework import Block, Program
+
+
+class _GateHold(threading.local):
+    def __init__(self):
+        self.shared = 0      # this thread's nested shared holds
+        self.exclusive = 0   # this thread's nested exclusive holds
+
+
+class CaptureGate:
+    """The process-wide capture gate (see the module docstring): a
+    readers-writer lock whose writers are captures. Reentrant: a thread
+    that holds it in either mode passes a nested ``shared()`` at once, and
+    a thread that holds it shared and asks for ``exclusive()`` (an
+    executor call whose runner captures) gives up its shared holds while
+    it waits and takes them back after the capture."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0
+        self._writer: Optional[int] = None
+        self._writers_waiting = 0
+        self._hold = _GateHold()
+        # thread ident -> perf_counter when its current wait began / when
+        # its last wait ended
+        self._waiting: Dict[int, float] = {}
+        self._wait_ended: Dict[int, float] = {}
+        self.reset_stats()
+
+    def reset_stats(self):
+        """Zero the record ``stats`` reads."""
+        with self._cond:
+            self._stats = {"captures": 0, "capture_failures": 0,
+                           "captures_waited": 0,
+                           "longest_capture_wait_s": 0.0,
+                           "held_back": 0, "longest_hold_back_s": 0.0}
+
+    def stats(self) -> Dict[str, Any]:
+        """The gate's record since the last ``reset_stats``: exclusive
+        holds (captures), the captures that failed, the captures that had
+        to wait and their longest wait, and the shared holds that a
+        capture held back and their longest wait."""
+        with self._cond:
+            return dict(self._stats)
+
+    def note_capture_failure(self):
+        with self._cond:
+            self._stats["capture_failures"] += 1
+
+    def waiting(self, ident: Optional[int]) -> bool:
+        """Whether the thread ``ident`` is waiting for the gate now."""
+        return ident in self._waiting
+
+    def wait_ended(self, ident: Optional[int]) -> float:
+        """perf_counter time at which the thread ``ident``'s last wait for
+        the gate ended (0.0 if it never waited)."""
+        return self._wait_ended.get(ident, 0.0)
+
+    def _wait_locked(self, blocked, kind):
+        """Wait on the condition while ``blocked()``; record the wait."""
+        if not blocked():
+            return
+        me = threading.get_ident()
+        t0 = time.perf_counter()
+        self._waiting[me] = t0
+        try:
+            while blocked():
+                self._cond.wait()
+        finally:
+            del self._waiting[me]
+            t1 = time.perf_counter()
+            self._wait_ended[me] = t1
+        if kind == "capture":
+            self._stats["captures_waited"] += 1
+            self._stats["longest_capture_wait_s"] = max(
+                self._stats["longest_capture_wait_s"], t1 - t0)
+        else:
+            self._stats["held_back"] += 1
+            self._stats["longest_hold_back_s"] = max(
+                self._stats["longest_hold_back_s"], t1 - t0)
+
+    def _acquire_shared(self):
+        with self._cond:
+            self._wait_locked(lambda: (self._writer is not None
+                                       or self._writers_waiting > 0),
+                              "shared")
+            self._readers += 1
+
+    def _release_shared(self):
+        with self._cond:
+            self._readers -= 1
+            if self._readers == 0:
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def shared(self):
+        """Hold the gate shared: a run, replay, eager step, fetch or
+        synchronizing read of an executor."""
+        hold = self._hold
+        if hold.shared or hold.exclusive:
+            hold.shared += 1
+            try:
+                yield
+            finally:
+                hold.shared -= 1
+            return
+        self._acquire_shared()
+        hold.shared = 1
+        try:
+            yield
+        finally:
+            hold.shared = 0
+            self._release_shared()
+
+    @contextlib.contextmanager
+    def exclusive(self, device: Optional[torch.device] = None):
+        """Hold the gate alone (a capture): wait until no other thread
+        holds it, then synchronize ``device`` (a CUDA device) before the
+        caller begins."""
+        hold = self._hold
+        if hold.exclusive:
+            hold.exclusive += 1
+            try:
+                yield
+            finally:
+                hold.exclusive -= 1
+            return
+        mine = hold.shared
+        if mine:
+            hold.shared = 0
+            self._release_shared()
+        me = threading.get_ident()
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                self._wait_locked(lambda: (self._writer is not None
+                                           or self._readers > 0),
+                                  "capture")
+            finally:
+                self._writers_waiting -= 1
+            self._writer = me
+            self._stats["captures"] += 1
+        hold.exclusive = 1
+        try:
+            if device is not None and device.type == "cuda":
+                torch.cuda.synchronize(device)
+            yield
+        finally:
+            hold.exclusive = 0
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+            if mine:
+                self._acquire_shared()
+                hold.shared = mine
+
+
+GATE = CaptureGate()
 
 
 @dataclasses.dataclass
@@ -239,7 +416,8 @@ class StepRunner:
         self.feed_bufs: Dict[str, torch.Tensor] = {}
         self.state_bufs: Dict[str, torch.Tensor] = {}
         self.fetch_outs: Optional[List[torch.Tensor]] = None
-        # what the launch counters added while the step was captured
+        # the launches one step makes, counted on the capturing thread
+        # while the step was captured (on the CPU: ran) under the gate
         self.launch_delta: Counter = Counter()
         self._bound = False
 
@@ -292,27 +470,26 @@ class StepRunner:
         if self.device.type != "cuda":
             self._bound = True
             return
-        before = Counter(kernels.launch_counts)
         graph = torch.cuda.CUDAGraph()
         failed = None
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                try:
-                    self.fetch_outs = self._step_body()
-                except Exception as e:
-                    failed = e
-                    raise
-        except Exception as e:
-            cause = failed or e
-            raise RuntimeError(
-                f"{self.what}: capturing the step as a CUDA graph failed "
-                f"({_describe(cause)}); the step does not run eagerly in "
-                f"its place") from cause
-        finally:
-            # the capture launched nothing: take back what it counted, and
-            # add it again at every replay
-            self.launch_delta = kernels.launch_counts - before
-            kernels.launch_counts.subtract(self.launch_delta)
+        # what this thread's wrappers count while the step is captured:
+        # the capture launches nothing, and each replay adds it
+        with kernels.recording() as launched:
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    try:
+                        self.fetch_outs = self._step_body()
+                    except Exception as e:
+                        failed = e
+                        raise
+            except Exception as e:
+                GATE.note_capture_failure()
+                cause = failed or e
+                raise RuntimeError(
+                    f"{self.what}: capturing the step as a CUDA graph "
+                    f"failed ({_describe(cause)}); the step does not run "
+                    f"eagerly in its place") from cause
+        self.launch_delta = launched
         self.graph = graph
         self._bound = True
 
@@ -353,12 +530,25 @@ class StepRunner:
                 buf.copy_(host)
 
     def run_captured(self, scope, feeds, step: int) -> List[torch.Tensor]:
-        """One step at executor step ``step`` through the captured graph
-        (capturing it first when this is the first such call); returns
-        copies of the fetches, which the next replay leaves alone."""
-        if not self._bound:
+        """One step at executor step ``step`` through the captured graph;
+        returns copies of the fetches, which the next replay leaves
+        alone. The first such call binds the buffers and captures the
+        step (on the CPU: runs it, recording its launches as a capture
+        does) holding the capture gate alone."""
+        if self._bound:
+            return self._replay(scope, feeds, step)
+        with GATE.exclusive(self.device):
             self._bind(scope, {n: as_tensor(v, self.device)
                                for n, v in feeds.items()})
+            if self.graph is not None:
+                return self._replay(scope, feeds, step)
+            with kernels.recording() as launched:
+                out = self._replay(scope, feeds, step)
+            self.launch_delta = launched
+            kernels.add_counts(launched)  # the CPU ran them
+            return out
+
+    def _replay(self, scope, feeds, step: int) -> List[torch.Tensor]:
         self._rebind(scope)
         self._load_feeds(feeds)
         if self.lowered.needs_rng and self._counter_at != step:
@@ -371,7 +561,7 @@ class StepRunner:
             except Exception as e:
                 raise RuntimeError(f"{self.what}: replaying the captured "
                                    f"step failed ({_describe(e)})") from e
-            kernels.launch_counts.update(self.launch_delta)
+            kernels.add_counts(self.launch_delta)
             fetches = self.fetch_outs
         self._counter_at = step + 1
         return [t.clone() for t in fetches]

@@ -41,7 +41,11 @@ boolean check and allocates nothing. The replay, the fetch copies and
 the event ``LazyFetches`` waits on are all queued on the calling
 thread's current stream (the device's default stream unless the caller
 set another), so a step and its fetch share a stream whichever thread
-drives the executor.
+drives the executor. Every call of an executor that reaches the card
+(``run``, ``run_steps``, ``LazyFetches.wait``, ``close``) holds the
+process-wide capture gate shared, and a capture holds it alone
+(core/lowering.py ``GATE``), so executors on several threads (a serving
+fleet's replicas) capture and replay side by side.
 
 ``close()`` frees the graphs and the pool and keeps the executor usable
 (the next run lowers afresh); ``retire(reason)`` closes it for good: a
@@ -74,6 +78,7 @@ from paddle_tpu_torch import faults as _faults
 from paddle_tpu_torch import monitor as _monitor
 from paddle_tpu_torch import numerics as _numerics
 from paddle_tpu_torch.core import lowering
+from paddle_tpu_torch.core.lowering import GATE as _GATE
 from paddle_tpu_torch.core.lowering import as_tensor
 from paddle_tpu_torch.framework import (
     CPUPlace,
@@ -251,16 +256,20 @@ class LazyFetches:
         if self._values is None:
             try:
                 _F_FETCH.hit()
-                if self._event is not None:
-                    self._event.synchronize()
-                self._values = [to_numpy(h) for h in self._host]
+                # the event's wait and the release of the pinned buffers
+                # are CUDA calls: under the capture gate (core/lowering.py)
+                with (_GATE.shared() if self._event is not None
+                      else contextlib.nullcontext()):
+                    if self._event is not None:
+                        self._event.synchronize()
+                    self._values = [to_numpy(h) for h in self._host]
+                    # release the device and pinned buffers
+                    self._tensors = self._host = self._event = None
             except Exception as e:
                 cb, self._on_error = self._on_error, None
                 if cb is not None:
                     cb(e)
                 raise
-            # release the device and pinned buffers
-            self._tensors = self._host = self._event = None
             self._on_error = None
             if self._t0:
                 _monitor.fetch_overlap(time.perf_counter() - self._t0)
@@ -330,12 +339,14 @@ class Executor:
         fetch_names = self._fetch_names(fetch_list)
         if not tele:
             _F_STEP.hit()
-            fetches = self._run_step(program, feed, fetch_names, scope,
-                                     use_program_cache)
-            return self._format(fetches, return_numpy, async_fetch)
-        return self._run_observed(
-            program, [feed], 1, fetch_names, scope, return_numpy,
-            use_program_cache, async_fetch, t_run0, self._step)
+            with _GATE.shared():
+                fetches = self._run_step(program, feed, fetch_names, scope,
+                                         use_program_cache)
+                return self._format(fetches, return_numpy, async_fetch)
+        with _GATE.shared():
+            return self._run_observed(
+                program, [feed], 1, fetch_names, scope, return_numpy,
+                use_program_cache, async_fetch, t_run0, self._step)
 
     @staticmethod
     def _fetch_names(fetch_list):
@@ -591,30 +602,32 @@ class Executor:
         program = program if program is not None else default_main_program()
         scope = scope or global_scope()
         fetch_names = self._fetch_names(fetch_list)
-        staged = [{k: as_tensor(v, self.device) for k, v in f.items()}
-                  for f in feed_list[:steps]]
-        if tele:
-            return self._run_observed(
-                program, staged, int(steps), fetch_names, scope,
-                return_numpy, True, async_fetch, t_run0, self._step)
-        _F_STEP.hit()
-        for i in range(steps):
-            fetches = self._run_step(program, staged[i % len(staged)],
-                                     fetch_names, scope)
-        return self._format(fetches, return_numpy, async_fetch)
+        with _GATE.shared():
+            staged = [{k: as_tensor(v, self.device) for k, v in f.items()}
+                      for f in feed_list[:steps]]
+            if tele:
+                return self._run_observed(
+                    program, staged, int(steps), fetch_names, scope,
+                    return_numpy, True, async_fetch, t_run0, self._step)
+            _F_STEP.hit()
+            for i in range(steps):
+                fetches = self._run_step(program, staged[i % len(staged)],
+                                         fetch_names, scope)
+            return self._format(fetches, return_numpy, async_fetch)
 
     def close(self):
         """Drop the lowered programs and free every captured graph and
         their memory pool (the Scopes keep their tensors). The executor
         stays usable: its next run lowers afresh."""
-        for runners in list(self._runners.values()):
-            for runner in runners.values():
-                runner.close()
-        self._runners = weakref.WeakKeyDictionary()
-        self._cache.clear()
-        self._pool = None
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        with _GATE.shared():
+            for runners in list(self._runners.values()):
+                for runner in runners.values():
+                    runner.close()
+            self._runners = weakref.WeakKeyDictionary()
+            self._cache.clear()
+            self._pool = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     def retire(self, reason: str = "closed"):
         """``close()`` for good: every later ``run`` / ``run_steps``

@@ -377,8 +377,7 @@ UNWIRED_SITES = ("ckpt.write_shards", "ckpt.commit", "ckpt.read",
                  "fleet.connect", "fleet.kv_get", "fleet.kv_put",
                  "fleet.heartbeat", "fleet.resize", "fleet.join",
                  "reader.next", "pipeline.prefetch", "ccache.load",
-                 "ccache.store", "router.route", "router.replica_crash",
-                 "router.handoff")
+                 "ccache.store")
 for _name in UNWIRED_SITES:
     site(_name)
 del _name

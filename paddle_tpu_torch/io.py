@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import faults as _faults
-from paddle_tpu_torch.core.lowering import as_tensor
+from paddle_tpu_torch.core.lowering import GATE, as_tensor
 from paddle_tpu_torch.executor import Scope, global_scope
 from paddle_tpu_torch.framework import (
     Program,
@@ -76,12 +76,14 @@ def _to_numpy(value) -> np.ndarray:
 
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A saved array as a tensor on ``device`` (2-byte voids as bf16)."""
+    """A saved array as a tensor on ``device`` (2-byte voids as bf16);
+    the copy to the card holds the capture gate shared."""
     arr = np.asarray(arr)
-    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        return torch.from_numpy(arr.view(np.int16).copy()).view(
-            torch.bfloat16).to(device)
-    return as_tensor(arr, device)
+    with GATE.shared():
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            return torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16).to(device)
+        return as_tensor(arr, device)
 
 
 def _is_persistable(var) -> bool:
@@ -122,9 +124,10 @@ def save_vars(executor, dirname: str, main_program=None,
             f"save_vars: {len(missing)} requested variables are not "
             f"initialized in the scope (e.g. {missing[:5]}); run the "
             f"startup program first")
-    if executor.device.type == "cuda":
-        torch.cuda.synchronize(executor.device)
-    arrays = {n: _to_numpy(val) for n, val in values.items()}
+    with GATE.shared():  # a synchronize: never during a capture
+        if executor.device.type == "cuda":
+            torch.cuda.synchronize(executor.device)
+        arrays = {n: _to_numpy(val) for n, val in values.items()}
     np.savez(os.path.join(dirname, filename or PARAMS_FILE), **arrays)
 
 

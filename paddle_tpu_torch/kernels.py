@@ -10,16 +10,21 @@ concurrent processes never load a half-written file.
 
 Launch counts: every wrapper adds one to ``launch_counts`` where it
 launches its kernel (``count``), so that a CUDA graph replay, which runs
-no Python, can add what its capture counted (core/lowering.py).
+no Python, can add what its capture counted (core/lowering.py). Several
+threads launch (the replicas of a serving fleet): the counts change
+under a lock, a capture counts only its own thread's launches
+(``recording``), and two threads that need one library build it once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 from typing import Dict, Optional, Tuple
@@ -32,6 +37,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one lock a source, made under the module lock: a thread that builds or
+# loads a library holds its source's lock, so sources build in parallel
+# and one source builds once
+_LOCK = threading.Lock()
+_source_locks: Dict[str, threading.RLock] = {}
+
+
+def _source_lock(name: str) -> "threading.RLock":
+    with _LOCK:
+        return _source_locks.setdefault(name, threading.RLock())
 
 
 def _nvcc() -> str:
@@ -58,29 +73,35 @@ def build(name: str) -> Optional[Tuple[str, float]]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
     Returns the compiler's output (ptxas' register and shared-memory
     report) and the build's wall seconds, or None when it was cached."""
-    path = library_path(name)
-    if os.path.exists(path):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)  # atomic: readers see a whole library or none
-    return proc.stdout, time.perf_counter() - t0
+    with _source_lock(name):
+        path = library_path(name)
+        if os.path.exists(path):
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # the process and the thread: no other build writes this file
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC_DIR, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, path)  # atomic: readers see a whole library or none
+        return proc.stdout, time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
-        lib = ctypes.CDLL(library_path(name))
-        _loaded[name] = lib
+        with _source_lock(name):
+            lib = _loaded.get(name)
+            if lib is None:
+                build(name)
+                lib = ctypes.CDLL(library_path(name))
+                _loaded[name] = lib
     return lib
 
 
@@ -107,15 +128,46 @@ def check(name: str, rc: int, what: str) -> None:
 # Launch counts, {key: launches}, one dict for every wrapper: each adds one
 # where it launches its kernel (``count``) and nowhere else. A CUDA graph's
 # replay runs no Python, so the step runner adds at each replay what was
-# counted while the step was captured (core/lowering.py).
+# counted while the step was captured (core/lowering.py). Written under
+# _COUNTS_LOCK; read one key at a time.
 launch_counts: Counter = Counter()
+_COUNTS_LOCK = threading.Lock()
+_recording = threading.local()
 
 
 def count(key) -> None:
-    """Add one to ``launch_counts[key]``."""
-    launch_counts[key] += 1
+    """Add one to ``launch_counts[key]``, or to the calling thread's
+    ``recording`` counter while it records."""
+    rec = getattr(_recording, "counter", None)
+    if rec is not None:
+        rec[key] += 1
+        return
+    with _COUNTS_LOCK:
+        launch_counts[key] += 1
+
+
+def add_counts(counts) -> None:
+    """Add ``counts`` ({key: launches}) to ``launch_counts``."""
+    with _COUNTS_LOCK:
+        launch_counts.update(counts)
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the calling thread's launches into a Counter of their own
+    (yielded) instead of ``launch_counts``: a capture's launches, which
+    its replays add. Launches of other threads meanwhile are counted as
+    always."""
+    prev = getattr(_recording, "counter", None)
+    rec: Counter = Counter()
+    _recording.counter = rec
+    try:
+        yield rec
+    finally:
+        _recording.counter = prev
 
 
 def reset_counts() -> None:
     """Set every launch count to 0."""
-    launch_counts.clear()
+    with _COUNTS_LOCK:
+        launch_counts.clear()

@@ -11,9 +11,8 @@ the allocator's largest live blocks. Those reads are host-side
 allocator state and make no CUDA call, so a route or a watchdog thread
 may read them while another thread captures a CUDA graph. The step's
 ``device`` phase is the delta to the step stream's synchronize on a
-sampled step. ``/lint``, ``/fleet`` (and ``/metrics?fleet=1``) and
-``/profile`` read planes the port has not yet (analysis.py,
-fleet_monitor.py, roofline.py): they answer HTTP 501 naming the module.
+sampled step. ``/lint`` and ``/profile`` read planes the port has not
+yet (analysis.py, roofline.py): they answer HTTP 501 naming the module.
 
 The reference framework shipped a real observability stack (RecordEvent
 host spans + CUPTI DeviceTracer + tools/timeline.py chrome traces); this
@@ -1114,8 +1113,7 @@ _server_started_ts = 0.0
 ROUTES: Dict[str, str] = {
     "/": "this JSON index of available routes",
     "/metrics": "Prometheus text exposition of the metrics registry "
-                "(?fleet=1: merged cross-rank exposition, rank= labels; "
-                "501 in the port until fleet_monitor.py is ported)",
+                "(?fleet=1: merged cross-rank exposition, rank= labels)",
     "/healthz": "JSON liveness: status, telemetry state, uptime",
     "/steps": "JSON ring buffer of recent step records (?n= trims)",
     "/compile": "JSON latest compile report per program",
@@ -1126,8 +1124,7 @@ ROUTES: Dict[str, str] = {
     "/fleet": "JSON cluster view: per-rank digests, heartbeat ages, "
               "stragglers, OOM reports + the serving-fleet router "
               "section (per-replica state, queue depth, generation "
-              "tag, last-heartbeat age) when a ServingFleet is live "
-              "(501 in the port until fleet_monitor.py is ported)",
+              "tag, last-heartbeat age) when a ServingFleet is live",
     "/profile": "JSON roofline plane: latest device profile per "
                 "program (top ops, verdict, measured MFU) (501 in the "
                 "port until roofline.py is ported)",
@@ -1143,7 +1140,6 @@ ROUTES: Dict[str, str] = {
 # They answer 501 and name it (ROADMAP lists the item that ports each).
 UNPORTED_ROUTES: Dict[str, str] = {
     "/lint": "analysis.py",
-    "/fleet": "fleet_monitor.py",
     "/profile": "roofline.py",
 }
 
@@ -1186,8 +1182,6 @@ def serve(port: Optional[int] = None, host: str = "127.0.0.1") -> int:
     class _Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 (http.server API)
             path, _, query = self.path.partition("?")
-            if path == "/metrics" and "fleet=1" in query.split("&"):
-                path = "/fleet"
             missing = UNPORTED_ROUTES.get(path)
             if missing is not None:
                 self.send_error(501, f"{path} reads {missing}, which "
@@ -1201,7 +1195,15 @@ def serve(port: Optional[int] = None, host: str = "127.0.0.1") -> int:
                         {"routes": ROUTES}, sort_keys=True).encode()
                     ctype = "application/json"
                 elif path == "/metrics":
-                    body = to_prometheus().encode()
+                    if "fleet=1" in query.split("&"):
+                        # merged cross-rank exposition from the latest
+                        # aggregated digests (lazy import:
+                        # fleet_monitor.py imports monitor.py)
+                        from paddle_tpu_torch import fleet_monitor as _fm
+
+                        body = _fm.to_prometheus_fleet().encode()
+                    else:
+                        body = to_prometheus().encode()
                     ctype = "text/plain; version=0.0.4; charset=utf-8"
                 elif path == "/healthz":
                     # serving-engine lifecycle rows (serving/draining/
@@ -1241,6 +1243,22 @@ def serve(port: Optional[int] = None, host: str = "127.0.0.1") -> int:
                     ctype = "application/json"
                 elif path == "/trace":
                     body = json.dumps(trace_snapshot(),
+                                      default=str).encode()
+                    ctype = "application/json"
+                elif path == "/fleet":
+                    # lazy import: fleet_monitor.py imports monitor.py
+                    from paddle_tpu_torch import fleet_monitor as _fm
+
+                    view = _fm.cluster_view()
+                    # serving-fleet rollup only when that plane is
+                    # loaded (lazy — fleet_serving imports monitor)
+                    fs = sys.modules.get("paddle_tpu_torch.fleet_serving")
+                    if fs is not None:
+                        sfleet = fs.fleet_view()
+                        if sfleet is not None:
+                            view = dict(view)
+                            view["serving_fleet"] = sfleet
+                    body = json.dumps(view, sort_keys=True,
                                       default=str).encode()
                     ctype = "application/json"
                 elif path == "/serve":

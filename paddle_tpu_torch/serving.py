@@ -58,11 +58,16 @@ Where the card differs from the TPU (each held by a test):
   arms only after the decode program's graph has been captured, and
   never during a call that lowers or captures (the JAX watchdog arms
   after the first decode step, which carries XLA's compile).
-- **Every CUDA call of a supervised engine stays on its loop thread.**
-  A capture runs in CUDA's global capture mode, where a CUDA call from
-  another thread invalidates it: ``submit``, the watchdog and the
-  monitor routes read host state only (``device_memory`` reads the
-  allocator's host-side statistics).
+- **A capture excludes every other CUDA call of the process.** A capture
+  runs in CUDA's global capture mode, where a CUDA call from another
+  thread invalidates it, and several engines (a fleet's replicas) share
+  the card: every executor call holds the process-wide capture gate
+  (core/lowering.py ``GATE``) shared and a capture holds it alone.
+  ``submit``, the watchdog and the monitor routes read host state only
+  (``device_memory`` reads the allocator's host-side statistics). An
+  engine whose loop thread waits for the gate is not wedge-armed, and
+  its heartbeat counts from the end of the wait: a replica held back by
+  another's capture is never declared wedged.
 - **A woken wedged thread does no harm.** Every executor call of an
   engine runs under its dispatch lock and re-checks ``_closed`` there,
   after the fault site; a closed engine retires its executor, which
@@ -99,6 +104,7 @@ from paddle_tpu_torch import monitor as _monitor
 from paddle_tpu_torch import numerics as _numerics
 from paddle_tpu_torch import retry as _retry
 from paddle_tpu_torch import serving_trace as _strace
+from paddle_tpu_torch.core.lowering import GATE as _GATE
 from paddle_tpu_torch.executor import Executor, Scope, scope_guard
 
 # --- telemetry (no-ops while the 'telemetry' flag is off) ---
@@ -453,7 +459,8 @@ class ServingEngine:
                                        end_id=self.end_id)
         self.scope = Scope()
         self._exe = Executor(place)
-        self.int8 = _load_weights_into(self.scope, weights, self._exe)
+        with _GATE.shared():  # a model directory's tensors go to the card
+            self.int8 = _load_weights_into(self.scope, weights, self._exe)
         # device-resident serving state, zero-initialized (live=False
         # everywhere: every slot starts free)
         for name, (shape, dtype) in self._progs["state_specs"].items():
@@ -472,6 +479,10 @@ class ServingEngine:
         # watchdog's wedge detection waits for both (see _wedge_armed)
         self._runs: Dict[int, int] = collections.Counter()
         self._cold_calls = 0
+        # the thread that makes the engine's executor calls (the
+        # supervisor's loop thread): the watchdog asks the capture gate
+        # whether it is waiting
+        self._loop_ident: Optional[int] = None
         # the request _admit has popped and not yet placed (harvest and
         # close take it from here)
         self._in_hand: Optional[ServeRequest] = None
@@ -662,18 +673,24 @@ class ServingEngine:
 
     def heartbeat_age_s(self) -> float:
         """Seconds since the decode loop last made progress (step entry
-        or completion) — the EngineSupervisor's wedge signal."""
-        return time.perf_counter() - self._beat
+        or completion, the end of a call that lowered or captured, or
+        the end of a wait for the capture gate) — the EngineSupervisor's
+        wedge signal."""
+        return time.perf_counter() - max(self._beat,
+                                         _GATE.wait_ended(self._loop_ident))
 
     def _wedge_armed(self) -> bool:
         """Whether a stale heartbeat may read as a wedge: only once the
         decode program's graph has been captured (its second call
-        returned) and while no call lowers or captures a program. A
-        capture on the card takes far longer than a replayed step and
-        must not cause a restart; the JAX watchdog arms after the first
-        decode step, which carries XLA's compile."""
+        returned), while no call lowers or captures a program, and while
+        the loop thread does not wait for the capture gate (another
+        engine captures). A capture on the card takes far longer than a
+        replayed step and must not cause a restart, here or in a replica
+        it holds back; the JAX watchdog arms after the first decode
+        step, which carries XLA's compile."""
         return (self._runs[self._progs["decode_program"]._uid] >= 2
-                and self._cold_calls == 0)
+                and self._cold_calls == 0
+                and not _GATE.waiting(self._loop_ident))
 
     def _run(self, program, feed, fetch_list, async_fetch=False):
         """Every executor call of the engine: under the dispatch lock,
@@ -684,6 +701,7 @@ class ServingEngine:
         with self._dispatch_lock:
             if self._closed:
                 return None
+            self._loop_ident = threading.get_ident()
             cold = self._runs[uid] < 2
             if cold:
                 self._cold_calls += 1
@@ -694,6 +712,8 @@ class ServingEngine:
                                         async_fetch=async_fetch)
             finally:
                 if cold:
+                    # the heartbeat restarts where the capture ends
+                    self._beat = time.perf_counter()
                     self._cold_calls -= 1
             self._runs[uid] += 1
         return out
@@ -781,7 +801,7 @@ class ServingEngine:
             # concurrent drain can no longer publish 'draining' over
             # the terminal 'closed' state below
             self._closed = True
-            self._pending = None
+            dropped, self._pending = self._pending, None
             leftovers = []
             if self._in_hand is not None:
                 if self._in_hand.outcome is None:
@@ -795,6 +815,11 @@ class ServingEngine:
                 r = self._queue.popleft()
                 if r.outcome is None:
                     leftovers.append(r)
+        with _GATE.shared():
+            # the dispatched step's fetches no one will read: freeing
+            # their pinned buffers records CUDA events, and this may not
+            # be the loop thread
+            del dropped
         outcome = "error" if self._failed else "drained"
         for req in leftovers:
             req._finish(outcome)
@@ -1248,8 +1273,10 @@ class ServingEngine:
                 r = self._queue.popleft()
                 if r.outcome is None:
                     out.append(r)
-            self._pending = None
+            dropped, self._pending = self._pending, None
             _publish_gauges()
+        with _GATE.shared():  # see close()
+            del dropped
         _note_engine_state(self.engine_id, "failed")
         return out
 

@@ -1723,3 +1723,149 @@ def test_reserved_memory_holds_across_three_restarts(cuda):
     # reserved while the engines of restarts 1 and 3 served
     assert abs(sup.reserved[3] - sup.reserved[1]) <= 0.25 * 2**30, \
         sup.reserved
+
+
+def _eager_engine(cfg, scope, **geom):
+    """An engine whose executor runs every program eagerly (uncached)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+
+    class Eager(fluid.Executor):
+        def run(self, *args, **kwargs):
+            kwargs["use_program_cache"] = False
+            return super().run(*args, **kwargs)
+
+    eng = serving.ServingEngine(cfg, scope, **geom)
+    eng._exe = Eager(fluid.CUDAPlace(0))
+    return eng
+
+
+def test_capture_beside_a_replaying_engine(cuda):
+    """Two engines on two threads: one replays its captured steps in a
+    loop while fresh engines lower and capture theirs beside it. Every
+    stream of both equals an eager engine's bit for bit. (Without a gate
+    over the process's CUDA calls a capture beside the replays is
+    invalidated.)"""
+    import threading
+
+    from paddle_tpu_torch import serving
+
+    cfg, scope, srcs = _tiny_serving(cuda)
+    eager = _eager_engine(cfg, scope, **_GEOM)
+    hs = [eager.submit(s, max_new_tokens=8) for s in srcs]
+    eager.run_until_idle()
+    eager.close()
+    want = [list(h.tokens) for h in hs]
+    warm = serving.ServingEngine(cfg, scope, **_GEOM)
+    for s in srcs[:2]:
+        warm.submit(s, max_new_tokens=4)
+        warm.run_until_idle()
+    stop, replayed, errors = threading.Event(), [], []
+
+    def replay():
+        try:
+            while not stop.is_set():
+                hs = [warm.submit(s, max_new_tokens=8) for s in srcs]
+                warm.run_until_idle()
+                replayed.append([list(h.tokens) for h in hs])
+        except Exception as e:
+            errors.append(e)
+
+    t = threading.Thread(target=replay, daemon=True)
+    t.start()
+    fresh = []
+    try:
+        for _ in range(3):  # three engines: six captures beside replays
+            eng = serving.ServingEngine(cfg, scope, **_GEOM)
+            got = []
+            for s in srcs:
+                h = eng.submit(s, max_new_tokens=8)
+                eng.run_until_idle()
+                got.append(list(h.tokens))
+            eng.close()
+            fresh.append(got)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    warm.close()
+    assert not t.is_alive()
+    assert not errors, errors
+    assert replayed and all(r == want for r in replayed)
+    assert all(f == want for f in fresh)
+
+
+def test_gate_wait_is_not_a_wedge(cuda):
+    """A warm supervised replica held back by a capture for five times
+    its watchdog's timeout is not declared wedged: no restart, the
+    tokens of an engine alone."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.core.lowering import GATE
+
+    cfg, scope, srcs = _tiny_serving(cuda)
+    clean = _serve_clean(cfg, scope, srcs, **_GEOM)
+    sup = serving.EngineSupervisor(cfg, scope, wedge_timeout_ms=200,
+                                   **_GEOM)
+    try:
+        for s in srcs[:2]:
+            sup.submit(s, max_new_tokens=4).result(timeout=120)
+        eng = sup.engine
+        assert eng._wedge_armed()
+        with GATE.exclusive(cuda):    # another executor's capture
+            hs = [sup.submit(s, max_new_tokens=8) for s in srcs]
+            import time
+
+            time.sleep(1.0)
+            assert GATE.waiting(eng._loop_ident)
+            assert not eng._wedge_armed()
+        got = [h.result(timeout=120) for h in hs]
+        restarts = sup.restarts
+    finally:
+        sup.close()
+    assert restarts == 0 and got == clean
+
+
+def test_fleet_kill_drill_on_the_card(cuda):
+    """Three replicas on the card, one killed mid-decode once every
+    replica's decode graph is captured: every stream equals an engine
+    alone, the router swallowed no error, and no capture failed."""
+    import time
+
+    from paddle_tpu_torch import faults, fleet_serving, serving
+    from paddle_tpu_torch.core.lowering import GATE
+
+    cfg, scope, srcs = _tiny_serving(cuda)
+    srcs = srcs * 2
+    clean = _serve_clean(cfg, scope, srcs, **_GEOM)
+    GATE.reset_stats()
+    fleet = fleet_serving.ServingFleet(cfg, scope, replicas=3, poll_s=0.002,
+                                       **_GEOM)
+    try:
+        for rep in list(fleet._replicas.values()):
+            for s in srcs[:2]:
+                rep.sup.submit(s, max_new_tokens=4).result(timeout=120)
+            assert rep.sup.engine._wedge_armed()
+            assert rep.sup.engine._exe.device.type == "cuda"
+        faults.arm("serve.decode:delay(0.01)@p1.0", seed=3)
+        frs = [fleet.submit(s, max_new_tokens=8) for s in srcs]
+        t0 = time.time()
+        while not all(len(fr.tokens) >= 1 or fr.done for fr in frs):
+            assert time.time() - t0 < 120
+            time.sleep(0.001)
+        # the victim: the lowest-id live replica still holding work
+        live = sorted(fleet._replicas.values(), key=lambda r: r.id)
+        victim = next(i for i, rep in enumerate(live)
+                      if any(fr.replica_id == rep.id and not fr.done
+                             for fr in frs))
+        faults.arm("serve.decode:delay(0.01)@p1.0;"
+                   f"router.replica_crash:raise(replica={victim})@1",
+                   seed=3)
+        got = [fr.result(timeout=120) for fr in frs]
+    finally:
+        faults.disarm()
+    stats = fleet.stats()
+    fleet.close()
+    assert got == clean
+    assert stats["failovers"] == 1 and stats["replica_count"] == 2
+    assert any(fr.failovers >= 1 for fr in frs)
+    assert stats["pump_errors"] == 0, stats["last_pump_error"]
+    assert GATE.stats()["capture_failures"] == 0

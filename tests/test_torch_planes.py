@@ -14,8 +14,9 @@ faults, retry and monitor.
 - ``device_memory()`` is ``{}`` on the CPU in both; ``is_oom_error``
   knows the card's out-of-memory text, which the JAX heuristic misses;
 - ``monitor.serve(port=0)`` on 127.0.0.1 answers the JAX routes, and
-  ``/lint``, ``/fleet`` (and ``/metrics?fleet=1``) and ``/profile``
-  answer 501 naming the module the port does not have yet.
+  ``/lint`` and ``/profile`` answer 501 naming the module the port does
+  not have yet (``/fleet`` and ``/metrics?fleet=1`` answer since
+  fleet_monitor.py).
 
 Every comparison is exact: both sides are host Python over the same
 inputs."""
@@ -118,7 +119,8 @@ def test_builtin_sites_are_equal_and_declared():
     assert not missing, missing
     wired = {"executor.step", "executor.fetch", "io.export",
              "serve.enqueue", "serve.prefill", "serve.decode",
-             "serve.fetch"}
+             "serve.fetch", "router.route", "router.replica_crash",
+             "router.handoff"}
     assert set(tfaults.UNWIRED_SITES) == set(tfaults.BUILTIN_SITES) - wired
 
 
@@ -344,13 +346,13 @@ def test_server_answers_the_routes_and_501s_the_missing(telemetry):
         index = json.loads(_get(port, "/")[1])
         assert set(index["routes"]) == set(jmonitor.ROUTES)
         for path in ("/metrics", "/healthz", "/steps?n=2", "/compile",
-                     "/numerics", "/trace", "/serve", "/requests"):
+                     "/numerics", "/trace", "/serve", "/requests",
+                     "/fleet", "/metrics?fleet=1"):
             code, body = _get(port, path)
             assert code == 200, (path, code, body[:200])
         assert json.loads(_get(port, "/serve")[1])["engine_count"] >= 0
+        assert json.loads(_get(port, "/fleet")[1])["world"] == 1
         for path, module in (("/lint", "analysis.py"),
-                             ("/fleet", "fleet_monitor.py"),
-                             ("/metrics?fleet=1", "fleet_monitor.py"),
                              ("/profile", "roofline.py")):
             code, body = _get(port, path)
             assert code == 501 and module in body, (path, code, body)
