@@ -14,10 +14,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    library call that computes the same function (the yardstick, never
    used by the package), on every route of
    ``flash_attention.attention_route``: the small route (serving and
-   t = 256 training shapes), the kblock route (t = 1024, b = 8), the
-   bhtd route (t = 4096, b = 2; dropout at t = 2048; BHTD-layout inputs
-   with an lse cotangent; the decode step tq = 1 over 1024 keys; each
-   backward pass launched and checked on its own; bf16 rows read the
+   t = 256 training shapes, and the beam decode loop's two of phase
+   12), the kblock route (t = 1024, b = 8), the bhtd route (t = 4096,
+   b = 2; dropout at t = 2048; BHTD-layout inputs with an lse cotangent;
+   the decode step tq = 1 over 1024 keys; each backward pass launched
+   and checked on its own; bf16 rows read the
    tensor-core kernels, f32 forward rows the CUDA-core ones and f32
    backward rows the 3xTF32 tensor-core ones, and no other kernel; two
    launches give equal bits in both dtypes; dh = 256, the widest head the
@@ -168,7 +169,33 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     capture failed, no pump error, no restart, reserved memory after the
     fleets close within 0.25 GiB of before the phase; captures that
     waited and the longest wait;
-12. print the kernels' JSON line, the card line, and the result line.
+12. beam-search translation (``beam_translate``), Transformer-base at
+    full width, weights from seed 1234, 8 sources of phase 4's 128
+    geometry (src_len = max_len = 128); a line names each sub-phase
+    before it runs: (12a) ``transformer.translate(beam_size=1)`` on the
+    card equals the serving engine's greedy tokens row for row (a row
+    may diverge only at a step whose two best logits lie within 1e-4,
+    read by teacher forcing; the count is printed); (12b) beam 4 in
+    turns, eager (uncached: the while op's eager loop), captured,
+    captured (the loop body a captured CUDA graph replayed from the host
+    loop), eager: equal ids, bit-equal scores; each turn's wall, steps,
+    ms a step, hypothesis tokens a second, body captures and fwd_kernel
+    launches, and a profiled run a mode for its launches and device ms a
+    step; (12c) the same with end_id set to the token 12b's best beam of
+    source 0 wrote at step 5, held to the loop's exit rule (it stops at
+    the step where its last hypothesis ended, or at max_len - 1 when one
+    never does; the hypotheses that ended are counted), end_id at every
+    position a hypothesis wrote after its end; and the early exit itself:
+    source 0 alone, greedy, with end_id the token it wrote at step 5,
+    whose loop must stop after at most 5 steps, eager and captured alike;
+    (12d) translate on the card against the CPU at full
+    width, 2 sources, beam 4, src_len = max_len = 16: equal ids under
+    12a's near-tie rule, scores within 1e-4 relative; (12e) the f32
+    fwd_kernel at the loop's two attention shapes (self-attention over
+    b*K = 32 rows of 128 with the causal mask folded into a row bias,
+    cross-attention over 128 source keys), held against its plain version
+    among phase 3's cases, reported beside phase 12's launches;
+13. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -3675,6 +3702,325 @@ def _fleet_phase(torch, np, fluid, T, fa, tmp, rec):
     return out, launches
 
 
+# --- phase 12: beam-search translation ------------------------------------
+
+# Transformer-base at full width, phase 4's 128 geometry: 8 sources of
+# 16-128 tokens (the serving sources' lengths), padded to src_len 128,
+# decoded to max_len 128; weights from seed 1234
+BEAM_SOURCES, BEAM_LEN, BEAM_K = 8, 128, 4
+# a near tie: two f32 paths (the serving engine's KV-cache step and the
+# beam decode's full-prefix re-run; the card and the CPU) sum in other
+# orders, a few f32 ulps of a logit apart, so where the two best
+# candidates lie closer than this they may pick differently; a row may
+# diverge only at such a step
+NEAR_TIE = 1e-4
+# card vs CPU beam scores (12d), relative: f32 sums of 15 log-probs
+# through 6+6 layers in two orders
+TOL_BEAM_CPU_REL = 1e-4
+# the card vs CPU run (12d): 2 sources, src_len = max_len = 16
+BEAM_CPU_SOURCES, BEAM_CPU_LEN = 2, 16
+# the fwd_kernel at the decode loop's attention shapes, held against its
+# plain version among phase 3's cases (12e reports them: late in a full
+# run the profiler lost the first of these 20-call traces five times in
+# a row, where phase 3's traces keep theirs)
+BEAM_ATTENTION_CASES = ("beam self f32 b32 t128 causal+pad",
+                        "beam cross f32 b32 tq128 tk128 pad")
+
+
+def _pad_sources(np, srcs, src_len):
+    """[n, src_len] ids (zero-padded) and their pad mask."""
+    ids = np.zeros((len(srcs), src_len), np.int64)
+    pad = np.zeros((len(srcs), src_len), np.float32)
+    for i, s in enumerate(srcs):
+        ids[i, :len(s)] = s
+        pad[i, :len(s)] = 1.0
+    return ids, pad
+
+
+def _teacher_logp(np, fluid, T, cfg, place, scope, src, pad, seqs):
+    """Log-probabilities [n, t, V] (f64) of the is_test training program
+    over the n rows ``seqs`` ([n, t] ids from BOS) of one source."""
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        model = T.build(cfg, is_test=True)
+    n, t = seqs.shape
+    feed = {"src_ids": np.repeat(src[None], n, 0),
+            "trg_ids": seqs.astype(np.int64),
+            "lbl_ids": np.zeros((n, t), np.int64),
+            "src_pad_mask": np.repeat(pad[None], n, 0),
+            "trg_pad_mask": np.ones((n, t), np.float32)}
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        (logits,) = exe.run(main, feed=feed, fetch_list=[model["logits"]],
+                            use_program_cache=False)
+    exe.close()
+    z = logits.astype(np.float64)
+    m = z.max(-1, keepdims=True)
+    return z - m - np.log(np.exp(z - m).sum(-1, keepdims=True))
+
+
+def _candidate_gap(np, logp, prefix, end_id):
+    """The smallest gap between adjacent totals among the k + 1 best
+    candidates of the beam step that writes position s (``prefix``: the
+    k hypotheses' ids [k, s] before it): each hypothesis's teacher-forced
+    score (its tokens 1..s-1 up to its first end_id) plus the log-probs at
+    position s - 1; a finished hypothesis extends by end_id alone at no
+    cost; at s = 1 only the first beam is live. With k = 1 it is the gap
+    of the two best logits."""
+    k, s = prefix.shape
+    totals = []
+    for h in range(k):
+        if s == 1 and h > 0:
+            break
+        score, done = 0.0, False
+        for pos in range(1, s):
+            score += logp[h, pos - 1, prefix[h, pos]]
+            if prefix[h, pos] == end_id:
+                done = True
+                break
+        totals.extend([score] if done else list(score + logp[h, s - 1]))
+    top = np.sort(np.asarray(totals))[::-1][:k + 1]
+    return float(np.min(top[:-1] - top[1:]))
+
+
+def _loop_exit(np, ids, end_id, steps):
+    """Hold a decode's ids [b, k, max_len] to its loop's exit after
+    ``steps`` steps: the loop stops at the step where its last hypothesis
+    ended (every hypothesis holds end_id in positions 1..steps) or, when
+    one never ends, at max_len - 1; after a hypothesis's end every
+    position it wrote holds end_id, and the positions past the last step
+    keep BOS. Returns how many hypotheses ended."""
+    max_len = ids.shape[-1]
+    ends = []
+    for seq in ids.reshape(-1, max_len):
+        hit = np.nonzero(seq[1:steps + 1] == end_id)[0]
+        if hit.size:
+            first = int(hit[0]) + 1
+            ends.append(first)
+            assert (seq[first:steps + 1] == end_id).all(), seq
+        assert (seq[steps + 1:] == 0).all(), seq
+    if len(ends) == ids.shape[0] * ids.shape[1]:
+        assert steps == max(ends), (steps, ends)
+    else:
+        assert steps == max_len - 1, (steps, len(ends))
+    return len(ends)
+
+
+def _first_divergence(a, b):
+    """The first position at which two id arrays ([k, t]) differ, or
+    None."""
+    for s in range(a.shape[-1]):
+        if not (a[..., :s + 1] == b[..., :s + 1]).all():
+            return s
+    return None
+
+
+def _translate_run(torch, fa, T, exe, scope, src, pad, cfg, k, end_id):
+    """One translate on the card at max_len = src_len: (ids, scores,
+    record). The record: wall seconds, the loop's steps (read from the
+    fwd_kernel's launches: one an encoder layer, then two a decoder layer
+    a step), ms a step, hypothesis tokens a second, body captures (the
+    capture gate's count) and fwd_kernel launches."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.lowering import GATE
+
+    kernels.reset_counts()
+    captures = GATE.stats()["captures"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = T.translate(exe, scope, src, pad, cfg, beam_size=k,
+                              max_len=src.shape[1], end_id=end_id)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(fa)
+    launches = counts["small/fwd"]
+    steps = (launches - cfg.n_layer) // (2 * cfg.n_layer)
+    assert launches == (1 + 2 * steps) * cfg.n_layer and steps > 0, counts
+    assert sum(counts.values()) == launches, counts  # no other route
+    return ids, scores, {
+        "wall_s": wall, "steps": steps, "ms_a_step": wall * 1e3 / steps,
+        "hypothesis_tokens_per_s": ids.shape[0] * k * steps / wall,
+        "body_captures": GATE.stats()["captures"] - captures,
+        "fwd_kernel_launches": launches}
+
+
+def _translate_turns(torch, np, fluid, fa, T, scope, src, pad, cfg, k,
+                     end_id, profile=False):
+    """Beam ``k`` in turns, eager (uncached: the eager loop), captured,
+    captured (one cached executor: its first turn runs the warm-up and
+    captures the loop body, its second replays it), eager; with
+    ``profile``, then one profiled translate a mode for its launches and
+    device ms a step. The ids of every turn must be equal, the scores of
+    the captured and eager turns bit-equal."""
+    place = fluid.CUDAPlace(0)
+    eager_exe = _eager_executor(fluid)(place)
+    captured_exe = fluid.Executor(place)
+    turns, outs = {"eager": [], "captured": []}, []
+    for mode in ("eager", "captured", "captured", "eager"):
+        exe = eager_exe if mode == "eager" else captured_exe
+        ids, scores, row = _translate_run(torch, fa, T, exe, scope, src,
+                                          pad, cfg, k, end_id)
+        turns[mode].append(row)
+        outs.append((mode, ids, scores))
+    ids0, sc0 = outs[0][1], outs[0][2]
+    for mode, ids, scores in outs:
+        assert np.array_equal(ids, ids0), mode
+        assert np.array_equal(scores, sc0), mode
+    steps = turns["eager"][0]["steps"]
+    assert all(r["steps"] == steps for rs in turns.values() for r in rs)
+    assert [r["body_captures"] for r in turns["captured"]] == [1, 0], turns
+    assert all(r["body_captures"] == 0 for r in turns["eager"]), turns
+    profiled = {}
+    for mode, exe in ((("eager", eager_exe), ("captured", captured_exe))
+                      if profile else ()):
+        counts = {}
+        times = _device_times(
+            lambda: T.translate(exe, scope, src, pad, cfg, beam_size=k,
+                                max_len=src.shape[1], end_id=end_id), 1,
+            counts=counts, replay=mode == "captured")
+        profiled[mode] = {
+            "launches_a_step": sum(counts.values()) / steps,
+            "device_ms_a_step": sum(times.values()) / steps,
+            "fwd_kernel_device_ms_a_step": sum(
+                ms for n, ms in times.items() if "fwd_kernel" in n) / steps}
+    (_, runner), = captured_exe._loop_runners.items()
+    eager_exe.close()
+    captured_exe.close()
+    launches = sum(r["fwd_kernel_launches"] for rs in turns.values()
+                   for r in rs)
+    return ids0, sc0, {"steps": steps, "turns": _turn_summary(
+        turns, ("wall_s", "ms_a_step", "hypothesis_tokens_per_s",
+                "body_captures", "fwd_kernel_launches")),
+        "profile": profiled, "runner_loops": runner.loops}, launches
+
+
+def beam_translate(torch, np, fluid, T, fa, serving):
+    """Phase 12 (see the module docstring): one line names each sub-phase
+    before it runs. Returns a JSON-able row a sub-phase and the
+    fwd_kernel launches of its translate runs."""
+    from paddle_tpu_torch.core.lowering import GATE
+
+    cfg = T.base()
+    weights = _serving_weights(fluid, T, cfg)
+    srcs = _sources(np, cfg, BEAM_SOURCES, BEAM_LEN, 16)
+    src, pad = _pad_sources(np, srcs, BEAM_LEN)
+    out, launches = {}, 0
+    GATE.reset_stats()
+
+    print("phase 12a: translate beam 1 against the serving engine",
+          flush=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    ids1, sc1, row = _translate_run(torch, fa, T, exe, weights, src, pad,
+                                    cfg, 1, 1)
+    exe.close()
+    launches += row["fwd_kernel_launches"]
+    eng = serving.ServingEngine(cfg, weights, slots=BEAM_SOURCES,
+                                src_len=BEAM_LEN, max_len=BEAM_LEN)
+    hs = [eng.submit(s) for s in srcs]
+    eng.run_until_idle()
+    eng.close()
+    diverged, near_ties, gaps = 0, 0, []
+    for r, h in enumerate(hs):
+        seq = list(ids1[r, 0, 1:])
+        if 1 in seq:
+            seq = seq[:seq.index(1)]
+        got = list(h.tokens)
+        if seq == got:
+            continue
+        diverged += 1
+        p = next(i for i in range(min(len(seq), len(got)) + 1)
+                 if i == len(seq) or i == len(got) or seq[i] != got[i])
+        prefix = np.asarray([[0] + got[:p]], np.int64)
+        logp = _teacher_logp(np, fluid, T, cfg, fluid.CUDAPlace(0), weights,
+                             src[r], pad[r], prefix)
+        gap = _candidate_gap(np, logp, prefix, 1)
+        gaps.append(gap)
+        near_ties += gap < NEAR_TIE
+        assert gap < NEAR_TIE, (
+            f"row {r} diverges from the serving engine at token {p} where "
+            f"the two best logits lie {gap} apart")
+    out["12a"] = {**row, "rows": BEAM_SOURCES, "diverged_rows": diverged,
+                  "near_tie_rows": near_ties, "gaps": gaps,
+                  "tokens": [len(h.tokens) for h in hs]}
+
+    print("phase 12b: translate beam 4, eager and captured in turns",
+          flush=True)
+    ids4, sc4, rec, n = _translate_turns(torch, np, fluid, fa, T, weights,
+                                         src, pad, cfg, BEAM_K, 1,
+                                         profile=True)
+    launches += n
+    assert ids4.shape == (BEAM_SOURCES, BEAM_K, BEAM_LEN)
+    assert np.isfinite(sc4).all() and (np.diff(sc4, axis=1) <= 0).all()
+    assert (ids4[:, :, 0] == 0).all()
+    out["12b"] = rec
+
+    print("phase 12c: early exit, beam 4 with end_id from 12b's best beam "
+          "of source 0 at step 5", flush=True)
+    end_id = int(ids4[0, 0, 5])
+    assert end_id != 0, end_id
+    idsc, _, rec, n = _translate_turns(torch, np, fluid, fa, T, weights, src,
+                                       pad, cfg, BEAM_K, end_id)
+    launches += n
+    out["12c"] = {"end_id": end_id, "ended_hypotheses": _loop_exit(
+        np, idsc, end_id, rec["steps"]), **rec}
+    # the early exit itself: one source greedy, whose one hypothesis ends
+    # at the token it wrote at step 5 (a beam-4 run ends early only where
+    # all 32 hypotheses emit its end_id)
+    print("phase 12c: early exit, beam 1 over source 0 with end_id from "
+          "its own step 5", flush=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    first, _, row = _translate_run(torch, fa, T, exe, weights, src[:1],
+                                   pad[:1], cfg, 1, 1)
+    exe.close()
+    launches += row["fwd_kernel_launches"]
+    end1 = int(first[0, 0, 5])
+    ids_e, _, rec, n = _translate_turns(torch, np, fluid, fa, T, weights,
+                                        src[:1], pad[:1], cfg, 1, end1)
+    launches += n
+    assert rec["steps"] <= 5 < BEAM_LEN - 1, rec["steps"]
+    assert _loop_exit(np, ids_e, end1, rec["steps"]) == 1
+    out["12c_greedy"] = {"end_id": end1, **rec}
+
+    print("phase 12d: translate on the card against the CPU", flush=True)
+    csrcs = _sources(np, cfg, BEAM_CPU_SOURCES, BEAM_CPU_LEN, 8)
+    csrc, cpad = _pad_sources(np, csrcs, BEAM_CPU_LEN)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    gids, gsc, row = _translate_run(torch, fa, T, exe, weights, csrc, cpad,
+                                    cfg, BEAM_K, 1)
+    exe.close()
+    launches += row["fwd_kernel_launches"]
+    cpu = fluid.CPUPlace()
+    cpu_weights = fluid.Scope()
+    for name in weights.var_names():
+        cpu_weights.set(name, weights.find_var(name).cpu())
+    t0 = time.perf_counter()
+    uids, usc = T.translate(fluid.Executor(cpu), cpu_weights, csrc, cpad,
+                            cfg, beam_size=BEAM_K, max_len=BEAM_CPU_LEN)
+    cpu_s = time.perf_counter() - t0
+    diverged, gaps, worst = 0, [], 0.0
+    for r in range(BEAM_CPU_SOURCES):
+        s = _first_divergence(gids[r], uids[r])
+        if s is None:
+            worst = max(worst, float(np.abs(gsc[r] - usc[r]).max()
+                                     / np.abs(usc[r]).max()))
+            continue
+        diverged += 1
+        logp = _teacher_logp(np, fluid, T, cfg, cpu, cpu_weights, csrc[r],
+                             cpad[r], uids[r, :, :s])
+        gap = _candidate_gap(np, logp, uids[r, :, :s], 1)
+        gaps.append(gap)
+        assert gap < NEAR_TIE, (
+            f"source {r}: the card's beams leave the CPU's at position {s} "
+            f"where the best candidates lie {gap} apart")
+    assert worst <= TOL_BEAM_CPU_REL, worst
+    out["12d"] = {"card": row, "cpu_s": cpu_s, "diverged_rows": diverged,
+                  "gaps": gaps, "max_rel_err_scores": worst,
+                  "tol": TOL_BEAM_CPU_REL}
+    del cpu_weights
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -3765,6 +4111,12 @@ def _phase3_cases(torch):
               repeat=True),
         _case("decode f32 tq1 tk1024", f32, 4, 1, 1024, "pad_b"),
     ]
+    # the beam decode loop's two attention shapes (phase 12e reads them):
+    # the decoder's self-attention over b * K rows of max_len (the causal
+    # mask folded into the row bias) and its cross-attention
+    fwd += [_case(name, f32, BEAM_SOURCES * BEAM_K, BEAM_LEN, BEAM_LEN, bias)
+            for name, bias in zip(BEAM_ATTENTION_CASES,
+                                  ("causal_pad", "pad_b"))]
     bwd = [c for c in fwd if c["name"].startswith(("train", "t1024",
                                                    "t4096", "t2048",
                                                    "bhtd", "dh256"))] + [
@@ -4134,8 +4486,43 @@ def main() -> int:
           f"{e11['capture_failures']} failed", flush=True)
 
     phase_done("11")
+
+    # 12. beam-search translation: the while op's body as a captured
+    # graph, against the serving engine, eager, and the CPU; (12e) the
+    # fwd_kernel at the decode loop's two attention shapes, as phase 3
+    # held it against its plain version, beside phase 12's launches
+    beam12, p12 = beam_translate(torch, np, fluid, T, fa, serving)
+    for key in ("12a", "12b", "12c", "12c_greedy", "12d"):
+        print(f"beam_{key} " + json.dumps(beam12[key]), flush=True)
+    print("phase 12e: fwd_kernel at the decode loop's attention shapes",
+          flush=True)
+    e12 = {name: {k: fwd_results[name][k] for k in (
+        "route", "kernels", "err_out", "err_lse", "ms", "device_ms",
+        "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for name in BEAM_ATTENTION_CASES}
+    assert all(r["route"] == "small" and r["kernels"] == ["fwd_kernel"]
+               for r in e12.values()), e12
+    print("beam_12e " + json.dumps({"cases": e12,
+                                    "fwd_kernel_launches": p12}),
+          flush=True)
+    a12, b12, c12 = beam12["12a"], beam12["12b"], beam12["12c"]
+    print(f"beam search on {card}: beam 4 over {BEAM_SOURCES} sources, "
+          f"{b12['steps']} steps, "
+          f"{b12['turns']['ms_a_step']['eager'][0]:.2f} ms a step eager, "
+          f"{b12['turns']['ms_a_step']['captured'][1]:.2f} captured "
+          f"({b12['profile']['eager']['launches_a_step']:.0f} / "
+          f"{b12['profile']['captured']['launches_a_step']:.0f} launches "
+          f"a step); beam 1 = the serving engine on "
+          f"{BEAM_SOURCES - a12['diverged_rows']} of {BEAM_SOURCES} rows; "
+          f"end_id {c12['end_id']}: {c12['ended_hypotheses']} of "
+          f"{BEAM_SOURCES * BEAM_K} hypotheses end, {c12['steps']} steps; "
+          f"greedy early exit after {beam12['12c_greedy']['steps']} steps; "
+          f"{p12} fwd_kernel launches", flush=True)
+
+    phase_done("12")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
+    assert phase_s["12"] < 120, phase_s["12"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
@@ -4162,10 +4549,10 @@ def main() -> int:
             fwd_main, err(fwd_main)),
         _kernel_entry(
             "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
-            "tiles; small route, serving prefill)", _SRC_FWD,
-            f"{_TPU_FA}:808",
+            "tiles; small route, serving prefill and beam decode)",
+            _SRC_FWD, f"{_TPU_FA}:808",
             s["launches"]["small/fwd"] + p10_short["small/fwd"]
-            + p11["small/fwd"],
+            + p11["small/fwd"] + p12,
             fwd_prefill, err(fwd_prefill)),
         _kernel_entry(
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "

@@ -109,6 +109,15 @@ def append_backward(
         op = block.ops[idx]
         opdef = resolve_op_def(op.type)
         if opdef.no_grad:
+            if op.type == "while" and any(
+                    lookup(n) for n in op.output_arg_names if n):
+                raise RuntimeError(
+                    "Cannot backprop through a data-dependent `while` "
+                    "loop: it has no gradient, so the loss's gradient "
+                    "through it would be silently dropped. Give the loop "
+                    "an iteration bound (While(cond, max_trip_count=N), "
+                    "the differentiable bounded_while: not ported yet) or "
+                    "write the recurrence without a while loop.")
             continue
 
         out_grads: Dict[str, List[str]] = {}

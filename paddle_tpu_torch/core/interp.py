@@ -15,7 +15,8 @@ fill) instead receives a ``torch.Generator`` seeded on the host with the
 same op seed, from ``host_seed``.
 
 AMP (bf16 activation stream) casting is applied here, with the JAX
-package's op sets.
+package's op sets; a ``host_loop`` op (``while``) receives ``amp`` too,
+for the ops of its body.
 """
 
 from __future__ import annotations
@@ -139,6 +140,9 @@ def exec_ops(
         if opdef.needs_rng:
             kwargs["seed"] = rng.SeedHandle(
                 seed, op.attrs.get("forward_op_idx", idx))
+        if opdef.host_loop:
+            # a loop runs its body's ops under the block's AMP setting
+            kwargs["amp"] = amp
         if opdef.host_rng:
             gen = torch.Generator(device=gen_device)
             gen.manual_seed(rng.mix64(host_seed,

@@ -50,6 +50,15 @@ tests reach its bookkeeping that way. A capture or replay that fails
 raises, naming the program and, where the failing op is known, the op;
 nothing gives way to an eager run.
 
+**Host loops** (``LoopRunner``). A ``while`` op's trip count depends on
+the data, which a CUDA graph cannot hold, so a block that holds one is
+not captured (``capturable``) and runs eagerly at every call; the op
+then captures its own body, which it replays from a host loop that reads
+the condition after each iteration (ops/control_flow_ops.py). The
+executor keeps the loop runners by (program, op, shapes), hands the
+running op their table and its graph pool through the thread's
+``LoopContext`` during a cached call, and frees them in ``close()``.
+
 **The capture gate** (``GATE``). A capture runs in CUDA's global
 capture mode, which is what catches a stray call: any CUDA call another
 thread makes while it runs (a launch on the legacy default stream, a
@@ -253,7 +262,8 @@ class LoweredBlock:
     gathered from the Scope. ``state_out_names``: every state-in var plus
     every persistable var the block writes; the executor commits them
     back to the Scope. ``capturable``: no op draws from a host-seeded
-    generator, so the block may run as a CUDA graph.
+    generator or loops on the host (``while``, whose body is captured on
+    its own: ``LoopRunner``), so the block may run as a CUDA graph.
     """
 
     fn: Callable
@@ -335,7 +345,7 @@ def lower_block(
         feed_names=tuple(feed_names),
         fetch_names=fetch_names,
         needs_rng=any(d.needs_rng or d.host_rng for d in op_defs),
-        capturable=not any(d.host_rng for d in op_defs),
+        capturable=not any(d.host_rng or d.host_loop for d in op_defs),
     )
 
 
@@ -367,6 +377,57 @@ def gather_state(scope, names, device: torch.device) -> Dict[str, Any]:
 
 def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
+
+
+def capture_graph(fn: Callable, pool, what: str, thing: str):
+    """Capture ``fn()`` as a CUDA graph whose memory comes from ``pool``;
+    returns (graph, what ``fn`` returned, the launches this thread's
+    wrappers counted meanwhile: each replay adds them). A failure raises,
+    naming ``what`` and the failing op where it is known; nothing runs
+    eagerly in the ``thing``'s place."""
+    graph = torch.cuda.CUDAGraph()
+    failed = None
+    with kernels.recording() as launched:
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                try:
+                    out = fn()
+                except Exception as e:
+                    failed = e
+                    raise
+        except Exception as e:
+            GATE.note_capture_failure()
+            cause = failed or e
+            raise RuntimeError(
+                f"{what}: capturing the {thing} as a CUDA graph failed "
+                f"({_describe(cause)}); the {thing} does not run eagerly in "
+                f"its place") from cause
+    return graph, out, launched
+
+
+def commit_in_place(bufs: Dict[str, torch.Tensor], new: Dict[str, Any],
+                    names: Sequence[str], what: str, kind: str,
+                    holder: str):
+    """Copy each ``new[n]`` into ``bufs[n]`` in place, for ``n`` in
+    ``names``. A new value must keep its buffer's shape and dtype; one
+    that shares memory with another buffer is copied out first, so no
+    commit reads a buffer already written."""
+    owners = {_storage(b): n for n, b in bufs.items()}
+    pairs = []
+    for n in names:
+        v, buf = new[n], bufs[n]
+        if v is buf:
+            continue
+        if v.shape != buf.shape or v.dtype != buf.dtype:
+            raise RuntimeError(
+                f"{what}: {kind} '{n}' is {v.dtype} {tuple(v.shape)} after "
+                f"the step, {buf.dtype} {tuple(buf.shape)} before it; "
+                f"{holder} keeps each {kind} tensor's shape and dtype")
+        if owners.get(_storage(v), n) != n:
+            v = v.clone()
+        pairs.append((buf, v))
+    for buf, v in pairs:
+        buf.copy_(v)
 
 
 def _describe(e: BaseException) -> str:
@@ -434,25 +495,8 @@ class StepRunner:
         with torch.no_grad():
             fetches, new_state = lw.fn(self.state_bufs, self.feed_bufs,
                                        self.seed)
-            # a new value that shares memory with another state buffer is
-            # copied out first, so no commit reads a buffer already written
-            owners = {_storage(b): n for n, b in self.state_bufs.items()}
-            pairs = []
-            for n in lw.state_out_names:
-                v, buf = new_state[n], self.state_bufs[n]
-                if v is buf:
-                    continue
-                if v.shape != buf.shape or v.dtype != buf.dtype:
-                    raise RuntimeError(
-                        f"{self.what}: state '{n}' is {v.dtype} "
-                        f"{tuple(v.shape)} after the step, {buf.dtype} "
-                        f"{tuple(buf.shape)} before it; a captured step "
-                        f"keeps each state tensor's shape and dtype")
-                if owners.get(_storage(v), n) != n:
-                    v = v.clone()
-                pairs.append((buf, v))
-            for buf, v in pairs:
-                buf.copy_(v)
+            commit_in_place(self.state_bufs, new_state, lw.state_out_names,
+                            self.what, "state", "a captured step")
             self.counter.add_(1)
         return list(fetches)
 
@@ -470,27 +514,8 @@ class StepRunner:
         if self.device.type != "cuda":
             self._bound = True
             return
-        graph = torch.cuda.CUDAGraph()
-        failed = None
-        # what this thread's wrappers count while the step is captured:
-        # the capture launches nothing, and each replay adds it
-        with kernels.recording() as launched:
-            try:
-                with torch.cuda.graph(graph, pool=self.pool):
-                    try:
-                        self.fetch_outs = self._step_body()
-                    except Exception as e:
-                        failed = e
-                        raise
-            except Exception as e:
-                GATE.note_capture_failure()
-                cause = failed or e
-                raise RuntimeError(
-                    f"{self.what}: capturing the step as a CUDA graph "
-                    f"failed ({_describe(cause)}); the step does not run "
-                    f"eagerly in its place") from cause
-        self.launch_delta = launched
-        self.graph = graph
+        self.graph, self.fetch_outs, self.launch_delta = capture_graph(
+            self._step_body, self.pool, self.what, "step")
         self._bound = True
 
     def _rebind(self, scope):
@@ -587,3 +612,185 @@ class StepRunner:
         self.feed_bufs = {}
         self.state_bufs = {}
         self._bound = False
+
+
+# --- host loops: a ``while`` body as a captured graph -------------------
+
+
+@dataclasses.dataclass
+class LoopContext:
+    """What a ``while`` op (a ``host_loop`` op) takes from the cached
+    executor call it runs in: the executor's loop runners (by program, op
+    and shapes), its graph pool and the program's name for errors."""
+
+    runners: Dict[tuple, "LoopRunner"]
+    pool: Any
+    what: str
+
+
+class _LoopTLS(threading.local):
+    def __init__(self):
+        self.stack: List[LoopContext] = []
+
+
+_loop_tls = _LoopTLS()
+
+
+@contextlib.contextmanager
+def loop_context(ctx: LoopContext):
+    """Make ``ctx`` the calling thread's loop context for the duration of
+    the block (outside one, a ``while`` op runs its loop eagerly)."""
+    _loop_tls.stack.append(ctx)
+    try:
+        yield
+    finally:
+        _loop_tls.stack.pop()
+
+
+def current_loop_context() -> Optional[LoopContext]:
+    stack = _loop_tls.stack
+    return stack[-1] if stack else None
+
+
+def host_bool(t: torch.Tensor, pinned: Optional[torch.Tensor] = None) -> bool:
+    """A one-element bool tensor's value on the host: the loop's one
+    synchronization an iteration. On the card it is read through the
+    pinned 0-d ``pinned`` where one is given."""
+    if t.device.type == "cuda" and pinned is not None:
+        pinned.copy_(t.reshape(()), non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return bool(pinned)
+    return bool(t.reshape(()))
+
+
+class LoopRunner:
+    """A ``while`` op's body bound to static buffers, run as a captured
+    CUDA graph replayed from a host loop (on the CPU: the body function
+    called directly, with the same buffers and bookkeeping).
+
+    Buffers: one for each carried value, the condition (a 0-d bool), each
+    captured value (copied in once when a loop starts), the iteration
+    counter and the loop's op seed. The body reads them and commits the
+    new carries and condition into them in place at its end, as the
+    compiled step commits a Scope's state (``commit_in_place``); it
+    derives each iteration's seed on the device from the op seed and the
+    counter (``rng.mix64_tensor``), the counterpart of the JAX package's
+    ``fold_in(rng, i)``, and advances the counter. The runner's first
+    iteration runs eagerly (the warm-up), its second captures the body
+    holding the capture gate alone, and every later iteration, of this
+    loop and of later ones, replays it; after each iteration the host
+    reads the condition through a pinned copy. Each replay adds the
+    capture's launch counts, as a step replay does. A capture or replay
+    that fails raises, naming the program and the op."""
+
+    def __init__(self, ops, op_defs, carry_names: Sequence[str],
+                 cond_name: str, cap_names: Sequence[str],
+                 device: torch.device, amp: bool, what: str, pool=None):
+        self.ops, self.op_defs = list(ops), list(op_defs)
+        self.carry_names = list(carry_names)
+        self.cond_name = cond_name
+        self.cap_names = list(cap_names)
+        self.device, self.amp, self.what, self.pool = device, amp, what, pool
+        self.needs_rng = any(d.needs_rng for d in op_defs)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.bufs: Dict[str, torch.Tensor] = {}
+        self.cap_bufs: List[torch.Tensor] = []
+        self.launch_delta: Counter = Counter()
+        self.warm = False      # an iteration has run (the warm-up)
+        self.captured = False  # the body is captured (on the CPU: the
+        #                        iteration that stands for the capture ran)
+        self.loops = 0
+        self.iterations = 0
+
+    def _alloc(self, carries, caps):
+        dev = self.device
+        self.bufs = {n: torch.empty_like(v, device=dev)
+                     for n, v in zip(self.carry_names, carries)}
+        self.bufs[self.cond_name] = torch.empty((), dtype=torch.bool,
+                                                device=dev)
+        self.cap_bufs = [torch.empty_like(v, device=dev) for v in caps]
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+        self.op_seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.pinned = (torch.empty((), dtype=torch.bool, pin_memory=True)
+                       if dev.type == "cuda" else None)
+
+    def _body(self):
+        """One iteration on the buffers, its commit included."""
+        if self.needs_rng:
+            self.seed.copy_(rng.mix64_tensor(self.op_seed, self.counter))
+        env: Dict[str, Any] = dict(zip(self.cap_names, self.cap_bufs))
+        env.update(self.bufs)
+        with torch.no_grad():
+            exec_ops(self.ops, env, device=self.device, seed=self.seed,
+                     amp=self.amp, op_defs=self.op_defs)
+            env[self.cond_name] = env[self.cond_name].reshape(()).to(
+                torch.bool)
+            commit_in_place(self.bufs, env, list(self.bufs), self.what,
+                            "loop-carried value", "a while loop")
+            self.counter.add_(1)
+
+    def _capture(self):
+        """Capture the body (on the CPU: run it, recording its launches
+        as a capture does) holding the gate alone."""
+        with GATE.exclusive(self.device):
+            if self.device.type != "cuda":
+                with kernels.recording() as launched:
+                    self._body()
+                self.launch_delta = launched
+                kernels.add_counts(launched)  # the CPU ran them
+                self.captured = True
+                return
+            self.graph, _, self.launch_delta = capture_graph(
+                self._body, self.pool, self.what, "loop body")
+            self.captured = True
+        self._replay()
+
+    def _replay(self):
+        if self.graph is None:
+            self._body()
+            return
+        try:
+            self.graph.replay()
+        except Exception as e:
+            raise RuntimeError(f"{self.what}: replaying the captured loop "
+                               f"body failed ({_describe(e)})") from e
+        kernels.add_counts(self.launch_delta)
+
+    def run(self, cond0: torch.Tensor, carries: Sequence[torch.Tensor],
+            caps: Sequence[torch.Tensor], op_seed: Optional[torch.Tensor]):
+        """Run the loop from ``cond0`` and the initial carries; returns
+        (final carries, final condition, iterations as an int32 0-d
+        tensor), each a tensor of its own. The runner's buffers have the
+        shapes and dtypes of its first call's values, as the executor's
+        key for it says."""
+        if not self.bufs:
+            self._alloc(carries, caps)
+        self.bufs[self.cond_name].copy_(cond0.reshape(()))
+        for n, v in zip(self.carry_names, carries):
+            self.bufs[n].copy_(v)
+        for buf, v in zip(self.cap_bufs, caps):
+            buf.copy_(v)
+        self.counter.zero_()
+        if op_seed is not None:
+            self.op_seed.copy_(op_seed)
+        self.loops += 1
+        cond = self.bufs[self.cond_name]
+        while host_bool(cond, self.pinned):
+            if self.captured:
+                self._replay()
+            elif self.warm:
+                self._capture()
+            else:
+                self._body()
+                self.warm = True
+            self.iterations += 1
+        return ([self.bufs[n].clone() for n in self.carry_names],
+                cond.clone(), self.counter.to(torch.int32))
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.bufs, self.cap_bufs = {}, []
+        self.warm = self.captured = False

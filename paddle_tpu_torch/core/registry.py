@@ -11,8 +11,11 @@ value they never read on the host, so a block of them can run as a CUDA
 graph. Ops registered with ``host_rng`` (the startup program's random
 fills) instead receive ``generator``, a ``torch.Generator`` seeded on the
 host for the op and the run: a block that holds one is never captured
-(core/lowering.py). Shape inference runs the same function over tensors
-on ``device="meta"`` (framework.infer_op_outputs).
+(core/lowering.py). A ``host_loop`` op (``while``) runs a loop on the
+host, so its block is never captured whole either: the op captures its
+loop body itself (ops/control_flow_ops.py). Shape inference runs the
+same function over tensors on ``device="meta"``
+(framework.infer_op_outputs).
 
 Gradients follow the JAX package's convention: an op without a
 registered ``<type>_grad`` gets one derived from its forward compute
@@ -53,6 +56,10 @@ class OpDef:
     # True if compute wants a `generator` keyword (a host-seeded
     # torch.Generator); a block that holds such an op is never captured.
     host_rng: bool = False
+    # True if compute loops on the host (``while``: it reads its condition
+    # after each iteration); a block that holds such an op is never
+    # captured whole, the op captures its body itself.
+    host_loop: bool = False
     doc: str = ""
 
     def __post_init__(self):
@@ -71,6 +78,7 @@ def register_op(
     no_grad: bool = False,
     needs_rng: bool = False,
     host_rng: bool = False,
+    host_loop: bool = False,
     doc: str = "",
 ) -> Callable[[ComputeFn], ComputeFn]:
     """Decorator registering ``fn`` as the compute for op ``type``."""
@@ -86,6 +94,7 @@ def register_op(
             no_grad=no_grad,
             needs_rng=needs_rng,
             host_rng=host_rng,
+            host_loop=host_loop,
             doc=doc or (fn.__doc__ or ""),
         )
         return fn

@@ -22,7 +22,10 @@ keeps nothing and runs eagerly, committing fresh tensors. A block that
 holds a ``host_rng`` op (a startup program's ``gaussian_random`` /
 ``uniform_random``, which draw from host-seeded generators) is never
 captured: that is read from the program's ops before it runs, and such a
-block runs eagerly at every call. Anything else that cannot be captured
+block runs eagerly at every call. So does a block that holds a ``while``
+op, whose loop runs on the host: its body is captured on its own
+(core/lowering.py ``LoopRunner``), one runner by (program, op, shapes)
+on the executor, in its graph pool. Anything else that cannot be captured
 raises, naming the program and the op; nothing gives way to an eager run
 on the card. ``close()`` frees the graphs and their memory pool.
 
@@ -306,6 +309,9 @@ class Executor:
         self._step = 0
         # the seed buffer of uncached (eager) runs
         self._eager_seed: Optional[torch.Tensor] = None
+        # the while loops' body runners (core/lowering.py LoopRunner), by
+        # (program, op, shapes)
+        self._loop_runners: Dict[tuple, lowering.LoopRunner] = {}
         # the memory pool every captured graph of this executor shares
         self._pool = None
         # why the executor was retired (a run then raises), or None
@@ -420,14 +426,15 @@ class Executor:
                      program.random_seed)
         runners = self._runners.setdefault(scope, {})
         runner = runners.get((key, signature))
+        what = f"program {program._uid} (version {program.version})"
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
         if runner is None:
-            if self._pool is None and self.device.type == "cuda":
-                self._pool = torch.cuda.graph_pool_handle()
             runner = runners[(key, signature)] = lowering.StepRunner(
-                lowered, self.device, program.random_seed,
-                f"program {program._uid} (version {program.version})",
-                self._pool)
-        return runner.run(scope, {k: feed[k] for k in feed_names}, step)
+                lowered, self.device, program.random_seed, what, self._pool)
+        ctx = lowering.LoopContext(self._loop_runners, self._pool, what)
+        with lowering.loop_context(ctx):
+            return runner.run(scope, {k: feed[k] for k in feed_names}, step)
 
     def _run_observed(self, program, feeds, steps, fetch_names, scope,
                       return_numpy, use_program_cache, async_fetch, t_run0,
@@ -624,6 +631,9 @@ class Executor:
                 for runner in runners.values():
                     runner.close()
             self._runners = weakref.WeakKeyDictionary()
+            for runner in self._loop_runners.values():
+                runner.close()
+            self._loop_runners = {}
             self._cache.clear()
             self._pool = None
             if self.device.type == "cuda":

@@ -537,6 +537,19 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """Append a sub-block (a ``while`` body) whose parent is the
+        current block, or ``parent_idx``, and make it current."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()

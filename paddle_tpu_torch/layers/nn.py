@@ -20,7 +20,7 @@ __all__ = [
     "reduce_max", "scale", "cast", "clip", "clip_by_norm", "sums",
     "fill_constant_like", "one_hot", "argmax", "equal", "less_than",
     "logical_and", "logical_not", "where", "reshape", "split", "unsqueeze",
-    "scatter",
+    "scatter", "increment", "transpose", "squeeze", "expand",
 ]
 
 
@@ -587,6 +587,17 @@ def logical_not(x, out=None, name=None):
     return out
 
 
+def increment(x, value=1.0, in_place=True):
+    """x + value; ``in_place`` writes the result back into ``x`` (the
+    var is rebound, as a ``while`` body's counter is)."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        dtype=x.dtype)
+    helper.append_op("increment", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"step": float(value)})
+    return out
+
+
 def where(condition, x, y, name=None):
     helper = LayerHelper("where", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
@@ -614,6 +625,10 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False,
     return helper.append_activation(out)
 
 
+def transpose(x, perm, name=None):
+    return _single_op("transpose2", x, attrs={"axis": list(perm)}, name=name)
+
+
 def split(input, num_or_sections, dim=-1, name=None):
     helper = LayerHelper("split", name=name)
     if isinstance(num_or_sections, int):
@@ -628,12 +643,25 @@ def split(input, num_or_sections, dim=-1, name=None):
     return outs
 
 
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("squeeze2", inputs={"X": input}, outputs={"Out": out},
+                     attrs={"axes": list(axes)})
+    return out
+
+
 def unsqueeze(input, axes, name=None):
     helper = LayerHelper("unsqueeze2", name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
     helper.append_op("unsqueeze2", inputs={"X": input}, outputs={"Out": out},
                      attrs={"axes": list(axes)})
     return out
+
+
+def expand(x, expand_times, name=None):
+    return _single_op("expand", x,
+                      attrs={"expand_times": list(expand_times)}, name=name)
 
 
 def scatter(input, index, updates, name=None, overwrite=True):

@@ -13,7 +13,8 @@ from paddle_tpu_torch.framework import (
 )
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "fill_constant", "assign", "zeros_like"]
+__all__ = ["create_global_var", "fill_constant", "assign", "zeros_like",
+           "range_", "slice"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -75,4 +76,28 @@ def zeros_like(x, out=None):
     helper = LayerHelper("fill_zeros_like")
     out = out or helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op("fill_zeros_like", inputs={"X": x}, outputs={"Out": out})
+    return out
+
+
+def range_(start, end, step, dtype):
+    helper = LayerHelper("range")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        "range", outputs={"Out": out},
+        attrs={"start": start, "end": end, "step": step, "dtype": dtype},
+    )
+    return out
+
+
+def slice(input, axes, starts, ends):
+    """Static slicing: ``[start:end]`` on each of ``axes``."""
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "slice", inputs={"X": input}, outputs={"Out": out},
+        attrs={"axes": list(axes), "starts": list(starts),
+               "ends": list(ends)},
+    )
     return out

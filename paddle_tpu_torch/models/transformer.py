@@ -2,7 +2,8 @@
 
 The port of the JAX package's models/transformer.py for training and
 serving: ``build(cfg)`` (training graph with dropout unless
-``is_test=True``), ``make_batch`` and the serving programs
+``is_test=True``), ``make_batch``, beam-search translation
+(``build_decode`` / ``translate``) and the serving programs
 (``build_prefill`` / ``build_decode_step`` / ``build_slot_scrub``). The
 programs, op sequences and parameter / state names match the JAX
 package's, so weights carry across by name.
@@ -314,7 +315,8 @@ def make_batch(cfg: TransformerConfig, batch: int, src_len: int, trg_len: int,
 def _encode_source(src, src_pad, cfg: TransformerConfig):
     """Encoder stack over a padded source batch (weights shared with
     build() by parameter name). Returns ``(enc [b, s, d], enc_bias
-    [b, 1, 1, s])`` — the front half of the serving prefill."""
+    [b, 1, 1, s])`` — the front half of the beam decode and the serving
+    prefill."""
     helper = LayerHelper("encode_src")
     enc_bias = helper.create_variable_for_type_inference("float32", True)
     helper.append_op("attn_bias", inputs={"PadMask": src_pad},
@@ -324,6 +326,173 @@ def _encode_source(src, src_pad, cfg: TransformerConfig):
     for i in range(cfg.n_layer):
         enc = encoder_layer(enc, enc_bias, cfg, i, True)
     return _ln(enc, "enc_post"), enc_bias
+
+
+# --- beam-search decoding: the whole decode loop is one `while` op whose
+# body re-runs the decoder over the static-shape prefix each step; the
+# encoder and the beam set-up run once around it ---
+
+
+def build_decode(cfg: Optional[TransformerConfig] = None, beam_size: int = 4,
+                 max_len: int = 32, src_len: int = 32, bos_id: int = 0,
+                 end_id: int = 1):
+    """Builds a beam-search translation graph in the current program.
+
+    Feeds: src_ids [b, src_len] int64, src_pad_mask [b, src_len] f32
+    (1 = real). Returns {"feeds", "ids" [b, K, max_len], "scores" [b, K],
+    "config"}. ``src_len`` is static; pad or bucket sources to it. The
+    loop re-runs the decoder over the full static-shape prefix each step
+    (O(T^2) a step, like the reference's cache-less while-loop decoder)
+    and stops once every hypothesis has emitted ``end_id`` or at
+    ``max_len``. On the card, inside a cached executor call, the loop
+    body runs as a captured CUDA graph (ops/control_flow_ops.py)."""
+    cfg = cfg or base()
+    k, t_max, s_len = int(beam_size), int(max_len), int(src_len)
+    src = layers.data("src_ids", shape=[s_len], dtype="int64")
+    src_pad = layers.data("src_pad_mask", shape=[s_len], dtype="float32")
+
+    helper = LayerHelper("beam_decode")
+
+    def _op(op_type, inputs, attrs=None, dtype="float32"):
+        out = helper.create_variable_for_type_inference(dtype, True)
+        helper.append_op(op_type, inputs=inputs, outputs={"Out": out},
+                         attrs=attrs or {})
+        return out
+
+    # encoder (weights shared with build() by parameter name)
+    enc, enc_bias = _encode_source(src, src_pad, cfg)
+
+    # replicate the encoder state per beam: [b, s, d] -> [b*K, s, d]
+    enc_beam = layers.reshape(
+        layers.expand(layers.unsqueeze(enc, [1]), [1, k, 1, 1]),
+        [-1, s_len, cfg.d_model],
+    )
+    cross_beam = layers.reshape(
+        layers.expand(layers.unsqueeze(enc_bias, [1]), [1, k, 1, 1, 1]),
+        [-1, 1, 1, s_len],
+    )
+
+    # beam state
+    seed = _op("slice", {"X": src},
+               {"axes": [1], "starts": [0], "ends": [1]}, dtype="int64")
+    tmpl = layers.expand(layers.unsqueeze(seed, [2]), [1, k, t_max])
+    ids = _op("fill_any_like", {"X": tmpl}, {"value": float(bos_id)},
+              dtype="int64")
+    zk = layers.cast(
+        layers.squeeze(
+            _op("slice", {"X": tmpl},
+                {"axes": [2], "starts": [0], "ends": [1]}, dtype="int64"),
+            [2]),
+        "float32")
+    zeros_bk = _op("fill_any_like", {"X": zk}, {"value": 0.0})
+    beam_mask = _op(
+        "assign_value", {},
+        {"shape": [k], "dtype": "float32",
+         "values": [0.0] + [-1e9] * (k - 1)})
+    scores = layers.elementwise_add(zeros_bk, beam_mask)
+    finished = layers.cast(zeros_bk, "bool")
+
+    t = layers.fill_constant([1], "int64", 1)
+    n_total = layers.reduce_sum(
+        _op("fill_any_like", {"X": zeros_bk}, {"value": 1.0}))
+    t_lim = layers.fill_constant([1], "int64", t_max)
+    cond = layers.less_than(t, t_lim)
+
+    from paddle_tpu_torch.layers.control_flow import While
+
+    with While(cond).block():
+        # time mask: positions < t are live
+        tpos = _op("range", {}, {"start": 0, "end": t_max, "dtype": "int64"},
+                   dtype="int64")
+        live = layers.cast(layers.less_than(tpos, t), "float32")  # [T]
+        ids_flat = layers.reshape(ids, [-1, t_max])
+        trg_pad = layers.elementwise_mul(
+            layers.cast(_op("fill_any_like", {"X": ids_flat}, {"value": 1.0},
+                            dtype="int64"), "float32"),
+            live)
+        # pad-only bias: the causal mask is the sdpa op's causal attr
+        self_bias = _op("attn_bias", {"PadMask": trg_pad},
+                        {"causal": False})
+        dec = _embed(ids_flat, cfg.trg_vocab_size, cfg, "trg_emb.w",
+                     "trg_pos.w", True)
+        for i in range(cfg.n_layer):
+            dec = decoder_layer(dec, enc_beam, self_bias, cross_beam, cfg, i,
+                                True)
+        dec = _ln(dec, "dec_post")
+        # logits at the last generated position (t - 1)
+        tm1 = layers.increment(t, value=-1.0, in_place=False)
+        dec_t = _op("dynamic_slice",
+                    {"X": layers.transpose(dec, [1, 0, 2]), "Index": tm1})
+        logits = layers.fc(
+            dec_t, cfg.trg_vocab_size, num_flatten_dims=1,
+            param_attr=ParamAttr(name="proj_colp.w"), bias_attr=False,
+        )
+        logp = layers.reshape(layers.log_softmax(logits),
+                              [-1, k, cfg.trg_vocab_size])
+
+        new_ids = helper.create_variable_for_type_inference("int64", True)
+        new_scores = helper.create_variable_for_type_inference("float32", True)
+        new_fin = helper.create_variable_for_type_inference("bool", True)
+        parent = helper.create_variable_for_type_inference("int64", True)
+        helper.append_op(
+            "beam_search_step",
+            inputs={"Ids": ids, "Scores": scores, "LogProbs": logp,
+                    "Finished": finished, "StepIdx": t},
+            outputs={"Ids": new_ids, "Scores": new_scores,
+                     "Finished": new_fin, "Parent": parent},
+            attrs={"end_id": end_id},
+        )
+        layers.assign(new_ids, output=ids)
+        layers.assign(new_scores, output=scores)
+        layers.assign(new_fin, output=finished)
+
+        layers.increment(t, value=1.0, in_place=True)
+        n_fin = layers.reduce_sum(layers.cast(finished, "float32"))
+        layers.assign(
+            layers.logical_and(layers.less_than(t, t_lim),
+                               layers.less_than(n_fin, n_total)),
+            output=cond)
+
+    return {"feeds": [src, src_pad], "ids": ids, "scores": scores,
+            "config": cfg}
+
+
+_decode_prog_cache: Dict[tuple, tuple] = {}
+
+
+def translate(exe, scope, src_ids: np.ndarray, src_pad: np.ndarray,
+              cfg: Optional[TransformerConfig] = None, beam_size: int = 4,
+              max_len: int = 32, bos_id: int = 0, end_id: int = 1):
+    """Beam-decode a padded source batch with the weights in ``scope``.
+
+    The decode Program is cached per (config, beam, lengths), so repeated
+    calls reuse one program object and the executor's cached lowering
+    and captured loop body. Returns (ids [b, K, max_len], scores [b, K])
+    as numpy arrays."""
+    from paddle_tpu_torch import executor as _executor
+
+    cfg = cfg or base()
+    key = (
+        cfg.src_vocab_size, cfg.trg_vocab_size, cfg.d_model, cfg.d_inner,
+        cfg.n_head, cfg.n_layer, cfg.max_length, cfg.dtype,
+        beam_size, max_len, int(src_ids.shape[1]), bos_id, end_id,
+    )
+    cached = _decode_prog_cache.get(key)
+    if cached is None:
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup):
+            dec = build_decode(cfg, beam_size=beam_size, max_len=max_len,
+                               src_len=int(src_ids.shape[1]), bos_id=bos_id,
+                               end_id=end_id)
+        cached = _decode_prog_cache[key] = (prog, dec)
+    prog, dec = cached
+    with _executor.scope_guard(scope):
+        ids, scores = exe.run(
+            prog,
+            feed={"src_ids": src_ids, "src_pad_mask": src_pad},
+            fetch_list=[dec["ids"], dec["scores"]],
+        )
+    return ids, scores
 
 
 def _w_sdpa(q, k, v, bias, cfg, is_test, causal=False):

@@ -4,6 +4,8 @@ programs use, each a plain PyTorch function (see core/registry.py)."""
 from paddle_tpu_torch.ops import (  # noqa: F401
     activation_ops,
     attention_ops,
+    control_flow_ops,
+    decode_ops,
     math_ops,
     nn_ops,
     optimizer_ops,

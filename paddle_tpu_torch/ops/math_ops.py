@@ -116,6 +116,15 @@ def _reduce_max(ins, attrs, device):
     return {"Out": [torch.amax(x, dim=dims, keepdim=keep)]}
 
 
+@register_op("increment")
+def _increment(ins, attrs, device):
+    """X + step, the step taken in X's dtype (an integer X adds the step
+    truncated toward zero, as the JAX op's cast does)."""
+    x = _x(ins)
+    step = attrs.get("step", 1.0)
+    return {"Out": [x + (step if x.is_floating_point() else int(step))]}
+
+
 @register_op("cast")
 def _cast(ins, attrs, device):
     return {"Out": [_x(ins).to(torch_dtype(attrs["out_dtype"]))]}

@@ -184,3 +184,55 @@ def _dynamic_update(ins, attrs, device):
     idx = ins["Index"][0].reshape(1).clamp(0, x.shape[0] - 1)
     v = ins["Value"][0].to(x.dtype).unsqueeze(0)
     return {"Out": [x.index_copy(0, idx, v)]}
+
+
+@register_op("transpose2")
+def _transpose2(ins, attrs, device):
+    return {"Out": [_x(ins).permute(*attrs["axis"])], "XShape": []}
+
+
+@register_op("slice")
+def _slice(ins, attrs, device):
+    """Static slices ``[start:end]`` on ``axes``, Python's rules (negative
+    bounds count from the end, bounds clamp to the dim)."""
+    x = _x(ins)
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[ax] = slice(st, en)
+    return {"Out": [x[tuple(idx)]]}
+
+
+@register_op("squeeze2")
+def _squeeze2(ins, attrs, device):
+    x = _x(ins)
+    axes = tuple(attrs.get("axes", []))
+    return {"Out": [x.squeeze(axes) if axes else x.squeeze()], "XShape": []}
+
+
+@register_op("expand")
+def _expand(ins, attrs, device):
+    """``np.tile``: each dim repeated ``expand_times`` times (a shorter
+    list counts from the last dim)."""
+    x = _x(ins)
+    times = list(attrs["expand_times"])
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": [x.repeat(times)]}
+
+
+@register_op("range", no_grad=True)
+def _range(ins, attrs, device):
+    dtype = torch_dtype(attrs.get("dtype", "int64"))
+    return {"Out": [torch.arange(attrs.get("start", 0), attrs["end"],
+                                 attrs.get("step", 1), dtype=dtype,
+                                 device=device)]}
+
+
+@register_op("dynamic_slice", diff_inputs=("X",))
+def _dynamic_slice(ins, attrs, device):
+    """Read the [Index] slice along axis 0 of X. The index stays on the
+    device (an ``index_select``, no host read, so the op may sit in a
+    captured graph) and clamps into range, as ``lax.dynamic_slice``
+    clamps its start."""
+    x = _x(ins)
+    idx = ins["Index"][0].reshape(1).clamp(0, x.shape[0] - 1)
+    return {"Out": [x.index_select(0, idx).squeeze(0)]}

@@ -1869,3 +1869,121 @@ def test_fleet_kill_drill_on_the_card(cuda):
     assert any(fr.failovers >= 1 for fr in frs)
     assert stats["pump_errors"] == 0, stats["last_pump_error"]
     assert GATE.stats()["capture_failures"] == 0
+
+
+# --- the while op: a loop body captured and replayed (slice 16) -----------
+
+
+def _loop_program(fluid):
+    """A while loop with a data-dependent trip count whose body reads
+    captured fc weights and draws a dropout mask each iteration: it runs
+    until the accumulated |h| passes the fed limit."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data("x", shape=[64], dtype="float32")
+        lim = L.data("lim", shape=[1], dtype="float32",
+                     append_batch_size=False)
+        acc = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+        cond = L.less_than(acc, lim)
+        w = L.While(cond)
+        with w.block():
+            h = L.fc(L.dropout(x, 0.2,
+                               dropout_implementation="upscale_in_train"),
+                     64, act="sigmoid")
+            L.assign(h, output=x)
+            L.assign(L.elementwise_add(acc, L.reduce_sum(L.abs(h))),
+                     output=acc)
+            L.less_than(acc, lim, cond=cond)
+    main.random_seed = startup.random_seed = 11
+    return main, startup, [x, acc, w._steps_var, cond]
+
+
+def test_captured_loop_body_equals_the_eager_loop(cuda):
+    """Three runs uncached (the eager loop) and three cached (run 1: the
+    warm-up iteration, the capture, replays; runs 2, 3: replays only)
+    from one startup: equal bits in every fetch, new dropout masks every
+    iteration and run, and a limit reached early (the trip count read
+    from the data, far below the 10^6 the limit would allow)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, fetch = _loop_program(fluid)
+    rng = np.random.default_rng(0)
+    feed = {"x": rng.standard_normal((16, 64), np.float32),
+            "lim": np.array([3000.0], np.float32)}
+    runs = {}
+    for cached in (False, True):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            runs[cached] = [exe.run(main, feed=feed, fetch_list=fetch,
+                                    use_program_cache=cached)
+                            for _ in range(3)]
+        if cached:
+            (runner,) = exe._loop_runners.values()
+            assert runner.graph is not None and runner.loops == 3
+        exe.close()
+    for a, b in zip(runs[False], runs[True]):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    steps = [int(r[2]) for r in runs[True]]
+    assert all(2 < s < 1000 for s in steps), steps
+    assert not bool(runs[True][0][3])
+    # each run's executor step draws other masks
+    assert not np.array_equal(runs[True][0][0], runs[True][1][0])
+
+
+def test_beam_decode_captured_equals_eager_with_an_early_end(cuda):
+    """A small Transformer's translate on the card, cached (the loop body
+    captured and replayed) and uncached, with an end_id that one of its
+    hypotheses emits: the same ids and bit-equal scores, the fwd_kernel
+    launched once an encoder layer and twice a decoder layer a step in
+    both, the captured runs' loop ending where the eager one's does."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(src_vocab_size=37, trg_vocab_size=41,
+                              max_length=64, d_model=64, d_inner=128,
+                              n_head=2, n_layer=2, dropout=0.0,
+                              label_smooth_eps=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        T.build(cfg, is_test=True)
+    startup.random_seed = 5
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup)
+    r = np.random.RandomState(0)
+    src = r.randint(2, 37, (3, 16)).astype(np.int64)
+    pad = np.ones((3, 16), np.float32)
+
+    class Eager(fluid.Executor):
+        def run(self, *args, **kwargs):
+            kwargs["use_program_cache"] = False
+            return super().run(*args, **kwargs)
+
+    def translate(exe, end_id):
+        kernels.reset_counts()
+        ids, scores = T.translate(exe, scope, src, pad, cfg, beam_size=4,
+                                  max_len=16, end_id=end_id)
+        return ids, scores, fa.route_counts()[("small", "fwd")]
+
+    first = translate(Eager(fluid.CUDAPlace(0)), 1)
+    end_id = int(first[0][0, 0, 3])
+    got = {}
+    for name, exe in (("eager", Eager(fluid.CUDAPlace(0))),
+                      ("captured", fluid.Executor(fluid.CUDAPlace(0)))):
+        got[name] = [translate(exe, end_id) for _ in range(2)]
+    want = got["eager"][0]
+    # one launch an encoder layer, then two a decoder layer a step
+    steps = (want[2] - cfg.n_layer) // (2 * cfg.n_layer)
+    assert want[2] == (1 + 2 * steps) * cfg.n_layer and 0 < steps <= 15
+    for ids, scores, launches in got["eager"] + got["captured"]:
+        assert np.array_equal(ids, want[0])
+        assert np.array_equal(scores, want[1])
+        assert launches == want[2]
+    for seq in want[0].reshape(-1, 16):
+        seq = list(seq)
+        if end_id in seq[1:steps + 1]:
+            first_end = seq[1:].index(end_id) + 1
+            assert all(t == end_id for t in seq[first_end:steps + 1]), seq

@@ -326,12 +326,20 @@ VISION_OP_TYPES = [
 ]
 
 
+# the op types of the beam-search path (tests/test_torch_control_flow.py
+# holds their cases)
+DECODE_OP_TYPES = ["beam_gather", "beam_search_step", "dynamic_slice",
+                   "expand", "increment", "range", "slice", "squeeze2",
+                   "transpose2", "while"]
+
+
 def test_cases_cover_exactly_the_path_op_types():
     assert sorted({c[0] for c in CASES}) == sorted(
         PATH_OP_TYPES + RECIPE_OP_TYPES + DEPLOY_OP_TYPES)
     assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES
                                       + RECIPE_OP_TYPES + DEPLOY_OP_TYPES
-                                      + QUANT_OP_TYPES + PLANES_OP_TYPES)
+                                      + QUANT_OP_TYPES + PLANES_OP_TYPES
+                                      + DECODE_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):
