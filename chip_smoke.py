@@ -195,7 +195,30 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     b*K = 32 rows of 128 with the causal mask folded into a row bias,
     cross-attention over 128 source keys), held against its plain version
     among phase 3's cases, reported beside phase 12's launches;
-13. print the kernels' JSON line, the card line, and the result line.
+13. the benchmark's other model families (``families``), each at the
+    JAX package's benchmark configuration (bench_family.py), weights from
+    seed 1234, a line naming each sub-phase before it runs: (13a)
+    BERT-base pretraining (12 layers, d 768, 12 heads, vocab 30522) at
+    b 64 x s 128, bf16 AMP, Adam 1e-4; (13b) DeepFM (26 fields, 1M-row
+    tables, 16-dim factors, a 400 x 400 x 400 tower) at b 4096, Adam
+    1e-3, dense and with row-sparse embedding gradients
+    (``is_sparse=True``, ``is_distributed=True``); (13c) SSD-300 (VGG16,
+    8732 priors, 21 classes, 50 padded gt rows) at b 32, bf16 AMP,
+    Momentum(0.001, 0.9), on bench_family.py's synthetic feed: each
+    three steps eager, captured (run) and in a run_steps window from one
+    startup, captured equal to eager bit for bit; then timed in turns,
+    eager and captured: step wall and device ms, idle share, tokens /
+    examples / images a second, launches a step from the trace, peak
+    memory; BERT's step launches fwd_wgmma_kernel and passes A and B 12
+    times each on the small route, no dense attention, and its share of
+    the bf16 dense peak (bench_family.py's FLOP formula); DeepFM's sparse
+    run leaves every row no batch touched bit-unchanged in both tables
+    and both Adam moments; (13d) two f32 steps of each model at 2 layers
+    or blocks of its full width (BERT 2 layers, DeepFM a 400 x 400 tower
+    on both paths, ``ssd.get_model`` with its detection_output head)
+    on the card against the port on the CPU (TOL_FAMILY_*); phase 3
+    holds the attention kernels at BERT's shape;
+14. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -4021,6 +4044,440 @@ def beam_translate(torch, np, fluid, T, fa, serving):
     return out, launches
 
 
+# Phase 13: the other model families of the JAX package's benchmark
+# (bench_family.py), each at its configuration there: BERT-base
+# pretraining (b 64 x s 128, bf16 AMP, Adam 1e-4; bench_family.py:163-172),
+# DeepFM (26 fields, 1M-row tables, 16-dim factors, a 400 x 400 x 400
+# tower, b 4096, Adam 1e-3; :211-219), dense and row-sparse, and SSD-300
+# (VGG16, 8732 priors, 21 classes, 50 padded gt rows, b 32, bf16 AMP,
+# Momentum(0.001, 0.9); :253-277)
+BERT_B, BERT_T, BERT_LR = 64, 128, 1e-4
+BERT_ATTENTION_CASE = "bert bf16 b64 t128 h12 pad drop"
+DEEPFM = dict(num_fields=26, vocab_size=1_000_000, embed_dim=16,
+              hidden=(400, 400, 400))
+DEEPFM_B, DEEPFM_LR = 4096, 1e-3
+SSD_B, SSD_CLASSES, SSD_GT = 32, 21, 50
+SSD_LR, SSD_MOMENTUM = 0.001, 0.9
+SSD300_PRIORS = 8732
+# the bf16 dense peak of one H100 SXM (NVIDIA data sheet)
+BF16_PEAK = PEAK_FLOPS["bfloat16"]["bf16 tensor cores"]
+# Phase 13d: two steps of each model at 2 layers or blocks of its full
+# width, f32 with TF32 off, on the card (the captured step from its
+# second call) against the same steps of the port on the CPU, from one
+# startup state and one batch. Both sum in f32 in other orders: each
+# step's loss within 1e-5 relative, the first step's named gradients
+# within 1e-4 of their largest element, and the state after two steps
+# within 1e-4 of each tensor's largest element (or 1e-9 absolute). Under
+# Adam the state held is the moments: Adam's first steps are sign-like,
+# so a parameter element whose gradient lies within rounding of zero
+# moves by +-lr on either device (an H100 read 1.2e-3 of the largest
+# element of a zero-initialized 2-layer BERT attention bias after two
+# steps, with both losses equal to 8e-8); the parameters' differences are
+# printed, and the second step's loss holds the first update. Index
+# outputs (the sparse rows, the detections' labels) are compared exactly.
+TOL_FAMILY_LOSS_REL = 1e-5
+TOL_FAMILY_GRAD_REL = 1e-4
+TOL_FAMILY_STATE_REL = 1e-4
+FAMILY_CPU = {"bert": dict(n_layer=2, batch=2, seq=64),
+              "deepfm": dict(hidden=(400, 400), batch=512),
+              "ssd": dict(batch=4, image=(3, 64, 64), classes=7, gt=8)}
+
+
+def bert_train_flops_per_step(cfg, batch, t):
+    """The matmul FLOPs of a BERT pretraining step, forward and backward
+    (encoder, MLM transform and projection; the NSP head is negligible):
+    the JAX package's benchmark formula (bench_family.py:88-96)."""
+    d, di, n_layer = cfg.d_model, cfg.d_inner, cfg.n_layer
+    tok = batch * t
+    per_layer = 4 * 2 * tok * d * d + 2 * 2 * tok * d * di \
+        + 2 * 2 * tok * t * d
+    head = 2 * tok * d * d + 2 * tok * d * cfg.vocab_size
+    return 3.0 * (n_layer * per_layer + head)
+
+
+def ssd300_feed(np, b, s):
+    """bench_family.py:263-277's SSD-300 batch: normal images, 1-11 boxes
+    an image in the 50 padded rows, labels in 1..20."""
+    r = np.random.RandomState(s)
+    imgs = r.normal(0, 1, (b, 3, 300, 300)).astype(np.float32)
+    boxes = np.zeros((b, 50, 4), np.float32)
+    labels = np.zeros((b, 50), np.int64)
+    for i in range(b):
+        n_obj = r.randint(1, 12)
+        cx, cy = r.uniform(0.2, 0.8, (2, n_obj))
+        w, h = r.uniform(0.1, 0.5, (2, n_obj))
+        boxes[i, :n_obj, 0] = np.clip(cx - w / 2, 0, 1)
+        boxes[i, :n_obj, 1] = np.clip(cy - h / 2, 0, 1)
+        boxes[i, :n_obj, 2] = np.clip(cx + w / 2, 0, 1)
+        boxes[i, :n_obj, 3] = np.clip(cy + h / 2, 0, 1)
+        labels[i, :n_obj] = r.randint(1, 21, n_obj)
+    return {"image": imgs, "gt_box": boxes, "gt_label": labels}
+
+
+def _family_program(fluid, build, make_opt, amp):
+    """(main, startup, model, optimizer) of ``build()`` minimized by
+    ``make_opt()``, bf16 AMP where ``amp``, seeded."""
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
+        model = build()
+        opt = make_opt()
+        opt.minimize(model["loss"])
+    if amp:
+        fluid.amp.enable_amp(main_prog)
+    startup.random_seed = main_prog.random_seed = SEED
+    return main_prog, startup, model, opt
+
+
+def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
+                 amp, items, unit, window=4, equal_steps=3, expect=None,
+                 tables=()):
+    """Phase 13a-c: train one model through Executor.run / run_steps on
+    the card. First ``equal_steps`` steps from one startup, two eager
+    sequences, one through the step runner (captured from its second
+    call) and one through a run_steps window (``_same_runs``): the
+    captured sequences' losses and final state equal to the eager one
+    bit for bit. Then the step timed in turns, eager (uncached runs) and
+    captured (run_steps replays): wall and device ms, idle share,
+    ``unit`` a second (``items`` a step), launches a step from the trace
+    (``expect``: {kernel name part: launches a step} held against it) and
+    the attention routes' counters, peak memory. ``tables``: the
+    row-sparse tables, whose rows no batch touched (and those rows of
+    their Adam moments) must keep their startup bits. Returns (row, the
+    captured step's traced launches by kernel name)."""
+    from paddle_tpu_torch import kernels
+
+    main_prog, startup, model, opt = _family_program(fluid, build,
+                                                     make_opt, amp)
+    loss = model["loss"]
+    dev = torch.device("cuda", 0)
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+             for f in feeds]
+    same = _same_runs(torch, np, fluid, main_prog, startup, feeds, [loss],
+                      equal_steps)
+    _held_same(same)
+    ec, ew = same["eager_vs_captured"], same["eager_vs_run_steps"]
+    assert ec["fetch"] == ec["state"] == ew["last_fetch"] == ew["state"] \
+        == 0.0, (name, same)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        slots = [n for n, d in opt.slot_descriptor().items()
+                 if d["param"] in tables
+                 and d["slot"] in ("moment1", "moment2")]
+        watched = {n: scope.find_var(n).clone() for n in list(tables) + slots}
+        # the eager step's warm-up and the captured step's capture
+        exe.run(main_prog, feed=feeds[0], fetch_list=[loss],
+                use_program_cache=False)
+        exe.run_steps(main_prog, feeds, 2, [loss])
+
+        def turn(eager):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            if eager:
+                for i in range(window):
+                    (value,) = exe.run(main_prog, feed=feeds[i % len(feeds)],
+                                       fetch_list=[loss],
+                                       use_program_cache=False)
+            else:
+                (value,) = exe.run_steps(main_prog, feeds, window, [loss])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v / window for k, v in _counts(fa).items()}
+            assert np.isfinite(value), (name, value)
+            assert all(torch.isfinite(scope.find_var(p.name)).all()
+                       for p in main_prog.all_parameters()), \
+                (name, "non-finite weights")
+            counts, trace = {}, {}
+            if eager:
+                times = _device_times(lambda: exe.run(
+                    main_prog, feed=feeds[0], fetch_list=[loss],
+                    use_program_cache=False), iters=1, expect=expect,
+                    counts=counts, trace=trace)
+            else:
+                times = _device_times(lambda: exe.run_steps(
+                    main_prog, feeds[:1], 1, [loss]), iters=2,
+                    expect=expect, counts=counts, replay=True, trace=trace)
+            device_ms = sum(times.values())
+            step_ms = wall / window * 1e3
+            return {"step_ms": step_ms, "step_device_ms": device_ms,
+                    "idle_share": 1 - device_ms / step_ms,
+                    f"{unit}_per_s": items * window / wall,
+                    "last_loss": float(value),
+                    "launches_per_step": sum(counts.values()),
+                    "attention_launches_per_step": launches,
+                    "trace_let_off": trace, "times": times,
+                    "counts": counts}
+
+        turns = _turns(turn)
+        untouched = None
+        if tables:
+            vocab = scope.find_var(tables[0]).shape[0]
+            hit = torch.zeros(vocab, dtype=torch.bool, device=dev)
+            for f in feeds:
+                hit[f["feat_ids"].reshape(-1)] = True
+            untouched = int((~hit).sum())
+            assert 0 < untouched < vocab, untouched
+            for n, before in watched.items():
+                after = scope.find_var(n)
+                assert torch.equal(after[~hit], before[~hit]), (name, n)
+                assert not torch.equal(after[hit], before[hit]), (name, n)
+    exe.close()
+    cap = turns["captured"][1]
+    times, counts = cap.pop("times"), cap.pop("counts")
+    for r in turns["eager"] + turns["captured"]:
+        r.pop("times", None)
+        r.pop("counts", None)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    row = {
+        "model": name, "amp": amp, f"{unit}_a_step": items,
+        "ops_per_step": len(main_prog.global_block().ops),
+        "captured_vs_eager": {k: same[k] for k in (
+            "steps", "eager_vs_eager", "eager_vs_captured",
+            "eager_vs_run_steps", "first_fetch")},
+        "window_steps": window, "last_loss": cap["last_loss"],
+        "step_ms": cap["step_ms"], "step_device_ms": cap["step_device_ms"],
+        "idle_share": cap["idle_share"],
+        f"{unit}_per_s": cap[f"{unit}_per_s"],
+        "launches_per_step": cap["launches_per_step"],
+        "attention_launches_per_step": cap["attention_launches_per_step"],
+        "peak_mem_gib": cap["peak_mem_gib"],
+        "peak_reserved_gib": cap["peak_reserved_gib"],
+        "untouched_rows_bit_equal": untouched,
+        "turns": _turn_summary(turns, (
+            "step_ms", "step_device_ms", "idle_share", f"{unit}_per_s",
+            "launches_per_step", "peak_mem_gib", "peak_reserved_gib",
+            "last_loss", "trace_let_off")),
+        "device_ms_by_family": _kernel_families(times),
+        "top_kernels_ms": [[k[:80], ms] for k, ms in top],
+    }
+    return row, counts
+
+
+def _family_steps(fluid, place, main_prog, state, feeds, fetch):
+    """Each feed's step of ``main_prog`` on ``place`` from ``state``
+    (cached runs: on the card the second is captured); returns each
+    step's fetches and the final state."""
+    from paddle_tpu_torch import io as tio
+
+    scope = tio.scope_from_numpy(state, place)
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        got = [exe.run(main_prog, feed=f, fetch_list=fetch) for f in feeds]
+    final = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+    exe.close()
+    return got, final
+
+
+def family_vs_cpu(torch, np, fluid, name, build, make_opt, feeds, names, *,
+                  exact=()):
+    """Phase 13d: two f32 steps of a model on the card against the port
+    on the CPU, from the card's startup state: each step's loss, the
+    first step's gradients ``names``, the first step's ``exact`` fetches
+    ((label, model key or var name) pairs held by ``_held_exactly``), and
+    the float state after the steps: every tensor, or under Adam its
+    moments (the parameters' differences printed; see
+    TOL_FAMILY_STATE_REL)."""
+    main_prog, startup, model, opt = _family_program(fluid, build, make_opt,
+                                                     amp=False)
+    slots = opt.slot_descriptor()
+    adam = isinstance(opt, fluid.optimizer.Adam)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    exe.close()
+    state = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+    del scope
+    fetch = [model["loss"]] + [model.get(k, k) for _, k in exact] \
+        + list(names)
+    gpu, gpu_final = _family_steps(fluid, fluid.CUDAPlace(0), main_prog,
+                                   state, feeds, fetch)
+    cpu, cpu_final = _family_steps(fluid, fluid.CPUPlace(), main_prog,
+                                   state, feeds, fetch)
+    losses = [[float(g[0]), float(c[0])] for g, c in zip(gpu, cpu)]
+    loss_rel = max(abs(g - c) / max(abs(c), 1e-30) for g, c in losses)
+    grad_rel = {}
+    for i, n in enumerate(names):
+        g, c = gpu[0][1 + len(exact) + i], cpu[0][1 + len(exact) + i]
+        assert g.shape == c.shape and np.isfinite(g).all(), (name, n)
+        grad_rel[n] = _rel_err(np, g, c)
+    exact_equal = {label: _held_exactly(np, label, gpu[0][1 + i],
+                                        cpu[0][1 + i])
+                   for i, (label, _) in enumerate(exact)}
+    state_rel, unheld = {}, {}
+    for n, c in cpu_final.items():
+        g = gpu_final[n]
+        if not np.issubdtype(c.dtype, np.floating):
+            assert np.array_equal(g, c), (name, n)
+            continue
+        err = (0.0 if np.abs(g - c).max() <= 1e-9 else _rel_err(np, g, c))
+        if adam and slots.get(n, {}).get("slot") not in (
+                "moment1", "moment2", "beta1_pow", "beta2_pow"):
+            unheld[n] = err
+        else:
+            state_rel[n] = err
+    worst = max(state_rel, key=state_rel.get)
+    loose = max(unheld, key=unheld.get) if unheld else None
+    row = {"model": name, "steps": len(feeds), "losses_gpu_cpu": losses,
+           "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+           "state_rel_err_max": [worst, state_rel[worst]],
+           "state_held": len(state_rel),
+           "unheld_rel_err_max": loose and [loose, unheld[loose]],
+           "exact": exact_equal,
+           "tol": {"loss_rel": TOL_FAMILY_LOSS_REL,
+                   "grad_rel": TOL_FAMILY_GRAD_REL,
+                   "state_rel": TOL_FAMILY_STATE_REL}}
+    assert loss_rel <= TOL_FAMILY_LOSS_REL, row
+    assert max(grad_rel.values()) <= TOL_FAMILY_GRAD_REL, row
+    assert state_rel[worst] <= TOL_FAMILY_STATE_REL, row
+    return row
+
+
+def _held_exactly(np, label, got, want):
+    """Index fetches held exactly: a sparse gradient's rows; the
+    detections' labels (row for row), their scores and boxes within
+    TOL_FAMILY_GRAD_REL of the largest."""
+    if label == "detection":
+        assert got.shape == want.shape, (got.shape, want.shape)
+        assert np.array_equal(got[..., 0], want[..., 0]), "detection labels"
+        err = _rel_err(np, got[..., 1:], want[..., 1:])
+        assert err <= TOL_FAMILY_GRAD_REL, err
+        return {"labels_equal": True, "rows": int(got.shape[1]),
+                "kept": int((got[..., 0] >= 0).sum()), "score_box_rel": err}
+    assert np.array_equal(got, want), label
+    return True
+
+
+def _family_done(out, key, row):
+    """Keep a sub-phase's row, with the seconds since phase 13 began, and
+    print it as its ``family_`` line."""
+    row["at_s"] = time.perf_counter() - out["t0"]
+    out[key] = row
+    print(f"family_{key} " + json.dumps(row), flush=True)
+
+
+def families(torch, np, fluid, fa):
+    """Phase 13: BERT-base, DeepFM (dense and sparse) and SSD-300 trained
+    on the card at bench_family.py's configurations (13a-c), then each at
+    2 layers or blocks against the CPU (13d). Returns {sub-phase: row};
+    a line names each sub-phase before it runs, and its ``family_`` line
+    follows as each row is done."""
+    from paddle_tpu_torch.models import bert as B
+    from paddle_tpu_torch.models import deepfm as D
+    from paddle_tpu_torch.models import ssd as SSD
+
+    out = {"t0": time.perf_counter()}
+    print("phase 13a: BERT-base pretraining", flush=True)
+    bcfg = B.base()
+    n_layer = bcfg.n_layer
+    drops = 2 * n_layer + 1  # attention out and FFN a layer, embeddings
+    # every layer's self-attention: one forward and one backward launch
+    # (passes A and B) on the small route, and no dense call
+    expect = {FWD_KERNELS["bfloat16"]: n_layer,
+              BWD_KERNELS["bfloat16"][0]: n_layer,
+              BWD_KERNELS["bfloat16"][1]: n_layer}
+    bert, bert_counts = train_family(
+        torch, np, fluid, fa, "bert_base", lambda: B.build(bcfg),
+        lambda: fluid.optimizer.Adam(BERT_LR),
+        [B.make_batch(bcfg, BERT_B, BERT_T, seed=SEED + s) for s in range(4)],
+        amp=True, items=BERT_B * BERT_T, unit="tokens", expect=expect)
+    route = fa.attention_route(BERT_T, BERT_T, bcfg.n_head,
+                               bcfg.d_model // bcfg.n_head)
+    assert route == "small", route
+    per_step = bert["attention_launches_per_step"]
+    want = {k: 0.0 for k in per_step}
+    want["small/fwd"] = want["small/bwd"] = float(n_layer)
+    assert per_step == want, per_step
+    flops = bert_train_flops_per_step(bcfg, BERT_B, BERT_T)
+    bert.update({
+        "batch": BERT_B, "seq": BERT_T, "lr": BERT_LR, "route": route,
+        "dropout_layers": drops,
+        "train_tflop_per_step": flops / 1e12,
+        "bound_ms_at_bf16_peak": flops / BF16_PEAK * 1e3,
+        "bf16_peak_share": flops / (bert["step_ms"] * 1e-3) / BF16_PEAK,
+        "attention_kernel_launches_traced": {
+            k: sum(n for name, n in bert_counts.items() if _matches(name, k))
+            for k in (FWD_KERNELS["bfloat16"][0],) + BWD_KERNELS["bfloat16"]},
+    })
+    _family_done(out, "13a", bert)
+    torch.cuda.empty_cache()
+
+    print("phase 13b: DeepFM, dense and row-sparse", flush=True)
+    dcfg = D.DeepFMConfig(**DEEPFM)
+    dfeeds = [D.make_batch(dcfg, DEEPFM_B, seed=SEED + s) for s in range(4)]
+    for sparse in (False, True):
+        row, _ = train_family(
+            torch, np, fluid, fa, f"deepfm_{'sparse' if sparse else 'dense'}",
+            lambda: D.build(dcfg, is_distributed=True, is_sparse=sparse),
+            lambda: fluid.optimizer.Adam(DEEPFM_LR), dfeeds, amp=False,
+            items=DEEPFM_B, unit="examples",
+            tables=("deepfm_first.w", "deepfm_factor.w") if sparse else ())
+        row.update({"batch": DEEPFM_B, "lr": DEEPFM_LR, "is_sparse": sparse,
+                    "is_distributed": True, **DEEPFM,
+                    "hidden": list(DEEPFM["hidden"])})
+        _family_done(out, "13b_sparse" if sparse else "13b_dense", row)
+        torch.cuda.empty_cache()
+
+    print("phase 13c: SSD-300", flush=True)
+    def ssd300():
+        model = SSD.get_ssd300_model(SSD_CLASSES, SSD_GT)
+        assert tuple(model["priors"].shape) == (SSD300_PRIORS, 4), \
+            model["priors"].shape
+        return model
+
+    ssd, _ = train_family(
+        torch, np, fluid, fa, "ssd300", ssd300,
+        lambda: fluid.optimizer.Momentum(SSD_LR, momentum=SSD_MOMENTUM),
+        [ssd300_feed(np, SSD_B, SEED + s) for s in range(4)], amp=True,
+        items=SSD_B, unit="images")
+    ssd.update({"batch": SSD_B, "classes": SSD_CLASSES, "gt_rows": SSD_GT,
+                "priors": SSD300_PRIORS, "lr": SSD_LR,
+                "momentum": SSD_MOMENTUM})
+    _family_done(out, "13c", ssd)
+    torch.cuda.empty_cache()
+
+    print("phase 13d: each model on the card against the CPU", flush=True)
+    c = FAMILY_CPU["bert"]
+    small_bert = B.BertConfig(n_layer=c["n_layer"], dropout=0.0)
+    _family_done(out, "13d_bert", family_vs_cpu(
+        torch, np, fluid, "bert_2_layers", lambda: B.build(small_bert),
+        lambda: fluid.optimizer.Adam(BERT_LR),
+        [B.make_batch(small_bert, c["batch"], c["seq"], seed=SEED + s)
+         for s in range(2)],
+        ["bert_tok_emb.w@GRAD", "enc0_attn_qkv_colp.w@GRAD",
+         "enc1_ffn2_rowp.w@GRAD", "mlm_proj_colp.w@GRAD", "nsp.w@GRAD"]))
+    c = FAMILY_CPU["deepfm"]
+    small_fm = D.DeepFMConfig(**{**DEEPFM, "hidden": c["hidden"]})
+    fm_feeds = [D.make_batch(small_fm, c["batch"], seed=SEED + s)
+                for s in range(2)]
+    for sparse in (False, True):
+        grads = ["deepfm_mlp0.w@GRAD", "deepfm_out.w@GRAD"]
+        grads += (["deepfm_factor.w@GRAD@VALUES", "deepfm_first.w@GRAD@VALUES"]
+                  if sparse else ["deepfm_factor.w@GRAD"])
+        row = family_vs_cpu(
+            torch, np, fluid, f"deepfm_2_layers_{'sparse' if sparse else 'dense'}",
+            lambda: D.build(small_fm, is_distributed=True, is_sparse=sparse),
+            lambda: fluid.optimizer.Adam(DEEPFM_LR), fm_feeds, grads,
+            exact=[("rows", "deepfm_factor.w@GRAD@ROWS")] if sparse else ())
+        _family_done(out, f"13d_deepfm_{'sparse' if sparse else 'dense'}",
+                     row)
+    c = FAMILY_CPU["ssd"]
+    ssd_kw = dict(image_shape=c["image"], num_classes=c["classes"],
+                  gt_capacity=c["gt"])
+    _family_done(out, "13d_ssd", family_vs_cpu(
+        torch, np, fluid, "ssd_get_model",
+        lambda: SSD.get_model(batch_size=c["batch"], **ssd_kw),
+        lambda: fluid.optimizer.Momentum(0.01, momentum=SSD_MOMENTUM),
+        [SSD.synthetic_batch(c["batch"], seed=SEED + s, **ssd_kw)
+         for s in range(2)],
+        ["conv2d_0.w_0@GRAD", "batch_norm_3.w_0@GRAD"],
+        exact=[("detection", "detection")]))
+    out["seconds"] = time.perf_counter() - out.pop("t0")
+    return out
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -4111,6 +4568,11 @@ def _phase3_cases(torch):
               repeat=True),
         _case("decode f32 tq1 tk1024", f32, 4, 1, 1024, "pad_b"),
     ]
+    # BERT-base's self-attention (phase 13a): b 64, t 128, 12 heads of 64,
+    # the q/k/v views of the fused projection, a key-pad bias, dropout 0.1
+    fwd.append(_case(BERT_ATTENTION_CASE, bf16, BERT_B, BERT_T, BERT_T,
+                     "pad_b", True, 0.1, h=12, dh=64, split=True,
+                     repeat=True))
     # the beam decode loop's two attention shapes (phase 12e reads them):
     # the decoder's self-attention over b * K rows of max_len (the causal
     # mask folded into the row bias) and its cross-attention
@@ -4119,7 +4581,8 @@ def _phase3_cases(torch):
                                   ("causal_pad", "pad_b"))]
     bwd = [c for c in fwd if c["name"].startswith(("train", "t1024",
                                                    "t4096", "t2048",
-                                                   "bhtd", "dh256"))] + [
+                                                   "bhtd", "dh256",
+                                                   "bert"))] + [
         _case("ragged f32", f32, 2, 100, 77, "none", split=True),
         _case("dh128 f32 drop", f32, 2, 128, 128, "pad", p_drop=0.2, h=4,
               dh=128, split=True),
@@ -4520,9 +4983,26 @@ def main() -> int:
           f"{p12} fwd_kernel launches", flush=True)
 
     phase_done("12")
+
+    # 13. the benchmark's other model families at its configurations:
+    # BERT-base, DeepFM dense and row-sparse, SSD-300; (13d) each at two
+    # layers or blocks against the CPU
+    fam13 = families(torch, np, fluid, fa)
+    a13, c13 = fam13["13a"], fam13["13c"]
+    fm_dense, fm_sparse = fam13["13b_dense"], fam13["13b_sparse"]
+    print(f"model families on {card}: BERT-base {a13['tokens_per_s']:.0f} "
+          f"tokens/s ({a13['step_ms']:.2f} ms a step, "
+          f"{a13['bf16_peak_share']:.3f} of the bf16 dense peak); DeepFM "
+          f"{fm_dense['examples_per_s']:.0f} examples/s dense, "
+          f"{fm_sparse['examples_per_s']:.0f} sparse; SSD-300 "
+          f"{c13['images_per_s']:.1f} images/s ({c13['step_ms']:.1f} ms a "
+          f"step); captured = eager bit for bit in all four", flush=True)
+
+    phase_done("13")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
     assert phase_s["12"] < 120, phase_s["12"]
+    assert phase_s["13"] < 150, phase_s["13"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
@@ -4537,6 +5017,12 @@ def main() -> int:
     bh_fwd = fwd_results["t4096 bf16 causal+pad"]
     bh_decode = fwd_results["decode f32 tq1 tk1024"]
     passes = bwd_results["t4096 bf16 causal+pad"]["passes"]
+
+    bert_fwd = fwd_results[BERT_ATTENTION_CASE]
+    bert_bwd = bwd_results[BERT_ATTENTION_CASE]
+    # the BERT window's launches (the captured turn read last)
+    bert_launches = {d: int(a13["attention_launches_per_step"][f"small/{d}"]
+                            * a13["window_steps"]) for d in ("fwd", "bwd")}
 
     def err(row):
         return max(row["err_out"], row["err_lse"])
@@ -4580,6 +5066,16 @@ def main() -> int:
             "bhtd route, causal, lse cotangent; the f32 step at t = 1280)",
             _SRC_BWD, f"{_TPU_FA}:233", vs_cpu[1280]["launches"],
             bh_passes_f32["pass_a"], bh_passes_f32["pass_a"]["max_abs_err"]),
+        _kernel_entry(
+            "flash_attention_bthd_fwd, bf16 fwd_wgmma_kernel (small route, "
+            "BERT-base b64 t128 h12, phase 13a)", _SRC_FWD,
+            f"{_TPU_FA}:808", bert_launches["fwd"], bert_fwd,
+            err(bert_fwd)),
+        _kernel_entry(
+            "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
+            "bwd_dq_wgmma_kernel; small route, BERT-base b64 t128 h12, "
+            "phase 13a)", _SRC_BWD, f"{_TPU_FA}:861", bert_launches["bwd"],
+            bert_bwd, max(bert_bwd["err_dq_dk_dv"])),
         _kernel_entry(
             "dropout op forward (dropout_apply_kernel; bf16 row)",
             "paddle_tpu_torch/csrc/dropout_mask.cu",

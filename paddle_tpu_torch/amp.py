@@ -106,6 +106,11 @@ class AmpOptimizer:
         scaled_loss = nn.elementwise_mul(loss, block.var(scale_var.name))
         params_grads = self._inner.backward(
             scaled_loss, startup_program, parameter_list, no_grad_set)
+        if any(getattr(g, "is_selected_rows", False)
+               for _, g in params_grads if g is not None):
+            raise NotImplementedError(
+                "dynamic loss scaling with row-sparse gradients is not "
+                "supported; use is_sparse=False embeddings")
 
         grads = [g for _, g in params_grads if g is not None]
         # one isfinite op over every gradient -> one all-finite flag

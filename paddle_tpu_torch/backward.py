@@ -75,6 +75,18 @@ def append_backward(
         if not lst:
             return None
         if len(lst) > 1 and g not in finalized:
+            # a row-sparse marker among the partials cannot be summed
+            # with dense ones (its array never exists); this catches the
+            # order the sparse grad maker's own @RENAME check misses: the
+            # sparse lookup claiming the clean name first
+            for n in lst:
+                v = block._find_var_recursive(n)
+                if v is not None and getattr(v, "is_selected_rows", False):
+                    raise ValueError(
+                        f"parameter '{var_name}' has both a row-sparse "
+                        f"gradient (is_sparse=True lookup) and other dense "
+                        f"gradient contributions; they cannot be combined. "
+                        f"Use is_sparse=False for this table.")
             # combine partial gradients (reference: backward.py:135)
             block.create_var(name=g, dtype=_var_dtype(var_name))
             block.append_op("sum", inputs={"X": list(lst)},

@@ -120,3 +120,24 @@ class LayerHelper:
         out = self.create_variable_for_type_inference(dtype=input_var.dtype)
         self.append_op(act_type, inputs={"X": input_var}, outputs={"Out": out}, attrs=act)
         return out
+
+
+def append_simple_op(op_type, inputs, attrs=None, out_slots=("Out",),
+                     dtypes=None, name=None, stop_gradient=False):
+    """Append one op whose outputs are fresh temp vars; returns the output
+    var (or a tuple of them). A None input slot is left out; an output's
+    dtype is ``dtypes[i]`` or else the first input's."""
+    helper = LayerHelper(op_type, name=name)
+    first = next(v for v in inputs.values() if v is not None)
+    base = first[0] if isinstance(first, (list, tuple)) else first
+    outs = {}
+    for i, s in enumerate(out_slots):
+        dt = (dtypes[i] if dtypes else None) or base.dtype
+        outs[s] = helper.create_variable_for_type_inference(
+            dtype=dt, stop_gradient=stop_gradient)
+    helper.append_op(op_type,
+                     inputs={k: v for k, v in inputs.items()
+                             if v is not None},
+                     outputs=outs, attrs=attrs or {})
+    vals = [outs[s] for s in out_slots]
+    return vals[0] if len(vals) == 1 else tuple(vals)

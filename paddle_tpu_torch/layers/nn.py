@@ -20,7 +20,9 @@ __all__ = [
     "reduce_max", "scale", "cast", "clip", "clip_by_norm", "sums",
     "fill_constant_like", "one_hot", "argmax", "equal", "less_than",
     "logical_and", "logical_not", "where", "reshape", "split", "unsqueeze",
-    "scatter", "increment", "transpose", "squeeze", "expand",
+    "scatter", "increment", "transpose", "squeeze", "expand", "gelu",
+    "greater_than", "sigmoid_cross_entropy_with_logits", "concat",
+    "multiclass_nms",
 ]
 
 
@@ -80,15 +82,11 @@ def embedding(
     name: Optional[str] = None,
 ):
     """Embedding lookup over padded [b, t] ids, in the JAX package's
-    signature. ``is_distributed`` row-shards the table across devices
-    there; on one device the lookup is the same. ``is_sparse`` asks for
-    the row-sparse gradient and the optimizers' row-wise (lazy) updates,
-    which the port does not have: it raises rather than train with dense
-    updates."""
-    if is_sparse:
-        raise NotImplementedError(
-            "embedding(is_sparse=True): the row-sparse gradient and its "
-            "optimizer ops are not ported; use is_sparse=False")
+    signature. ``is_sparse`` gives the table a row-sparse gradient
+    (ops/sparse_ops.py): the optimizers update only the rows a batch
+    touches (lazily, for Momentum and Adam). ``is_distributed`` row-shards
+    the table across devices in the JAX package; on one device the lookup
+    is the same, and the sharding is not ported."""
     helper = LayerHelper("embedding", name=name)
     w = helper.create_parameter(
         ParamAttr._to_attr(param_attr), shape=list(size), dtype=dtype
@@ -99,6 +97,10 @@ def embedding(
     attrs = {"squeeze_last": False}
     if padding_idx is not None:
         attrs["padding_idx"] = int(padding_idx)
+    if is_distributed:
+        attrs["is_distributed"] = True
+    if is_sparse:
+        attrs["is_sparse"] = True
     helper.append_op(
         "lookup_table",
         inputs={"W": w, "Ids": input},
@@ -356,6 +358,11 @@ def log(x, name=None):
     return _single_op("log", x, name=name)
 
 
+def gelu(x, approximate=False, name=None):
+    return _single_op("gelu", x, attrs={"approximate": approximate},
+                      name=name)
+
+
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     """``use_cudnn`` is taken for the JAX package's signature and changes
     nothing, as there."""
@@ -387,6 +394,19 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        "sigmoid_cross_entropy_with_logits",
+        inputs={"X": x, "Label": label},
+        outputs={"Out": out},
+        attrs={"ignore_index": ignore_index},
+    )
+    return out
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
@@ -575,6 +595,10 @@ def less_than(x, y, cond=None, force_cpu=None):
     return _compare("less_than", x, y, cond)
 
 
+def greater_than(x, y, cond=None):
+    return _compare("greater_than", x, y, cond)
+
+
 def logical_and(x, y, out=None, name=None):
     return _compare("logical_and", x, y, out)
 
@@ -643,6 +667,14 @@ def split(input, num_or_sections, dim=-1, name=None):
     return outs
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op("concat", inputs={"X": list(input)},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
 def squeeze(input, axes, name=None):
     helper = LayerHelper("squeeze2", name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
@@ -671,4 +703,25 @@ def scatter(input, index, updates, name=None, overwrite=True):
         "scatter", inputs={"X": input, "Ids": index, "Updates": updates},
         outputs={"Out": out}, attrs={"overwrite": overwrite},
     )
+    return out
+
+
+# --- detection ---
+
+
+def multiclass_nms(bboxes, scores, score_threshold=0.0, nms_top_k=64,
+                   keep_top_k=16, nms_threshold=0.3, background_label=0,
+                   name=None):
+    """Static-shape multiclass NMS: [n, keep_top_k, 6] rows of (label,
+    score, box), label -1 padding (ops/vision_ops.py).
+    ``background_label``: the class skipped entirely (-1 keeps every
+    class)."""
+    helper = LayerHelper("multiclass_nms", name=name)
+    out = helper.create_variable_for_type_inference(dtype=bboxes.dtype)
+    helper.append_op(
+        "multiclass_nms", inputs={"BBoxes": bboxes, "Scores": scores},
+        outputs={"Out": out},
+        attrs={"score_threshold": score_threshold, "nms_top_k": nms_top_k,
+               "keep_top_k": keep_top_k, "nms_threshold": nms_threshold,
+               "background_label": background_label})
     return out

@@ -6,10 +6,13 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     attention_ops,
     control_flow_ops,
     decode_ops,
+    detection_ops,
     math_ops,
     nn_ops,
     optimizer_ops,
     quant_ops,
     serving_ops,
+    sparse_ops,
     tensor_ops,
+    vision_ops,
 )

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
 
@@ -18,3 +19,11 @@ _unary("abs", torch.abs)
 _unary("sqrt", torch.sqrt)
 _unary("sigmoid", torch.sigmoid)
 _unary("log", torch.log)
+
+
+@register_op("gelu")
+def _gelu(ins, attrs, device):
+    """Exact erf GELU by default; ``approximate`` takes the tanh form, as
+    ``jax.nn.gelu(approximate=...)`` does."""
+    form = "tanh" if attrs.get("approximate", False) else "none"
+    return {"Out": [F.gelu(ins["X"][0], approximate=form)]}

@@ -53,6 +53,7 @@ def _make_compare(name, fn):
 
 _make_compare("equal", torch.eq)
 _make_compare("less_than", torch.lt)
+_make_compare("greater_than", torch.gt)
 _make_compare("greater_equal", torch.ge)
 
 

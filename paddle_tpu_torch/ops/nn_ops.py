@@ -286,6 +286,17 @@ def _softmax_with_cross_entropy(ins, attrs, device):
     return {"Softmax": [logp.exp()], "Loss": [loss]}
 
 
+@register_op("sigmoid_cross_entropy_with_logits", diff_inputs=("X",))
+def _sigmoid_ce(ins, attrs, device):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), elementwise. The layer's
+    ``ignore_index`` rides the op desc; the loss is not masked by it, as
+    in the JAX op."""
+    x, label = _x(ins), _x(ins, "Label")
+    loss = (torch.clamp_min(x, 0.0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    return {"Out": [loss]}
+
+
 @register_op("label_smooth", diff_inputs=("X",))
 def _label_smooth(ins, attrs, device):
     x = _x(ins)

@@ -14,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import get_op_def, register_op
 from paddle_tpu_torch.framework import torch_dtype
+from paddle_tpu_torch.ops.box_util import iou_xyxy
 
 
 def _x(ins, slot="X", i=0):
@@ -79,6 +80,11 @@ def _reshape2(ins, attrs, device):
     return {"Out": [x.reshape(shape)], "XShape": []}
 
 
+@register_op("concat")
+def _concat(ins, attrs, device):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
+
+
 @register_op("split")
 def _split(ins, attrs, device):
     x = _x(ins)
@@ -124,13 +130,51 @@ def _one_hot(ins, attrs, device):
 
 
 def _lookup_table_grad_maker(op, block, out_grads, provide, should_skip):
-    """A dense table takes the derived grad op (a scatter-add into W);
-    the row-sparse gradient of ``is_sparse=True`` is not ported."""
-    if op.attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table(is_sparse=True): the row-sparse gradient is not "
-            "ported; build the embedding with is_sparse=False")
-    return None
+    """A dense table takes the derived grad op (``w[ids]``'s backward: an
+    indexed accumulate that sorts the ids and adds each run in order).
+    ``is_sparse=True`` emits the row-sparse pair instead
+    (ops/sparse_ops.py): ``{W}@GRAD@ROWS`` / ``{W}@GRAD@VALUES``, with
+    ``{W}@GRAD`` a never-materialized marker carrying
+    ``is_selected_rows``, so the optimizer picks its sparse op. A table
+    that several lookups share, or that also takes a dense gradient,
+    raises (the pair cannot be summed), as in the JAX package."""
+    if not op.attrs.get("is_sparse", False):
+        return None  # the derived dense grad op
+    w = op.inputs["W"][0]
+    g_out = (out_grads.get("Out") or [""])[0]
+    if not g_out:
+        return []
+    opdef = get_op_def("lookup_table")
+    if should_skip(w, "W", opdef):
+        return []
+    src = block._find_var_recursive(w)
+    gname = provide(w)
+    if "@RENAME@" in gname:
+        raise ValueError(
+            f"lookup_table(is_sparse=True): table '{w}' is consumed by "
+            f"multiple lookups in the backward path; the row-sparse "
+            f"gradient pair cannot be summed. Use is_sparse=False for "
+            f"shared tables.")
+    gv = block.create_var(name=gname, shape=src.shape if src else None,
+                          dtype=src.dtype if src else "float32")
+    rows_name, values_name = gname + "@ROWS", gname + "@VALUES"
+    block.create_var(name=rows_name, dtype="int32")
+    block.create_var(name=values_name,
+                     dtype=src.dtype if src else "float32")
+    gv.is_selected_rows = True
+    gv.sparse_rows_name = rows_name
+    gv.sparse_values_name = values_name
+    attrs = {"vocab_size": int(src.shape[0])}
+    # the forward's squeeze and padding, as the layer pinned them
+    for k in ("squeeze_last", "padding_idx"):
+        if k in op.attrs:
+            attrs[k] = op.attrs[k]
+    return [dict(
+        type="lookup_table_sparse_grad",
+        inputs={"Ids": list(op.inputs["Ids"]), "GRAD::Out": [g_out]},
+        outputs={"Rows": [rows_name], "Values": [values_name]},
+        attrs=attrs,
+    )]
 
 
 @register_op("lookup_table", diff_inputs=("W",),
@@ -236,3 +280,107 @@ def _dynamic_slice(ins, attrs, device):
     x = _x(ins)
     idx = ins["Index"][0].reshape(1).clamp(0, x.shape[0] - 1)
     return {"Out": [x.index_select(0, idx).squeeze(0)]}
+
+
+def _const(values, dtype, device):
+    """A 1-D tensor of Python numbers made on ``device`` by one fill each:
+    no host copy, so a captured step may hold it (the numbers are attrs,
+    the same at every replay)."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i:i + 1].fill_(v)
+    return out
+
+
+@register_op("iou_similarity", no_grad=True)
+def _iou_similarity(ins, attrs, device):
+    """Pairwise IoU of two box sets [N, 4] x [M, 4] (xmin, ymin, xmax,
+    ymax) (reference: operators/detection/iou_similarity_op.cc)."""
+    return {"Out": [iou_xyxy(_x(ins), _x(ins, "Y"))]}
+
+
+@register_op("box_coder", no_grad=True)
+def _box_coder(ins, attrs, device):
+    """Encode / decode boxes against priors (reference:
+    operators/detection/box_coder_op.cc). PriorBox [M, 4], TargetBox
+    encode: [N, 4] -> [N, M, 4]; decode: [N, M, 4]. The variances scale
+    the offsets: the PriorBoxVar input, else the ``variance`` attr, else
+    ones."""
+    prior = _x(ins, "PriorBox")
+    target = _x(ins, "TargetBox")
+    code_type = attrs.get("code_type", "encode_center_size")
+    one = 0.0 if attrs.get("box_normalized", True) else 1.0
+    pvar = (ins.get("PriorBoxVar") or [None])[0]
+    if pvar is None:
+        va = attrs.get("variance", []) or [1.0, 1.0, 1.0, 1.0]
+        pvar = _const(va, prior.dtype, prior.device).expand(
+            prior.shape[0], 4)
+    pw = prior[:, 2] - prior[:, 0] + one
+    ph = prior[:, 3] - prior[:, 1] + one
+    px = prior[:, 0] + pw * 0.5
+    py = prior[:, 1] + ph * 0.5
+    if code_type.startswith("encode"):
+        tw = target[:, 2] - target[:, 0] + one
+        th = target[:, 3] - target[:, 1] + one
+        tx = target[:, 0] + tw * 0.5
+        ty = target[:, 1] + th * 0.5
+        ox = (tx[:, None] - px[None, :]) / pw[None, :] / pvar[None, :, 0]
+        oy = (ty[:, None] - py[None, :]) / ph[None, :] / pvar[None, :, 1]
+        ow = torch.log(tw[:, None] / pw[None, :]) / pvar[None, :, 2]
+        oh = torch.log(th[:, None] / ph[None, :]) / pvar[None, :, 3]
+        out = torch.stack([ox, oy, ow, oh], dim=-1)
+    else:
+        tx = target[..., 0] * pvar[None, :, 0] * pw[None, :] + px[None, :]
+        ty = target[..., 1] * pvar[None, :, 1] * ph[None, :] + py[None, :]
+        tw = torch.exp(target[..., 2] * pvar[None, :, 2]) * pw[None, :]
+        th = torch.exp(target[..., 3] * pvar[None, :, 3]) * ph[None, :]
+        out = torch.stack([tx - tw * 0.5, ty - th * 0.5,
+                           tx + tw * 0.5 - one, ty + th * 0.5 - one], dim=-1)
+    return {"OutputBox": [out]}
+
+
+@register_op("prior_box", no_grad=True)
+def _prior_box(ins, attrs, device):
+    """SSD prior boxes per feature-map cell (reference:
+    operators/detection/prior_box_op.cc). Input [N, C, H, W] feature map,
+    Image [N, C, Hi, Wi]; Boxes / Variances [H, W, P, 4] in f32, computed
+    in f64 (the JAX package's x64 arithmetic, rounded once)."""
+    feat, img = _x(ins, "Input"), _x(ins, "Image")
+    h, w = feat.shape[2], feat.shape[3]
+    ih, iw = img.shape[2], img.shape[3]
+    min_sizes = list(attrs.get("min_sizes", [100.0]))
+    max_sizes = list(attrs.get("max_sizes", []))
+    ars = [1.0]
+    for ar in attrs.get("aspect_ratios", []):
+        if not any(abs(ar - a) < 1e-6 for a in ars):
+            ars.append(ar)
+            if attrs.get("flip", True):
+                ars.append(1.0 / ar)
+    variances = attrs.get("variances", [0.1, 0.1, 0.2, 0.2])
+    step_w = attrs.get("step_w", 0.0) or float(iw) / w
+    step_h = attrs.get("step_h", 0.0) or float(ih) / h
+    offset = attrs.get("offset", 0.5)
+    whs = []
+    for i, ms in enumerate(min_sizes):
+        for ar in ars:
+            whs.append((ms * (ar ** 0.5), ms / (ar ** 0.5)))
+        # one extra sqrt(min * max) square prior per min size
+        if i < len(max_sizes):
+            s = (ms * max_sizes[i]) ** 0.5
+            whs.append((s, s))
+    p = len(whs)
+    f64 = torch.float64
+    cw = _const([a for a, _ in whs], f64, feat.device) / iw      # [P]
+    ch = _const([b for _, b in whs], f64, feat.device) / ih
+    cx = (torch.arange(w, dtype=f64, device=feat.device) + offset) \
+        * step_w / iw                                              # [W]
+    cy = (torch.arange(h, dtype=f64, device=feat.device) + offset) \
+        * step_h / ih                                              # [H]
+    cxg = cx[None, :, None].expand(h, w, p)
+    cyg = cy[:, None, None].expand(h, w, p)
+    boxes = torch.stack([cxg - cw / 2, cyg - ch / 2, cxg + cw / 2,
+                         cyg + ch / 2], dim=-1)
+    if attrs.get("clip", True):
+        boxes = torch.clamp(boxes, 0.0, 1.0)
+    var = _const(variances, torch.float32, feat.device).expand(h, w, p, 4)
+    return {"Boxes": [boxes.to(torch.float32)], "Variances": [var]}

@@ -6,7 +6,9 @@ per-parameter accumulators created as persistable vars initialized by
 the startup program; their names and fill values are the JAX package's,
 so ``slot_descriptor()`` lines up between the packages. Ported: the
 ``Optimizer`` base, SGD, Momentum, LarsMomentum, Adam, AdamW and Lamb
-(Adam's update op with another ``_op_type`` and ``_extra_attrs``),
+(Adam's update op with another ``_op_type`` and ``_extra_attrs``), the
+row-sparse updates of SGD, Momentum and Adam (ops/sparse_ops.py; the
+other optimizers refuse a row-sparse gradient, as in the JAX package),
 Adagrad, DecayedAdagrad, RMSProp, Ftrl, Adamax, Adadelta, the
 ``ExponentialMovingAverage`` of the parameters and the ``ModelAverage``
 placeholder, with the JAX package's short aliases. Not ported:
@@ -105,16 +107,46 @@ class Optimizer:
         operators appended to the block."""
         block = default_main_program().global_block()
         self._create_lr_var()
-        pre_clip = list(params_grads)
-        params_grads = clip_mod.append_gradient_clip_ops(params_grads)
-        params_grads = reg_mod.append_regularization_ops(
-            params_grads, self.regularization)
+        # Row-sparse gradients (embedding(is_sparse=True)) bypass the clip
+        # and the decay and go to the optimizer's sparse op. A requested
+        # decay or clip on such a parameter raises instead of being
+        # skipped (a global-norm clip over the dense gradients alone
+        # would under-clip).
+        sparse = [(p, g) for p, g in params_grads
+                  if getattr(g, "is_selected_rows", False)]
+        dense = [(p, g) for p, g in params_grads
+                 if not getattr(g, "is_selected_rows", False)]
+        for p, _ in sparse:
+            if self.regularization is not None or \
+                    getattr(p, "regularizer", None) is not None:
+                raise NotImplementedError(
+                    f"regularization on row-sparse parameter '{p.name}' is "
+                    f"not supported; use is_sparse=False for this embedding")
+            if clip_mod.clip_applies_to(p.name):
+                raise NotImplementedError(
+                    f"gradient clipping with row-sparse parameter "
+                    f"'{p.name}' is not supported (a global-norm clip over "
+                    f"dense grads only would under-clip); use "
+                    f"is_sparse=False")
+        pre_clip = list(dense)
+        dense = clip_mod.append_gradient_clip_ops(dense)
+        dense = reg_mod.append_regularization_ops(dense, self.regularization)
+        params_grads = dense + sparse
         self._maybe_instrument_grad_norm(block.program, pre_clip)
         self._create_accumulators(block, [p for p, _ in params_grads])
         n_before = len(block.ops)
         for pg in params_grads:
-            self._append_optimize_op(block, pg)
+            if getattr(pg[1], "is_selected_rows", False):
+                self._append_sparse_optimize_op(block, pg)
+            else:
+                self._append_optimize_op(block, pg)
         return block.ops[n_before:]
+
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no row-sparse update op; use "
+            f"SGD/Momentum/Adam for is_sparse=True embeddings, or build "
+            f"the embedding with is_sparse=False")
 
     @staticmethod
     def _maybe_instrument_grad_norm(prog, dense):
@@ -167,6 +199,16 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": p.name},
         )
 
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        block.append_op(
+            "sgd_sparse",
+            inputs={"Param": p, "Rows": g.sparse_rows_name,
+                    "Values": g.sparse_values_name,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p.name},
+        )
+
 
 class MomentumOptimizer(Optimizer):
     def __init__(self, learning_rate, momentum, use_nesterov=False,
@@ -185,6 +227,18 @@ class MomentumOptimizer(Optimizer):
         block.append_op(
             "momentum",
             inputs={"Param": p, "Grad": g, "Velocity": v,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p.name, "VelocityOut": v.name},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        block.append_op(
+            "momentum_sparse",
+            inputs={"Param": p, "Rows": g.sparse_rows_name,
+                    "Values": g.sparse_values_name, "Velocity": v,
                     "LearningRate": self._param_lr(p)},
             outputs={"ParamOut": p.name, "VelocityOut": v.name},
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
@@ -218,9 +272,10 @@ class LarsMomentumOptimizer(Optimizer):
 
 class AdamOptimizer(Optimizer):
     """Adam; AdamW and Lamb reuse its accumulators and op desc under
-    their own ``_op_type`` with ``_extra_attrs``. ``lazy_mode`` is taken
-    for the JAX package's signature: it selects the row-sparse update,
-    and row-sparse gradients are not ported."""
+    their own ``_op_type`` with ``_extra_attrs``. A row-sparse gradient
+    takes lazy Adam (``adam_sparse``: the rows a batch does not touch keep
+    their moments), whatever ``lazy_mode`` says, as in the JAX package,
+    which takes ``lazy_mode`` for the reference's signature."""
 
     _op_type = "adam"
 
@@ -258,6 +313,25 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, **self._extra_attrs()},
         )
 
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow", p)
+        b2p = self._get_accumulator("beta2_pow", p)
+        block.append_op(
+            "adam_sparse",
+            inputs={"Param": p, "Rows": g.sparse_rows_name,
+                    "Values": g.sparse_values_name, "Moment1": m1,
+                    "Moment2": m2, "Beta1Pow": b1p, "Beta2Pow": b2p,
+                    "LearningRate": self._param_lr(p)},
+            outputs={"ParamOut": p.name, "Moment1Out": m1.name,
+                     "Moment2Out": m2.name, "Beta1PowOut": b1p.name,
+                     "Beta2PowOut": b2p.name},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
 
 class AdamWOptimizer(AdamOptimizer):
     """Adam with decoupled weight decay (the ``adamw`` op)."""
@@ -274,6 +348,11 @@ class AdamWOptimizer(AdamOptimizer):
     def _extra_attrs(self):
         return {"weight_decay": self._weight_decay}
 
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        # adam_sparse would silently drop the decoupled decay
+        return Optimizer._append_sparse_optimize_op(
+            self, block, param_and_grad)
+
 
 class LambOptimizer(AdamOptimizer):
     """Adam's moments with a layer-wise trust ratio (the ``lamb`` op)."""
@@ -289,6 +368,11 @@ class LambOptimizer(AdamOptimizer):
 
     def _extra_attrs(self):
         return {"weight_decay": self._weight_decay}
+
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        # adam_sparse would silently drop the trust-ratio rule
+        return Optimizer._append_sparse_optimize_op(
+            self, block, param_and_grad)
 
 
 class AdagradOptimizer(Optimizer):

@@ -1987,3 +1987,125 @@ def test_beam_decode_captured_equals_eager_with_an_early_end(cuda):
         if end_id in seq[1:steps + 1]:
             first_end = seq[1:].index(end_id) + 1
             assert all(t == end_id for t in seq[first_end:steps + 1]), seq
+
+
+# --- row-sparse updates and the SSD loss (slice 17) ------------------------
+
+
+def _sparse_case(dev, vocab=1000, dim=16, n=4096, seed=0):
+    """A row-sparse gradient over ``vocab`` rows with duplicated ids, row
+    vocab - 1 and the padding id 3 among them, and the op inputs of each
+    sparse optimizer, on ``dev``."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (n,), generator=g)
+    ids[:6] = torch.tensor([vocab - 1, vocab - 1, 7, 7, 7, 3])
+    d_out = torch.randn(n, dim, generator=g)
+    grad = get_op_def("lookup_table_sparse_grad").compute(
+        {"Ids": [ids.to(dev)], "GRAD::Out": [d_out.to(dev)]},
+        {"vocab_size": vocab, "padding_idx": 3, "squeeze_last": False}, dev)
+    state = {"Param": torch.randn(vocab, dim, generator=g),
+             "Velocity": torch.randn(vocab, dim, generator=g),
+             "Moment1": torch.randn(vocab, dim, generator=g),
+             "Moment2": torch.rand(vocab, dim, generator=g),
+             "Beta1Pow": torch.tensor([0.9]), "Beta2Pow": torch.tensor([0.999]),
+             "LearningRate": torch.tensor([0.01])}
+    ins = {k: [v.to(dev)] for k, v in state.items()}
+    ins["Rows"], ins["Values"] = grad["Rows"], grad["Values"]
+    touched = torch.zeros(vocab, dtype=torch.bool)
+    touched[ids[ids != 3]] = True
+    return ins, touched
+
+
+_SPARSE_OPS = [("adam_sparse", {"beta1": 0.9, "beta2": 0.999,
+                                "epsilon": 1e-8}),
+               ("momentum_sparse", {"mu": 0.9}),
+               ("momentum_sparse", {"mu": 0.9, "use_nesterov": True}),
+               ("sgd_sparse", {})]
+
+
+@pytest.mark.parametrize("op,attrs", _SPARSE_OPS)
+def test_sparse_update_on_the_card_equals_the_cpu(cuda, op, attrs):
+    """The same inputs on the card and the CPU: every output within 1e-6
+    of its largest element (elementwise f32 arithmetic in the same order;
+    the merged sums in one fixed order on both), untouched rows (the
+    padding row among them) bit-unchanged, row vocab - 1 updated."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    cpu = torch.device("cpu")
+    outs = {}
+    for dev in (cuda, cpu):
+        ins, touched = _sparse_case(dev)
+        outs[dev.type] = get_op_def(op).compute(ins, dict(attrs), dev)
+    slot_in = {"ParamOut": "Param", "VelocityOut": "Velocity",
+               "Moment1Out": "Moment1", "Moment2Out": "Moment2"}
+    for slot, (want,) in outs["cpu"].items():
+        (got,) = outs["cuda"][slot]
+        got = got.cpu()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-6 * max(want.abs().max().item(), 1e-30), (slot, err)
+        if slot in slot_in:
+            before = ins[slot_in[slot]][0]
+            assert torch.equal(got[~touched], before[~touched]), slot
+            assert not torch.equal(got[-1], before[-1]), slot
+            assert torch.equal(got[3], before[3]), slot
+
+
+@pytest.mark.parametrize("op,attrs", _SPARSE_OPS[:2])
+def test_sparse_update_repeats_bit_for_bit_on_the_card(cuda, op, attrs):
+    """Two launches of the sparse step at DeepFM's scale (1M rows, 16
+    columns, 4096 x 26 ids) give equal bits: the duplicates are summed in
+    a fixed order and every store into a row carries the same value."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    ins, _ = _sparse_case(cuda, vocab=1_000_000, n=4096 * 26, seed=1)
+    first = get_op_def(op).compute(ins, dict(attrs), cuda)
+    second = get_op_def(op).compute(ins, dict(attrs), cuda)
+    for slot, (a,) in first.items():
+        assert torch.equal(a, second[slot][0]), slot
+
+
+def test_ssd_loss_on_the_card_equals_the_cpu(cuda):
+    """The fused SSD loss and its gradients (autograd through the op's
+    compute, as the derived grad op takes them) on the card against the
+    CPU at SSD-300's gt capacity (50 rows) over 1,000 priors: the loss
+    within 1e-6 relative, the gradients within 1e-5 of their largest
+    element."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    g = torch.Generator().manual_seed(3)
+    n, p, c, gt = 4, 1000, 21, 50
+    lo = torch.rand(p, 2, generator=g) * 0.8
+    prior = torch.cat([lo, lo + 0.05 + torch.rand(p, 2, generator=g) * 0.15],
+                      dim=1)
+    boxes = torch.zeros(n, gt, 4)
+    labels = torch.zeros(n, gt, dtype=torch.int64)
+    for i in range(n):
+        k = 3 + 5 * i
+        pick = torch.randperm(p, generator=g)[:k]
+        boxes[i, :k] = prior[pick] + 0.01 * torch.randn(k, 4, generator=g)
+        labels[i, :k] = torch.randint(1, c, (k,), generator=g)
+    loc = torch.randn(n, p, 4, generator=g)
+    conf = torch.randn(n, p, c, generator=g)
+    pvar = torch.tensor([0.1, 0.1, 0.2, 0.2]).expand(p, 4).contiguous()
+    attrs = {"background_label": 0, "overlap_threshold": 0.5,
+             "neg_pos_ratio": 3.0, "neg_overlap": 0.5,
+             "match_type": "per_prediction", "normalize": True}
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        lv = loc.to(dev).requires_grad_(True)
+        cv = conf.to(dev).requires_grad_(True)
+        with torch.enable_grad():
+            loss = get_op_def("ssd_loss").compute(
+                {"Location": [lv], "Confidence": [cv],
+                 "GtBox": [boxes.to(dev)], "GtLabel": [labels.to(dev)],
+                 "PriorBox": [prior.to(dev)], "PriorBoxVar": [pvar.to(dev)]},
+                attrs, dev)["Loss"][0]
+            loss.sum().backward()
+        res[dev.type] = (loss.detach().cpu(), lv.grad.cpu(), cv.grad.cpu())
+    (l_gpu, dl_gpu, dc_gpu), (l_cpu, dl_cpu, dc_cpu) = res["cuda"], res["cpu"]
+    assert ((l_gpu - l_cpu).abs() <= 1e-6 * l_cpu.abs()).all()
+    for got, want in ((dl_gpu, dl_cpu), (dc_gpu, dc_cpu)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert dl_cpu.abs().max() > 0

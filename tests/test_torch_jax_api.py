@@ -368,6 +368,15 @@ _KEYWORD_CALLS = {
     "log_softmax(axis)": (lambda L, fluid, v: L.log_softmax(
         v["x"], axis=-1), ["x"]),
     "log": (lambda L, fluid, v: L.log(L.abs(v["x"])), ["x"]),
+    "gelu(approximate)": (lambda L, fluid, v: L.gelu(
+        v["x"], approximate=False, name=None), ["x"]),
+    "greater_than(cond)": (lambda L, fluid, v: L.cast(L.greater_than(
+        v["x"], v["y"], cond=None), "float32"), ["x", "y"]),
+    "sigmoid_cross_entropy_with_logits(ignore_index)": (
+        lambda L, fluid, v: L.sigmoid_cross_entropy_with_logits(
+            v["x"], L.sigmoid(v["y"]), ignore_index=-100), ["x", "y"]),
+    "concat(axis)": (lambda L, fluid, v: L.concat([v["x"], v["y"]], axis=1),
+                     ["x", "y"]),
     "create_global_var(force_cpu)": (lambda L, fluid, v: L.elementwise_add(
         v["x"], L.create_global_var([1], 0.5, "float32", True, True,
                                     name="kw_gv")), ["x"]),
@@ -422,12 +431,32 @@ def test_variable_takes_the_jax_kind():
 
 
 def test_embedding_is_sparse_raises_until_ported():
-    """The row-sparse gradient of is_sparse=True is not ported: the layer
-    refuses it rather than train with dense updates."""
+    """The row-sparse gradient of is_sparse=True is ported
+    (ops/sparse_ops.py): the layer builds the JAX package's lookup op,
+    attrs and all, minimize emits the sparse grad op and the optimizer's
+    sparse update, and what the JAX package refuses (here a table that
+    two lookups share) raises in the port too."""
+    ops = []
+    for fluid, layers in ((pfluid, players), (tfluid, tlayers)):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            ids = layers.data("ids", shape=[5], dtype="int64")
+            emb = layers.embedding(ids, [10, 3], is_sparse=True,
+                                   is_distributed=True)
+            fluid.optimizer.SGD(0.1).minimize(layers.mean(emb))
+        ops.append([(o.type, sorted(o.attrs.items()))
+                    for o in main.global_block().ops])
+    assert ops[1] == ops[0]
+    types = [t for t, _ in ops[1]]
+    assert "lookup_table_sparse_grad" in types and "sgd_sparse" in types
     with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
         ids = tlayers.data("ids", shape=[5], dtype="int64")
-        with pytest.raises(NotImplementedError, match="is_sparse"):
-            tlayers.embedding(ids, [10, 3], is_sparse=True)
+        attr = tfluid.ParamAttr(name="shared_sparse.w")
+        e1 = tlayers.embedding(ids, [10, 3], is_sparse=True, param_attr=attr)
+        e2 = tlayers.embedding(ids, [10, 3], is_sparse=True, param_attr=attr)
+        with pytest.raises(ValueError, match="multiple lookups"):
+            tfluid.optimizer.SGD(0.1).minimize(
+                tlayers.mean(tlayers.elementwise_add(e1, e2)))
 
 
 # --- dh > 128 --------------------------------------------------------------

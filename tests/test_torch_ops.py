@@ -333,13 +333,23 @@ DECODE_OP_TYPES = ["beam_gather", "beam_search_step", "dynamic_slice",
                    "transpose2", "while"]
 
 
+# the op types of BERT, DeepFM and SSD (slice 17), each held against the
+# JAX op in tests/test_torch_{bert,sparse,detection}.py
+FAMILY_OP_TYPES = ["adam_sparse", "bipartite_match", "box_coder", "concat",
+                   "gelu", "greater_than", "iou_similarity",
+                   "lookup_table_sparse_grad", "mine_hard_examples",
+                   "momentum_sparse", "multiclass_nms", "prior_box",
+                   "sgd_sparse", "sigmoid_cross_entropy_with_logits",
+                   "ssd_loss", "target_assign"]
+
+
 def test_cases_cover_exactly_the_path_op_types():
     assert sorted({c[0] for c in CASES}) == sorted(
         PATH_OP_TYPES + RECIPE_OP_TYPES + DEPLOY_OP_TYPES)
     assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES
                                       + RECIPE_OP_TYPES + DEPLOY_OP_TYPES
                                       + QUANT_OP_TYPES + PLANES_OP_TYPES
-                                      + DECODE_OP_TYPES)
+                                      + DECODE_OP_TYPES + FAMILY_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):
