@@ -218,7 +218,33 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     on both paths, ``ssd.get_model`` with its detection_output head)
     on the card against the port on the CPU (TOL_FAMILY_*); phase 3
     holds the attention kernels at BERT's shape;
-14. print the kernels' JSON line, the card line, and the result line.
+14. the training runtime (``training_runtime``), a line naming each
+    sub-phase before it runs: (14a) Transformer-base (full width and
+    depth, dropout 0.1, label smoothing 0.1, bf16 AMP through
+    amp.decorate, Adam under noam_decay(512, 4000)) trained through
+    contrib.Trainer from dataset.wmt16 (batch 64, source and target
+    padded to 256, reader.firstn) with prefetch_depth 2 and an async
+    checkpoint every epoch, three epochs of 16 steps: a finite loss every
+    step, the LR equal to noam_decay's closed form, 18 + 18 small-route
+    launches a step and none of any other route, the dropout kernel's
+    launches, the last epoch's ms a step, a replayed step's device ms,
+    idle share, target tokens/s and peak reserved memory, and each save's
+    snapshot ms, background write s, bytes and the next save's wait;
+    (14b) prefetch_depth 0 against 2 in turns on the same path (two
+    epochs of 8 steps) and on bench_pipeline.py's MLP, under its flags:
+    equal losses bit for bit, ms a step, sync / pipelined, the verdict
+    mix; (14c) reader.next fails in epoch 2 with one resume allowed and
+    async saves: the trainer resumes from checkpoint_2 and its final
+    parameters, Adam moments and LR step equal 14a's bit for bit; a
+    ckpt.commit fault leaves checkpoint_3 as latest and valid; (14d) 14a's
+    capture taken with the loader streaming (batches staged ahead, no
+    capture failure), and six small steps captured on the main thread
+    while a DeviceLoader streams to another thread: no capture fails, the
+    loader's copies waited for the captures, captured equal eager; (14e)
+    Executor.train_from_dataset over an InMemoryDataset of text files
+    equals the same batches through Executor.run bit for bit, and
+    release_scope frees the scope's captured steps; bounded to 150 s;
+15. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -4478,6 +4504,575 @@ def families(torch, np, fluid, fa):
     return out
 
 
+# --- phase 14: the training runtime (contrib.Trainer over readers) ---
+
+# 14a: three epochs of 16 steps of the main path, a checkpoint an epoch
+RT_EPOCHS, RT_STEPS = 3, 16
+RT_FEEDS = ["src_ids", "trg_ids", "lbl_ids", "src_pad_mask", "trg_pad_mask"]
+# 14b: turns of two epochs of 8 steps on the Transformer, and
+# bench_pipeline.py's MLP (width 1024, batch 256, 4 fc layers, SGD 0.05,
+# 30 steps x 3 epochs), each under bench_pipeline.py's flags
+RT_TURN_EPOCHS, RT_TURN_STEPS = 2, 8
+MLP_WIDTH, MLP_BATCH, MLP_STEPS, MLP_EPOCHS = 1024, 256, 30, 3
+# noam_decay's warmup steps (the reference transformer's)
+NOAM_WARMUP = 4000
+# 14c: the fault's hit of reader.next, step 5 of epoch 2
+RT_FAIL_HIT = 2 * RT_STEPS + 6
+
+
+def wmt16_reader(np, reader, wmt16, batch, t, steps):
+    """The main path's reader: dataset.wmt16 pairs, each padded to ``t``
+    with its pad masks, ``steps`` batches of ``batch`` (reader.firstn)."""
+    def pad(sample):
+        out = []
+        for a in sample:
+            ids = np.zeros(t, np.int64)
+            ids[:len(a)] = a
+            out.append(ids)
+        out.append((np.arange(t) < len(sample[0])).astype(np.float32))
+        out.append((np.arange(t) < len(sample[1])).astype(np.float32))
+        return tuple(out)
+
+    samples = reader.map_readers(pad, wmt16.train(10000, 10000, max_len=t))
+    return reader.batch(reader.firstn(samples, batch * steps), batch)
+
+
+def _runtime_trainer(fluid, T, contrib, cfg, ckpt=None):
+    """Transformer-base through contrib.Trainer on the card: bf16 AMP
+    (amp.decorate), Adam under noam_decay(d_model, 4000), the LR the
+    trainer's second output. Seeded and built under unique_name.guard(),
+    so two trainers start from the same weights under the same names."""
+    from paddle_tpu_torch import layers
+
+    lr = {}
+
+    def train_func():
+        fluid.default_main_program().random_seed = SEED
+        fluid.default_startup_program().random_seed = SEED
+        model = T.build(cfg)
+        lr["var"] = layers.noam_decay(cfg.d_model, NOAM_WARMUP)
+        return [model["loss"], lr["var"]]
+
+    def optimizer_func():
+        return fluid.amp.decorate(fluid.optimizer.Adam(lr["var"]))
+
+    with fluid.unique_name.guard():
+        return contrib.Trainer(train_func, optimizer_func,
+                               fluid.CUDAPlace(0), checkpoint_config=ckpt)
+
+
+def _mlp_trainer(fluid, contrib):
+    """bench_pipeline.py's MLP through contrib.Trainer on the card."""
+    from paddle_tpu_torch import layers
+
+    def train_func():
+        fluid.default_main_program().random_seed = SEED
+        fluid.default_startup_program().random_seed = SEED
+        x = layers.data("x", shape=[MLP_WIDTH], dtype="float32")
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = x
+        for _ in range(4):
+            h = layers.fc(h, MLP_WIDTH, act="relu")
+        logits = layers.fc(h, 16)
+        return [layers.mean(
+            layers.softmax_with_cross_entropy(logits, label))]
+
+    with fluid.unique_name.guard():
+        return contrib.Trainer(train_func,
+                               lambda: fluid.optimizer.SGD(0.05),
+                               fluid.CUDAPlace(0))
+
+
+def _mlp_reader(np):
+    """bench_pipeline.py's reader: generate and normalize on the host."""
+    def gen():
+        rng = np.random.RandomState(0)
+        for _ in range(MLP_STEPS):
+            x = rng.randn(MLP_BATCH, MLP_WIDTH)
+            x = (x - x.mean(axis=1, keepdims=True)) / (
+                x.std(axis=1, keepdims=True) + 1e-6)
+            yield list(zip(x.astype(np.float32),
+                           rng.randint(0, 16, MLP_BATCH).astype(np.int64)))
+
+    return gen
+
+
+def _noam(np, d_model, step):
+    """noam_decay's closed form in f32, as the graph computes it."""
+    s = np.float32(step)
+    return (np.float32(d_model) ** np.float32(-0.5) * np.minimum(
+        s ** np.float32(-0.5), s * np.float32(NOAM_WARMUP) ** np.float32(-1.5))
+    ).astype(np.float32)
+
+
+def _host_state(torch, np, scope):
+    """A Scope's values on the host: {name: numpy copy}, bf16 as bits."""
+    out = {}
+    for n in scope.var_names():
+        v = scope.find_var(n)
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            if v.dtype == torch.bfloat16:
+                v = v.view(torch.int16)
+            out[n] = v.cpu().numpy().copy()
+        else:
+            out[n] = np.array(v, copy=True)
+    return out
+
+
+def _train_recorded(torch, np, contrib, trainer, epochs, reader, feeds,
+                    handler=None):
+    """``trainer.train`` recording every step's fetches (kept as the
+    trainer returns them, read after the run: a LazyFetches read in the
+    handler would wait for its step) and each epoch's wall; returns
+    ([fetches of each step as floats], {epoch: seconds})."""
+    fetched, walls, t0 = [], {}, [0.0]
+
+    def record(e):
+        if isinstance(e, contrib.BeginEpochEvent):
+            torch.cuda.synchronize()
+            t0[0] = time.perf_counter()
+        elif isinstance(e, contrib.EndStepEvent):
+            fetched.append(e.metrics)
+        elif isinstance(e, contrib.EndEpochEvent):
+            torch.cuda.synchronize()
+            walls[e.epoch] = time.perf_counter() - t0[0]
+        if handler is not None:
+            handler(e)
+
+    trainer.train(epochs, record, reader, feeds,
+                  log_time_attribution=False)
+    rows = [[float(np.asarray(v).reshape(-1)[0]) for v in m]
+            for m in fetched]
+    return rows, walls
+
+
+def _mode_flags(flags, depth):
+    """bench_pipeline.py's two modes: sync phases every step and
+    synchronous staging, or sampled phases and prefetch."""
+    flags.set_flags({"telemetry": True, "step_phases": True,
+                     "step_phases_every_n": 8 if depth else 1,
+                     "prefetch_depth": depth})
+
+
+def _verdict_mix(monitor):
+    c = monitor.counter("pt_step_bound_total")
+    return {v: int(c.value(labels={"verdict": v}))
+            for v in monitor.BOUND_VERDICTS}
+
+
+def runtime_14a(torch, np, fluid, T, fa, ctx, tmp):
+    """14a: the main path, three epochs of 16 steps with an async
+    checkpoint an epoch; returns (row, final host state, launches)."""
+    from paddle_tpu_torch import contrib, flags, kernels
+    from paddle_tpu_torch.benchmarks import timing
+    from paddle_tpu_torch.core.lowering import GATE
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    rd, wmt16, cfg = ctx["reader"], ctx["wmt16"], ctx["cfg"]
+    flags.set_flags({"prefetch_depth": 2})
+    d = os.path.join(tmp, "ckpt_14a")
+    ckpt = contrib.CheckpointConfig(d, max_num_checkpoints=2,
+                                    async_save=True)
+    t0 = time.perf_counter()
+    trainer = _runtime_trainer(fluid, T, contrib, cfg, ckpt)
+    build_s = time.perf_counter() - t0
+    n_drop = sum(op.type == "dropout"
+                 for op in trainer.main_program.global_block().ops)
+    batches = wmt16_reader(np, rd, wmt16, TRAIN_B, TRAIN_T, RT_STEPS)
+    capture = {}
+
+    def at_capture(e):
+        # the second run of the step is the one that captures it
+        if isinstance(e, contrib.BeginStepEvent) and (e.epoch, e.step) == (
+                0, 1):
+            loader = trainer.loader
+            capture["staged_before"] = loader.stats["batches"]
+            capture["worker_alive"] = loader._active[2].is_alive()
+            capture["captures_before"] = GATE.stats()["captures"]
+        elif isinstance(e, contrib.EndStepEvent) and (e.epoch, e.step) == (
+                0, 1):
+            capture["captures_after"] = GATE.stats()["captures"]
+            capture["staged_after"] = trainer.loader.stats["batches"]
+        elif isinstance(e, contrib.EndEpochEvent) and e.epoch == 0:
+            capture["epoch0_loader"] = dict(trainer.loader.stats)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    GATE.reset_stats()
+    rows, walls = _train_recorded(torch, np, contrib, trainer, RT_EPOCHS,
+                                  batches, RT_FEEDS, at_capture)
+    launches = _counts(fa)
+    launches["dropout"] = kernels.launch_counts["dropout"]
+    gate = GATE.stats()
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    n = RT_EPOCHS * RT_STEPS
+    losses = [r[0] for r in rows]
+    lrs = [r[1] for r in rows]
+    assert len(rows) == n and all(np.isfinite(losses)), losses
+    want_lr = [float(_noam(np, cfg.d_model, s + 1)) for s in range(n)]
+    assert np.allclose(lrs, want_lr, rtol=1e-6, atol=0), (lrs, want_lr)
+    step_var = [v for v in trainer.scope.var_names()
+                if v.startswith("learning_rate_sched_step")]
+    assert len(step_var) == 1, step_var
+    assert float(np.asarray(trainer.scope.find_var(step_var[0]).cpu())
+                 .reshape(-1)[0]) == n
+    want = {k: 0 for k in launches}
+    want["small/fwd"] = want["small/bwd"] = 3 * cfg.n_layer * n
+    want["dropout"] = n_drop * n
+    assert launches == want, (launches, want)
+    # 14d's half from this run: the capture, with the loader streaming
+    assert gate["capture_failures"] == 0, gate
+    assert capture["captures_after"] > capture["captures_before"], capture
+    assert capture["worker_alive"], capture
+    # batches 0 and 1 handed out, at least one more staged ahead
+    assert capture["staged_before"] > 2, capture
+    # the capture and a copy of the loader's overlapped: the copy waited
+    # for the capture, or the capture for the copy
+    assert (capture["epoch0_loader"]["gate_waits"]
+            + gate["captures_waited"]) >= 1, (capture, gate)
+    state = _host_state(torch, np, trainer.scope)
+
+    # the trainer's step alone: device ms of one replay, by kernel
+    from paddle_tpu_torch.data_feeder import DataFeeder
+
+    feeder = DataFeeder(
+        [trainer.main_program.global_block().var(k) for k in RT_FEEDS])
+    feed = feeder.feed(next(iter(batches())))
+    expect = {FWD_KERNELS["bfloat16"]: 3.0 * cfg.n_layer,
+              BWD_KERNELS["bfloat16"][0]: 3.0 * cfg.n_layer,
+              BWD_KERNELS["bfloat16"][1]: 3.0 * cfg.n_layer,
+              "dropout_apply_kernel": n_drop}
+    with fluid.scope_guard(trainer.scope):
+        times = timing.device_times(lambda: trainer.exe.run(
+            trainer.main_program, feed=feed,
+            fetch_list=trainer.train_outputs), 2, expect, replay=True)
+    device_ms = sum(times.values())
+    last = RT_EPOCHS - 1
+    step_ms = walls[last] / RT_STEPS * 1e3
+    tokens = sum(float(np.sum([s[4] for s in b])) for b in batches())
+    saves = []
+    for rec in trainer.save_log:
+        path = os.path.join(d, f"checkpoint_{rec['serial']}")
+        saves.append({**rec, "bytes": (_dir_bytes(path)
+                                       if os.path.isdir(path) else None)})
+    assert ck.latest_step(d) == RT_EPOCHS, ck.available_steps(d)
+    assert ck.available_steps(d) == [RT_EPOCHS - 1, RT_EPOCHS]
+    trainer.exe.close()
+    row = {
+        "batch": TRAIN_B, "seq": TRAIN_T, "epochs": RT_EPOCHS,
+        "steps_an_epoch": RT_STEPS, "dropout": cfg.dropout,
+        "build_s": build_s, "losses": losses,
+        "lr_first_last": [lrs[0], lrs[-1]],
+        "epoch_wall_s": [walls[e] for e in range(RT_EPOCHS)],
+        "step_ms": step_ms, "step_device_ms": device_ms,
+        "idle_share": 1 - device_ms / step_ms,
+        "target_tokens_per_s": tokens / walls[last],
+        "peak_reserved_gib": peak_reserved,
+        "launches": launches,
+        "launches_per_step": {k: v / n for k, v in launches.items()},
+        "saves": saves, "gate": gate, "capture": capture,
+        "top_kernels_ms": [[k[:80], v] for k, v in sorted(
+            times.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    return row, state, launches
+
+
+def runtime_14b(torch, np, fluid, T, ctx):
+    """14b: prefetch_depth 0 against 2 in turns (0, 2, 2, 0) on the main
+    path and on bench_pipeline.py's MLP, under bench_pipeline.py's flags:
+    equal losses bit for bit, ms a step over the last epoch, the verdict
+    mix at the end of each turn. One trainer a model: each turn starts
+    from its startup state and executor step 0 (its first turn captures
+    the step; every turn times its last epoch)."""
+    from paddle_tpu_torch import contrib, flags, monitor
+
+    rd, wmt16, cfg = ctx["reader"], ctx["wmt16"], ctx["cfg"]
+    out = {}
+    for name in ("transformer", "mlp"):
+        if name == "transformer":
+            trainer = _runtime_trainer(fluid, T, contrib, cfg)
+            reader = wmt16_reader(np, rd, wmt16, TRAIN_B, TRAIN_T,
+                                  RT_TURN_STEPS)
+            epochs, steps, feeds = RT_TURN_EPOCHS, RT_TURN_STEPS, RT_FEEDS
+        else:
+            trainer = _mlp_trainer(fluid, contrib)
+            reader = _mlp_reader(np)
+            epochs, steps, feeds = MLP_EPOCHS, MLP_STEPS, ["x", "label"]
+        start = {n: trainer.scope.find_var(n).clone()
+                 for n in trainer.scope.var_names()}
+        turns = {0: [], 2: []}
+        ref = None
+        for depth in (0, 2, 2, 0):
+            for n, v in start.items():
+                trainer.scope.set(n, v.clone())
+            trainer.exe._step = 0
+            monitor.reset()
+            _mode_flags(flags, depth)
+            rows, walls = _train_recorded(torch, np, contrib, trainer,
+                                          epochs, reader, feeds)
+            losses = [r[0] for r in rows]
+            if ref is None:
+                ref = losses
+            assert losses == ref, (name, depth, losses, ref)
+            turns[depth].append({
+                "ms_a_step": walls[epochs - 1] / steps * 1e3,
+                "verdicts": _verdict_mix(monitor)})
+        trainer.exe.close()
+        del trainer, start
+        torch.cuda.empty_cache()
+        sync = [t["ms_a_step"] for t in turns[0]]
+        pipe = [t["ms_a_step"] for t in turns[2]]
+        out[name] = {"sync": turns[0], "pipelined": turns[2],
+                     "sync_over_pipelined": (sum(sync) / sum(pipe)),
+                     "losses_equal": True, "steps": len(ref)}
+    flags.set_flags({"telemetry": False, "step_phases_every_n": 16,
+                     "prefetch_depth": 2})
+    monitor.reset()
+    return out
+
+
+def runtime_14c(torch, np, fluid, T, ctx, tmp, want_state, want_losses):
+    """14c: reader.next fails at step 5 of epoch 2 with one resume
+    allowed and async saves on: the Trainer resumes from checkpoint_2 and
+    ends bit-equal to 14a's uninterrupted run; then a ckpt.commit fault
+    leaves checkpoint_3 as the newest valid serial."""
+    from paddle_tpu_torch import contrib, faults, flags
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    rd, wmt16, cfg = ctx["reader"], ctx["wmt16"], ctx["cfg"]
+    flags.set_flags({"prefetch_depth": 2})
+    d = os.path.join(tmp, "ckpt_14c")
+    ckpt = contrib.CheckpointConfig(d, max_num_checkpoints=2,
+                                    max_resume_retries=1, async_save=True)
+    trainer = _runtime_trainer(fluid, T, contrib, cfg, ckpt)
+    batches = wmt16_reader(np, rd, wmt16, TRAIN_B, TRAIN_T, RT_STEPS)
+    faults.arm(f"reader.next:raise@{RT_FAIL_HIT}")
+    try:
+        rows, _ = _train_recorded(torch, np, contrib, trainer, RT_EPOCHS,
+                                  batches, RT_FEEDS)
+    finally:
+        faults.disarm()
+    losses = [r[0] for r in rows]
+    before = (RT_FAIL_HIT - 1)
+    # the run before the fault, then epoch 2 again from checkpoint_2
+    assert losses[:before] == want_losses[:before], "pre-fault losses"
+    assert losses[before:] == want_losses[2 * RT_STEPS:], "resumed losses"
+    state = _host_state(torch, np, trainer.scope)
+    assert sorted(state) == sorted(want_state), (
+        sorted(set(state) ^ set(want_state)))
+    differ = [n for n in state if not np.array_equal(state[n],
+                                                     want_state[n])]
+    assert not differ, differ
+    # a commit fault: the previous serial stays the newest valid one
+    faults.arm("ckpt.commit:raise@1")
+    failed = None
+    try:
+        trainer._save_checkpoint(RT_EPOCHS + 1)
+        trainer._wait_pending_save()
+    except faults.InjectedFault as e:
+        failed = str(e)
+    finally:
+        faults.disarm()
+    assert failed is not None, "the ckpt.commit fault did not fire"
+    latest = ck.latest_step(d)
+    with open(os.path.join(d, "latest")) as f:
+        pointer = int(f.read())
+    assert latest == pointer == RT_EPOCHS, (latest, pointer)
+    assert ck.validate_checkpoint(d, RT_EPOCHS)
+    assert os.path.isdir(os.path.join(d, f"checkpoint_{RT_EPOCHS + 1}.tmp"))
+    trainer.exe.close()
+    return {"fault_hit": RT_FAIL_HIT, "steps_run": len(losses),
+            "resumed_from": 2, "state_vars": len(state),
+            "state_bit_equal": True, "commit_fault": failed,
+            "latest_after_commit_fault": latest, "valid": True}
+
+
+def runtime_14d(torch, np, fluid):
+    """14d's drill: a DeviceLoader streams [64, 256] batches to a
+    consumer thread while the main thread captures small fc steps on
+    fresh executors: no capture fails, the loader's copies wait for the
+    captures, and each captured step equals its eager run."""
+    from paddle_tpu_torch import layers, reader
+    from paddle_tpu_torch.core.lowering import GATE
+
+    def endless():
+        r = np.random.RandomState(SEED)
+        while True:
+            yield {k: r.randint(0, 10000, (TRAIN_B, TRAIN_T)).astype(
+                np.int64) for k in RT_FEEDS}
+
+    loader = reader.DeviceLoader(endless, RT_FEEDS, depth=2,
+                                 place=fluid.CUDAPlace(0))
+    stop, seen = [False], [0]
+
+    def consume():
+        for feed in loader:
+            seen[0] += 1
+            if stop[0]:
+                break
+
+    def three_steps(i, cached):
+        """Three steps of a small fc model from a seeded startup: the
+        first eager, then (``cached``) captured and replayed."""
+        main_prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_prog, startup):
+            x = layers.data("x", shape=[256], dtype="float32")
+            loss = layers.mean(layers.fc(layers.fc(x, 256, act="relu"), 8))
+            fluid.optimizer.SGD(0.1).minimize(loss)
+        startup.random_seed = main_prog.random_seed = SEED + i
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        feed = {"x": np.random.RandomState(i).randn(64, 256).astype(
+            np.float32)}
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            got = [exe.run(main_prog, feed=feed, fetch_list=[loss],
+                           use_program_cache=cached)[0] for _ in range(3)]
+        exe.close()
+        return got
+
+    GATE.reset_stats()
+    thread = __import__("threading").Thread(target=consume, daemon=True)
+    thread.start()
+    try:
+        equal = []
+        for i in range(6):
+            captured = three_steps(i, True)
+            eager = three_steps(i, False)
+            equal.append(all(np.array_equal(a, b)
+                             for a, b in zip(captured, eager)))
+    finally:
+        stop[0] = True
+        thread.join(30)
+    assert not thread.is_alive(), "the consumer thread did not end"
+    loader.close()
+    gate = GATE.stats()
+    assert gate["capture_failures"] == 0, gate
+    assert gate["captures"] >= 6, gate
+    assert all(equal), equal
+    assert loader.stats["gate_waits"] > 0, loader.stats
+    return {"captures": gate["captures"], "capture_failures": 0,
+            "loader": dict(loader.stats), "batches_consumed": seen[0],
+            "longest_capture_wait_s": gate["longest_capture_wait_s"],
+            "captured_equals_eager": equal}
+
+
+def runtime_14e(torch, np, fluid, tmp):
+    """14e: Executor.train_from_dataset over an InMemoryDataset of text
+    files, a small fc model on the card: its losses and final weights
+    equal the same batches through Executor.run, bit for bit."""
+    from paddle_tpu_torch import layers
+
+    r = np.random.RandomState(SEED)
+    files = []
+    for i in range(4):
+        path = os.path.join(tmp, f"part-{i}.txt")
+        with open(path, "w") as f:
+            for _ in range(64):
+                x = r.randn(16)
+                f.write(" ".join(f"{v:.6f}" for v in x)
+                        + f" {int(r.randint(4))}\n")
+        files.append(path)
+
+    def parse(line):
+        vals = line.split()
+        return (np.array(vals[:16], np.float32),
+                np.array(vals[16:], np.int64))
+
+    def build():
+        main_prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_prog, startup), \
+                fluid.unique_name.guard():
+            x = layers.data("x", shape=[16], dtype="float32")
+            y = layers.data("label", shape=[1], dtype="int64")
+            loss = layers.mean(layers.softmax_with_cross_entropy(
+                layers.fc(layers.fc(x, 32, act="relu"), 4), y))
+            fluid.optimizer.SGD(0.1).minimize(loss)
+        startup.random_seed = main_prog.random_seed = SEED
+        return main_prog, startup, x, y, loss
+
+    class Recording(fluid.Executor):
+        """An executor that keeps every run's first fetch."""
+
+        seen = None
+
+        def run(self, *args, **kwargs):
+            out = super().run(*args, **kwargs)
+            if out and self.seen is not None:
+                self.seen.append(np.asarray(out[0]).copy())
+            return out
+
+    results = []
+    for via_dataset in (True, False):
+        main_prog, startup, x, y, loss = build()
+        dataset = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+        dataset.set_filelist(files)
+        dataset.set_batch_size(32)
+        dataset.set_use_var([x, y])
+        dataset.set_parse_fn(parse)
+        dataset.load_into_memory()
+        dataset.set_shuffle_seed(SEED)
+        dataset.local_shuffle()
+        exe, scope = Recording(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            exe.seen = []
+            if via_dataset:
+                steps = exe.train_from_dataset(main_prog, dataset,
+                                               fetch_list=[loss])
+            else:
+                steps = 0
+                for feed in dataset.batch_reader()():
+                    exe.run(main_prog, feed=feed, fetch_list=[loss])
+                    steps += 1
+            weights = {p.name: scope.find_var(p.name).cpu().numpy().copy()
+                       for p in main_prog.all_parameters()}
+        released = exe.release_scope(scope)
+        exe.close()
+        results.append((steps, [float(v) for v in exe.seen], weights,
+                        released))
+    (s1, l1, w1, rel), (s2, l2, w2, _) = results
+    assert s1 == s2 == 8, (s1, s2)
+    assert l1 == l2, (l1, l2)
+    assert all(np.array_equal(w1[n], w2[n]) for n in w1)
+    assert rel >= 1, rel
+    return {"steps": s1, "losses": l1, "bit_equal": True,
+            "runners_released": rel}
+
+
+def training_runtime(torch, np, fluid, T, fa, tmp):
+    """Phase 14: the training runtime on the card, 14a-14e (each sub-phase
+    named on a line before it runs); returns ({key: row}, the main
+    path's launches)."""
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.dataset import wmt16
+
+    ctx = {"reader": reader, "wmt16": wmt16,
+           "cfg": T.TransformerConfig(max_length=TRAIN_T)}
+    out = {}
+    print("phase 14a: Transformer-base through contrib.Trainer from "
+          "dataset.wmt16, prefetch 2, async checkpoints", flush=True)
+    out["14a"], state, launches = runtime_14a(torch, np, fluid, T, fa, ctx,
+                                              tmp)
+    torch.cuda.empty_cache()
+    print("phase 14b: prefetch_depth 0 against 2, in turns", flush=True)
+    out["14b"] = runtime_14b(torch, np, fluid, T, ctx)
+    print("phase 14c: crash in epoch 2, auto-resume, commit fault",
+          flush=True)
+    out["14c"] = runtime_14c(torch, np, fluid, T, ctx, tmp, state,
+                             out["14a"]["losses"])
+    del state
+    torch.cuda.empty_cache()
+    print("phase 14d: captures beside a streaming DeviceLoader", flush=True)
+    out["14d"] = {"main_path": out["14a"]["capture"],
+                  "drill": runtime_14d(torch, np, fluid)}
+    print("phase 14e: Executor.train_from_dataset", flush=True)
+    out["14e"] = runtime_14e(torch, np, fluid, tmp)
+    return out, launches
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -4999,10 +5594,36 @@ def main() -> int:
           f"step); captured = eager bit for bit in all four", flush=True)
 
     phase_done("13")
+
+    # 14. the training runtime: Transformer-base through contrib.Trainer
+    # from dataset.wmt16 with prefetch and async checkpoints (14a), sync
+    # against pipelined (14b), crash and resume (14c), captures beside a
+    # streaming loader (14d), train_from_dataset (14e)
+    with tempfile.TemporaryDirectory() as tmp:
+        rt14, p14 = training_runtime(torch, np, fluid, T, fa, tmp)
+    for key in ("14a", "14b", "14c", "14d", "14e"):
+        print(f"runtime_{key} " + json.dumps(rt14[key]), flush=True)
+    a14, b14 = rt14["14a"], rt14["14b"]
+    print(f"training runtime on {card}: Trainer step "
+          f"{a14['step_ms']:.1f} ms wall, {a14['step_device_ms']:.1f} ms "
+          f"device (idle share {a14['idle_share']:.3f}), "
+          f"{a14['target_tokens_per_s']:.0f} target tokens/s, peak reserved "
+          f"{a14['peak_reserved_gib']:.2f} GiB, beside phase 5's run_steps "
+          f"step {t['step_ms']:.1f} ms wall, {t['step_device_ms']:.1f} ms "
+          f"device; snapshots "
+          f"{[round(s['snapshot_s'] * 1e3, 1) for s in a14['saves']]} ms, "
+          f"background writes "
+          f"{[round(s['write_s'], 2) for s in a14['saves']]} s; sync / "
+          f"pipelined {b14['transformer']['sync_over_pipelined']:.3f} "
+          f"(Transformer), {b14['mlp']['sync_over_pipelined']:.3f} (MLP); "
+          f"resume bit-equal, no capture failure", flush=True)
+
+    phase_done("14")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
     assert phase_s["12"] < 120, phase_s["12"]
     assert phase_s["13"] < 150, phase_s["13"]
+    assert phase_s["14"] < 150, phase_s["14"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
@@ -5031,8 +5652,8 @@ def main() -> int:
         _kernel_entry(
             "flash_attention_bthd_fwd, bf16 fwd_wgmma_kernel (small route)",
             _SRC_FWD, f"{_TPU_FA}:808",
-            t["launches"]["small/fwd"] + p10_recipe["small/fwd"],
-            fwd_main, err(fwd_main)),
+            t["launches"]["small/fwd"] + p10_recipe["small/fwd"]
+            + p14["small/fwd"], fwd_main, err(fwd_main)),
         _kernel_entry(
             "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
             "tiles; small route, serving prefill and beam decode)",
@@ -5043,8 +5664,8 @@ def main() -> int:
         _kernel_entry(
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
             "bwd_dq_wgmma_kernel)", _SRC_BWD, f"{_TPU_FA}:861",
-            t["launches"]["small/bwd"] + p10_recipe["small/bwd"], bwd_main,
-            max(bwd_main["err_dq_dk_dv"])),
+            t["launches"]["small/bwd"] + p10_recipe["small/bwd"]
+            + p14["small/bwd"], bwd_main, max(bwd_main["err_dq_dk_dv"])),
         _kernel_entry(
             "flash_attention_bthd_bwd (f32: bwd_dkdv_tf32_kernel + "
             "bwd_dq_tf32_kernel, 3xTF32 on mma.sync; small route, f32 "
@@ -5081,7 +5702,8 @@ def main() -> int:
             "paddle_tpu_torch/csrc/dropout_mask.cu",
             "no Pallas source: the JAX dropout op draws its mask with "
             "jax.random, paddle_tpu/ops/nn_ops.py:244",
-            t["launches"]["dropout"] + p10_dropout, drop_rows[0], 0.0),
+            t["launches"]["dropout"] + p10_dropout + p14["dropout"],
+            drop_rows[0], 0.0),
         _kernel_entry(
             "dropout_keep_mask (dropout_mask_kernel)",
             "paddle_tpu_torch/csrc/dropout_mask.cu",

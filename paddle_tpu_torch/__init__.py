@@ -8,13 +8,17 @@ Hopper (parallel/flash_attention.py, csrc/). Entry points run on
 ``CUDAPlace(0)`` unless the caller passes ``CPUPlace()``. The serving
 planes (flags, faults, retry, monitor, numerics, serving_trace) are the
 JAX package's, with the card's device reads; ``fleet_serving`` routes
-requests over several supervised replicas on one card.
+requests over several supervised replicas on one card. ``contrib.Trainer``
+trains from readers (``reader``, ``dataset``, ``data_feeder``) with a
+prefetch loader onto the card and crash-consistent checkpoints
+(``parallel.checkpoint``).
 """
 
 from paddle_tpu_torch import (  # noqa: F401
     amp,
     backward,
     clip,
+    dataset_api,
     faults,
     flags,
     fleet_serving,
@@ -22,6 +26,7 @@ from paddle_tpu_torch import (  # noqa: F401
     initializer,
     io,
     layers,
+    metrics,
     monitor,
     numerics,
     optimizer,
@@ -33,6 +38,7 @@ from paddle_tpu_torch import (  # noqa: F401
     slim,
     unique_name,
 )
+from paddle_tpu_torch.dataset_api import DatasetFactory  # noqa: F401
 from paddle_tpu_torch.executor import (  # noqa: F401
     Executor,
     Scope,

@@ -164,6 +164,9 @@ class Scope:
     def find_var(self, name: str):
         return self._vars.get(name)
 
+    def drop(self, name: str):
+        self._vars.pop(name, None)
+
     def var_names(self) -> List[str]:
         return list(self._vars)
 
@@ -301,6 +304,7 @@ class Executor:
 
     def __init__(self, place: Optional[Union[CPUPlace, CUDAPlace]] = None):
         self.device = resolve_device(place)
+        self._place = place
         self._cache: Dict[tuple, lowering.LoweredBlock] = {}
         # Scope -> {(cache key, (feed signature, random_seed)): StepRunner}
         self._runners: "weakref.WeakKeyDictionary[Scope, Dict]" = (
@@ -621,6 +625,63 @@ class Executor:
                 fetches = self._run_step(program, staged[i % len(staged)],
                                          fetch_names, scope)
             return self._format(fetches, return_numpy, async_fetch)
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Drive a Dataset (InMemory/Queue, dataset_api.py) through the
+        program's step (reference: executor.py:846
+        ``train_from_dataset``): a DeviceLoader stages the dataset's
+        batches ``thread``-deep (the dataset's thread count when 0, at
+        least 2) on the executor's device while the step runs. Returns
+        the number of steps run."""
+        if dataset is None:
+            raise ValueError("train_from_dataset needs a dataset")
+        from paddle_tpu_torch.reader.pipeline import DeviceLoader
+
+        fetch_list = list(fetch_list or [])
+        names = self._fetch_names(fetch_list)
+        info = list(fetch_info or names)
+        depth = int(thread or 0) or int(
+            getattr(dataset, "_thread_num", 0) or 0)
+        loader = DeviceLoader(
+            dataset.batch_reader(),
+            feed_names=list(getattr(dataset, "_use_var_names", []) or []),
+            depth=max(2, depth), place=self._place,
+        )
+        steps = 0
+        for feed in loader:
+            fetches = self.run(program, feed=feed, fetch_list=fetch_list,
+                               scope=scope)
+            steps += 1
+            if debug and fetch_list and steps % print_period == 0:
+                msg = ", ".join(
+                    f"{k}={np.asarray(v).ravel()[:4]}"
+                    for k, v in zip(info, fetches))
+                print(f"[train_from_dataset] step {steps}: {msg}")
+        return steps
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Inference twin of ``train_from_dataset`` (reference:
+        executor.py ``infer_from_dataset``): the same drive loop over a
+        program that holds no optimizer ops."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
+
+    def release_scope(self, scope) -> int:
+        """Free the captured steps bound to ``scope`` (their graphs,
+        their share of the pool, their feed buffers) and keep the rest:
+        the per-tenant half of ``close()`` for an executor shared by
+        several engines. The lowered programs are not keyed by scope and
+        stay cached. Returns the number of runners released."""
+        with _GATE.shared():
+            runners = self._runners.pop(scope, None) or {}
+            for runner in runners.values():
+                runner.close()
+        return len(runners)
 
     def close(self):
         """Drop the lowered programs and free every captured graph and

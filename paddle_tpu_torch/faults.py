@@ -3,9 +3,9 @@
 The port's copy of the JAX package's ``faults`` module: the same plan
 grammar, the same ``BUILTIN_SITES`` table and the same seeded streams,
 so one plan string drills both packages alike. Sites whose module the
-port has not yet (checkpoint, fleet, reader, prefetch pipeline, compile
-cache, fleet router) are declared at the end of this module, so arming
-one binds its rules as in the JAX package and the site never fires.
+port has not yet (fleet, compile cache) are declared at the end of this
+module, so arming one binds its rules as in the JAX package and the site
+never fires.
 
 Chaos engineering for the fault-tolerance plane (SURVEY.md section 5):
 production code declares *sites* — module-level
@@ -373,11 +373,9 @@ _flags.watch_flag("fault_seed", _sync_plan)
 # that names one arms it (no "unknown site" surprise, the same records),
 # while nothing in the port hits it. ROADMAP names the item that wires
 # each one.
-UNWIRED_SITES = ("ckpt.write_shards", "ckpt.commit", "ckpt.read",
-                 "fleet.connect", "fleet.kv_get", "fleet.kv_put",
+UNWIRED_SITES = ("fleet.connect", "fleet.kv_get", "fleet.kv_put",
                  "fleet.heartbeat", "fleet.resize", "fleet.join",
-                 "reader.next", "pipeline.prefetch", "ccache.load",
-                 "ccache.store")
+                 "ccache.load", "ccache.store")
 for _name in UNWIRED_SITES:
     site(_name)
 del _name

@@ -10,3 +10,13 @@ from paddle_tpu_torch.layers.control_flow import (  # noqa: F401
     While,
     while_loop,
 )
+from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401
+from paddle_tpu_torch.layers.learning_rate_scheduler import (  # noqa: F401
+    cosine_decay,
+    exponential_decay,
+    inverse_time_decay,
+    natural_exp_decay,
+    noam_decay,
+    piecewise_decay,
+    polynomial_decay,
+)

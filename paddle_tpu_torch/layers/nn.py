@@ -16,7 +16,8 @@ __all__ = [
     "log_softmax", "mean", "accuracy",
     "topk", "softmax_with_cross_entropy", "label_smooth", "elementwise_op",
     "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_pow", "elementwise_max", "reduce_sum",
+    "elementwise_div", "elementwise_pow", "elementwise_max",
+    "elementwise_min", "elementwise_floordiv", "exp", "pow", "reduce_sum",
     "reduce_max", "scale", "cast", "clip", "clip_by_norm", "sums",
     "fill_constant_like", "one_hot", "argmax", "equal", "less_than",
     "logical_and", "logical_not", "where", "reshape", "split", "unsqueeze",
@@ -358,6 +359,14 @@ def log(x, name=None):
     return _single_op("log", x, name=name)
 
 
+def exp(x, name=None):
+    return _single_op("exp", x, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_op("pow", x, attrs={"factor": factor}, name=name)
+
+
 def gelu(x, approximate=False, name=None):
     return _single_op("gelu", x, attrs={"approximate": approximate},
                       name=name)
@@ -493,6 +502,14 @@ def elementwise_pow(x, y, axis=-1, act=None, name=None):
 
 def elementwise_max(x, y, axis=-1, act=None, name=None):
     return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_floordiv", x, y, axis, act, name)
 
 
 def _reduce(op_type, input, dim, keep_dim, name):

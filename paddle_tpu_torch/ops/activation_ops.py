@@ -19,6 +19,14 @@ _unary("abs", torch.abs)
 _unary("sqrt", torch.sqrt)
 _unary("sigmoid", torch.sigmoid)
 _unary("log", torch.log)
+_unary("exp", torch.exp)
+_unary("floor", torch.floor)
+_unary("cos", torch.cos)
+
+
+@register_op("pow")
+def _pow(ins, attrs, device):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 
 
 @register_op("gelu")

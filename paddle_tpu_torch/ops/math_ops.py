@@ -42,6 +42,8 @@ _make_elementwise("elementwise_mul", torch.mul)
 _make_elementwise("elementwise_div", torch.div)
 _make_elementwise("elementwise_pow", torch.pow)
 _make_elementwise("elementwise_max", torch.maximum)
+_make_elementwise("elementwise_min", torch.minimum)
+_make_elementwise("elementwise_floordiv", torch.floor_divide)
 
 
 def _make_compare(name, fn):

@@ -2109,3 +2109,140 @@ def test_ssd_loss_on_the_card_equals_the_cpu(cuda):
     for got, want in ((dl_gpu, dl_cpu), (dc_gpu, dc_cpu)):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     assert dl_cpu.abs().max() > 0
+
+
+# --- the training runtime: the prefetch loader and async checkpoints -------
+
+
+def _fc_step(fluid, seed):
+    from paddle_tpu_torch import layers
+
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup):
+        x = layers.data("x", shape=[128], dtype="float32")
+        loss = layers.mean(layers.fc(layers.fc(x, 128, act="relu"), 4))
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = main_prog.random_seed = seed
+    return main_prog, startup, loss
+
+
+def test_device_loader_streams_while_another_thread_captures(cuda):
+    """A DeviceLoader copies batches to a consumer thread while the main
+    thread captures fresh executors' steps: no capture fails, the
+    loader's copies wait for the captures, and every batch arrives
+    intact (the consumer reads each back under the capture gate)."""
+    import threading
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lowering import GATE
+    from paddle_tpu_torch.reader import DeviceLoader
+
+    def endless():
+        i = 0
+        while True:
+            yield {"a": np.full((64, 256), i, np.int64)}
+            i += 1
+
+    loader = DeviceLoader(endless, ["a"], depth=2, place=fluid.CUDAPlace(0))
+    stop, bad, seen = [False], [], [0]
+
+    def consume():
+        for n, feed in enumerate(loader):
+            # reading a value back is a CUDA call of this thread: under
+            # the gate, as every CUDA call beside a capture must be
+            with GATE.shared():
+                ends = (int(feed["a"][0, 0]), int(feed["a"][-1, -1]))
+            if ends != (n, n):
+                bad.append(n)
+            seen[0] += 1
+            if stop[0]:
+                break
+
+    GATE.reset_stats()
+    t = threading.Thread(target=consume, daemon=True)
+    t.start()
+    try:
+        for i in range(4):
+            main_prog, startup, loss = _fc_step(fluid, 11 + i)
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            feed = {"x": np.random.RandomState(i).randn(32, 128).astype(
+                np.float32)}
+            with fluid.scope_guard(scope):
+                exe.run(startup)
+                for _ in range(3):
+                    exe.run(main_prog, feed=feed, fetch_list=[loss])
+            exe.close()
+    finally:
+        stop[0] = True
+        t.join(30)
+    loader.close()
+    assert not t.is_alive()
+    gate = GATE.stats()
+    assert gate["capture_failures"] == 0 and gate["captures"] >= 4, gate
+    assert loader.stats["gate_waits"] >= 1, loader.stats
+    assert seen[0] > 0 and not bad, (seen, bad[:5])
+
+
+def test_pinned_slot_waits_for_its_copy(cuda):
+    """Large batches through a ring of two pinned slots (depth 1), every
+    batch kept on the card until the end: each holds its own values, so
+    no slot was written again before its copy had read it; and each
+    slot's last event had completed when the slot was written."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.reader import DeviceLoader
+    from paddle_tpu_torch.reader import pipeline
+
+    checked = []
+    real = pipeline._PinnedSlot.buffer
+
+    def buffer(self, name, a):
+        checked.append(self.event is None or self.event.query())
+        return real(self, name, a)
+
+    pipeline._PinnedSlot.buffer = buffer
+    try:
+        def reader():
+            for i in range(12):
+                yield {"x": np.full((2048, 2048), float(i), np.float32)}
+
+        loader = DeviceLoader(reader, ["x"], depth=1,
+                              place=fluid.CUDAPlace(0))
+        kept = [feed["x"] for feed in loader]
+    finally:
+        pipeline._PinnedSlot.buffer = real
+    torch.cuda.synchronize()
+    assert len(kept) == 12 and all(checked) and len(checked) == 12
+    for i, x in enumerate(kept):
+        assert float(x.min()) == float(x.max()) == float(i), i
+
+
+def test_async_save_payload_is_unchanged_by_later_replays(cuda, tmp_path):
+    """An async save of a captured step's state returns after its
+    snapshot; the replays that follow write the state tensors in place
+    while the background thread serializes, and the checkpoint holds the
+    values of the moment of the save."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    main_prog, startup, loss = _fc_step(fluid, 5)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    feed = {"x": np.random.RandomState(0).randn(32, 128).astype(np.float32)}
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(3):  # eager, capture, replay
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        want = {n: scope.find_var(n).detach().cpu().clone()
+                for n in scope.var_names()}
+        handle = ck.save_scope(str(tmp_path), scope, step=1,
+                               async_save=True)
+        for _ in range(20):
+            exe.run(main_prog, feed=feed, fetch_list=[loss])
+        handle.wait()
+        moved = [n for n in want
+                 if not torch.equal(scope.find_var(n).cpu(), want[n])]
+    exe.close()
+    assert moved, "the replays did not change the state"
+    got = ck.load_checkpoint(str(tmp_path))
+    assert sorted(got) == sorted(want)
+    for n, v in want.items():
+        np.testing.assert_array_equal(got[n], v.numpy(), err_msg=n)

@@ -566,3 +566,80 @@ def test_serving_keywords_take_the_jax_order():
 
     assert _params(tinference.Predictor.serving_engine) == _params(
         jinference.Predictor.serving_engine)
+
+
+# --- the training runtime: the JAX keywords in the JAX order -------------
+
+_RUNTIME_NAMES = [
+    ("contrib.trainer", "Trainer"), ("contrib.trainer", "Trainer.train"),
+    ("contrib.trainer", "Trainer.test"),
+    ("contrib.trainer", "Trainer.save_params"),
+    ("contrib.trainer", "Trainer.save_inference_model"),
+    ("contrib.trainer", "CheckpointConfig"),
+    ("data_feeder", "DataFeeder"), ("data_feeder", "DataFeeder.feed"),
+    ("reader.pipeline", "DeviceLoader"), ("reader.pipeline", "PyReader"),
+    ("reader.pipeline", "PyReader.decorate_sample_list_generator"),
+    ("reader.pipeline", "PyReader.decorate_batch_generator"),
+    ("reader", "batch"), ("reader.decorator", "shuffle"),
+    ("reader.decorator", "buffered"), ("reader.decorator", "xmap_readers"),
+    ("reader.decorator", "multiprocess_reader"),
+    ("reader.decorator", "firstn"), ("reader.decorator", "cache"),
+    ("parallel.checkpoint", "save_checkpoint"),
+    ("parallel.checkpoint", "load_checkpoint"),
+    ("parallel.checkpoint", "load_latest"),
+    ("parallel.checkpoint", "latest_step"),
+    ("parallel.checkpoint", "available_steps"),
+    ("parallel.checkpoint", "validate_checkpoint"),
+    ("parallel.checkpoint", "manifest_slots"),
+    ("parallel.checkpoint", "reshard"),
+    ("parallel.checkpoint", "reshard_optimizer_state"),
+    ("parallel.checkpoint", "save_scope"),
+    ("parallel.checkpoint", "restore_scope"),
+    ("parallel.checkpoint", "FleetCommitCoordinator"),
+    ("executor", "Executor.train_from_dataset"),
+    ("executor", "Executor.infer_from_dataset"),
+    ("executor", "Executor.release_scope"),
+    ("dataset_api", "InMemoryDataset.global_shuffle"),
+    ("metrics", "DetectionMAP"), ("metrics", "Auc"),
+    ("metrics", "ChunkEvaluator.update"),
+] + [("layers.learning_rate_scheduler", n) for n in (
+    "noam_decay", "exponential_decay", "natural_exp_decay",
+    "inverse_time_decay", "polynomial_decay", "piecewise_decay",
+    "cosine_decay", "linear_lr_warmup")]
+
+
+def _resolve(package, module, dotted):
+    import importlib
+
+    obj = importlib.import_module(f"{package}.{module}")
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj.__init__ if inspect.isclass(obj) else obj
+
+
+@pytest.mark.parametrize("module,name", _RUNTIME_NAMES,
+                         ids=[f"{m}.{n}" for m, n in _RUNTIME_NAMES])
+def test_runtime_names_take_the_jax_parameters_in_order(module, name):
+    want = _params(_resolve("paddle_tpu", module, name))
+    got = _params(_resolve("paddle_tpu_torch", module, name))
+    assert got[:len(want)] == want, (module, name, want, got)
+
+
+def test_runtime_entry_points_default_to_the_card():
+    """Trainer and DeviceLoader run on CUDAPlace(0) unless given
+    CPUPlace(): without a card their default raises, naming CPUPlace."""
+    from paddle_tpu_torch.contrib import Trainer
+    from paddle_tpu_torch.reader import DeviceLoader
+
+    assert _params(DeviceLoader.__init__)[-1] == "place"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default place is valid")
+
+    def train_func():
+        x = tlayers.data("x", shape=[2], dtype="float32")
+        return [tlayers.mean(tlayers.fc(x, 1))]
+
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        Trainer(train_func, lambda: tfluid.optimizer.SGD(0.1))
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        DeviceLoader(lambda: iter(()), ["x"])

@@ -341,6 +341,9 @@ FAMILY_OP_TYPES = ["adam_sparse", "bipartite_match", "box_coder", "concat",
                    "momentum_sparse", "multiclass_nms", "prior_box",
                    "sgd_sparse", "sigmoid_cross_entropy_with_logits",
                    "ssd_loss", "target_assign"]
+# the learning-rate schedules' ops (their tests: test_torch_lr_schedule.py)
+SCHEDULE_OP_TYPES = ["cos", "elementwise_floordiv", "elementwise_min", "exp",
+                     "floor", "pow"]
 
 
 def test_cases_cover_exactly_the_path_op_types():
@@ -349,7 +352,8 @@ def test_cases_cover_exactly_the_path_op_types():
     assert registered_ops() == sorted(PATH_OP_TYPES + VISION_OP_TYPES
                                       + RECIPE_OP_TYPES + DEPLOY_OP_TYPES
                                       + QUANT_OP_TYPES + PLANES_OP_TYPES
-                                      + DECODE_OP_TYPES + FAMILY_OP_TYPES)
+                                      + DECODE_OP_TYPES + FAMILY_OP_TYPES
+                                      + SCHEDULE_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):

@@ -120,7 +120,8 @@ def test_builtin_sites_are_equal_and_declared():
     wired = {"executor.step", "executor.fetch", "io.export",
              "serve.enqueue", "serve.prefill", "serve.decode",
              "serve.fetch", "router.route", "router.replica_crash",
-             "router.handoff"}
+             "router.handoff", "ckpt.write_shards", "ckpt.commit",
+             "ckpt.read", "reader.next", "pipeline.prefetch"}
     assert set(tfaults.UNWIRED_SITES) == set(tfaults.BUILTIN_SITES) - wired
 
 
