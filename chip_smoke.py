@@ -4156,7 +4156,7 @@ def _family_program(fluid, build, make_opt, amp):
 
 def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
                  amp, items, unit, window=4, equal_steps=3, expect=None,
-                 tables=()):
+                 tables=(), rerun=False, device_turns=2):
     """Phase 13a-c: train one model through Executor.run / run_steps on
     the card. First ``equal_steps`` steps from one startup, two eager
     sequences, one through the step runner (captured from its second
@@ -4168,8 +4168,12 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
     (``expect``: {kernel name part: launches a step} held against it) and
     the attention routes' counters, peak memory. ``tables``: the
     row-sparse tables, whose rows no batch touched (and those rows of
-    their Adam moments) must keep their startup bits. Returns (row, the
-    captured step's traced launches by kernel name)."""
+    their Adam moments) must keep their startup bits. ``rerun``: the
+    device ms an eager step spends in the forwards that derived grad ops
+    re-run (``rerun_share``). ``device_turns``: the turns of each mode
+    that also trace a step's device time (the first ones; a trace of a
+    recurrent model's ~10^4 launches a step takes seconds to read).
+    Returns (row, the captured step's traced launches by kernel name)."""
     from paddle_tpu_torch import kernels
 
     main_prog, startup, model, opt = _family_program(fluid, build,
@@ -4178,8 +4182,17 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
     dev = torch.device("cuda", 0)
     feeds = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
              for f in feeds]
-    same = _same_runs(torch, np, fluid, main_prog, startup, feeds, [loss],
-                      equal_steps)
+    # cuDNN's default f32 backward algorithms for VGG-16's convolutions add
+    # with atomics on the H100 (two eager steps differed by 4.0e-4 in a
+    # loss): the bit check asks for its deterministic ones, the timed turns
+    # below run on the defaults
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        same = _same_runs(torch, np, fluid, main_prog, startup, feeds,
+                          [loss], equal_steps)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     _held_same(same)
     ec, ew = same["eager_vs_captured"], same["eager_vs_run_steps"]
     assert ec["fetch"] == ec["state"] == ew["last_fetch"] == ew["state"] \
@@ -4196,6 +4209,7 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
         exe.run(main_prog, feed=feeds[0], fetch_list=[loss],
                 use_program_cache=False)
         exe.run_steps(main_prog, feeds, 2, [loss])
+        traced = {True: 0, False: 0}
 
         def turn(eager):
             torch.cuda.synchronize()
@@ -4211,28 +4225,33 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k: v / window for k, v in _counts(fa).items()}
+            drops = kernels.launch_counts["dropout"] / window
             assert np.isfinite(value), (name, value)
             assert all(torch.isfinite(scope.find_var(p.name)).all()
                        for p in main_prog.all_parameters()), \
                 (name, "non-finite weights")
-            counts, trace = {}, {}
-            if eager:
-                times = _device_times(lambda: exe.run(
-                    main_prog, feed=feeds[0], fetch_list=[loss],
-                    use_program_cache=False), iters=1, expect=expect,
-                    counts=counts, trace=trace)
-            else:
-                times = _device_times(lambda: exe.run_steps(
-                    main_prog, feeds[:1], 1, [loss]), iters=2,
-                    expect=expect, counts=counts, replay=True, trace=trace)
-            device_ms = sum(times.values())
+            counts, trace, times = {}, {}, None
+            if traced[eager] < device_turns:
+                traced[eager] += 1
+                if eager:
+                    times = _device_times(lambda: exe.run(
+                        main_prog, feed=feeds[0], fetch_list=[loss],
+                        use_program_cache=False), iters=1, expect=expect,
+                        counts=counts, trace=trace)
+                else:
+                    times = _device_times(lambda: exe.run_steps(
+                        main_prog, feeds[:1], 1, [loss]), iters=2,
+                        expect=expect, counts=counts, replay=True,
+                        trace=trace)
+            device_ms = sum(times.values()) if times else None
             step_ms = wall / window * 1e3
             return {"step_ms": step_ms, "step_device_ms": device_ms,
-                    "idle_share": 1 - device_ms / step_ms,
+                    "idle_share": device_ms and 1 - device_ms / step_ms,
                     f"{unit}_per_s": items * window / wall,
                     "last_loss": float(value),
-                    "launches_per_step": sum(counts.values()),
+                    "launches_per_step": times and sum(counts.values()),
                     "attention_launches_per_step": launches,
+                    "dropout_launches_per_step": drops,
                     "trace_let_off": trace, "times": times,
                     "counts": counts}
 
@@ -4249,9 +4268,14 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
                 after = scope.find_var(n)
                 assert torch.equal(after[~hit], before[~hit]), (name, n)
                 assert not torch.equal(after[hit], before[hit]), (name, n)
+        rerun_ms = rerun_share(torch, lambda: exe.run(
+            main_prog, feed=feeds[0], fetch_list=[loss],
+            use_program_cache=False)) if rerun else None
     exe.close()
     cap = turns["captured"][1]
-    times, counts = cap.pop("times"), cap.pop("counts")
+    # the last captured turn that traced the device
+    dev_cap = next(r for r in reversed(turns["captured"]) if r["times"])
+    times, counts = dev_cap["times"], dev_cap["counts"]
     for r in turns["eager"] + turns["captured"]:
         r.pop("times", None)
         r.pop("counts", None)
@@ -4263,11 +4287,13 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
             "steps", "eager_vs_eager", "eager_vs_captured",
             "eager_vs_run_steps", "first_fetch")},
         "window_steps": window, "last_loss": cap["last_loss"],
-        "step_ms": cap["step_ms"], "step_device_ms": cap["step_device_ms"],
-        "idle_share": cap["idle_share"],
+        "step_ms": cap["step_ms"],
+        "step_device_ms": dev_cap["step_device_ms"],
+        "idle_share": 1 - dev_cap["step_device_ms"] / cap["step_ms"],
         f"{unit}_per_s": cap[f"{unit}_per_s"],
-        "launches_per_step": cap["launches_per_step"],
+        "launches_per_step": dev_cap["launches_per_step"],
         "attention_launches_per_step": cap["attention_launches_per_step"],
+        "dropout_launches_per_step": cap["dropout_launches_per_step"],
         "peak_mem_gib": cap["peak_mem_gib"],
         "peak_reserved_gib": cap["peak_reserved_gib"],
         "untouched_rows_bit_equal": untouched,
@@ -4276,8 +4302,13 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
             "launches_per_step", "peak_mem_gib", "peak_reserved_gib",
             "last_loss", "trace_let_off")),
         "device_ms_by_family": _kernel_families(times),
+        "launches_by_family": _kernel_families(counts),
         "top_kernels_ms": [[k[:80], ms] for k, ms in top],
     }
+    if rerun_ms is not None:
+        row["derived_grad_rerun_device_ms"], row["eager_profile_device_ms"] \
+            = rerun_ms
+        row["derived_grad_rerun_share"] = rerun_ms[0] / rerun_ms[1]
     return row, counts
 
 
@@ -5073,6 +5104,378 @@ def training_runtime(torch, np, fluid, T, fa, tmp):
     return out, launches
 
 
+# --- phase 15: the recurrent family and the rest of the benchmark's zoo ---
+
+# benchmarks/fluid_benchmark.py's defaults (:112-118) for the five models it
+# times: batch 32, seq_len 64, Adam 1e-3, f32 (--amp: bf16 AMP); each model
+# at its JAX configuration (:41-75), uncut
+ZOO_B, ZOO_T, ZOO_LR = 32, 64, 1e-3
+# the repeated-batch check: ZOO_REPEATED steps on one batch at ZOO_LR must
+# end below where they began
+ZOO_REPEATED = 6
+# 15c: VGG-16's head feeds the dropout op's kernel [batch, 4096] at p 0.5
+VGG_FC, VGG_DROP = 4096, 0.5
+# 15e: BASELINE.md's published configuration, VGG-16 inference at mb 64
+VGG_INFER_B = 64
+VGG16_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+# 15f: each rnn op in f64 on the card against f64 on the CPU (cuBLAS
+# against the CPU's BLAS, other summation orders): outputs and gradients
+# within 1e-10 of their largest |element|
+TOL_RNN_F64_REL = 1e-10
+# 15f: each model at one or two layers or blocks of its full width
+# against the CPU (family_vs_cpu: phase 13d's tolerances)
+ZOO_CPU_B = 4
+
+
+def vgg16_train_flops_per_step(batch, side=224, classes=1000, fc=4096):
+    """The FLOPs of a VGG-16 training step, a multiply-add two: 3x the
+    forward's convolutions and fc layers."""
+    flops, c = 0, 3
+    for filters, n in VGG16_BLOCKS:
+        for _ in range(n):
+            flops += 2 * side * side * c * filters * 9
+            c = filters
+        side //= 2
+    flops += 2 * (c * side * side * fc + fc * fc + fc * classes)
+    return 3.0 * batch * flops
+
+
+def _zoo_feeds(np, name, batch, n, seed):
+    """``n`` batches of fluid_benchmark.py's synthetic feeds (normal images
+    or pixels, uniform labels) for the vision models."""
+    out = []
+    for s in range(n):
+        r = np.random.RandomState(seed + s)
+        if name == "mnist":
+            out.append({"pixel": r.normal(0, 1, (batch, 784))
+                        .astype(np.float32),
+                        "label": r.randint(0, 10, (batch, 1))
+                        .astype(np.int64)})
+        else:
+            out.append({"data": r.normal(0, 1, (batch, 3, 224, 224))
+                        .astype(np.float32),
+                        "label": r.randint(0, 1000, (batch, 1))
+                        .astype(np.int64)})
+    return out
+
+
+def _falling_loss(torch, np, fluid, build, feed, amp):
+    """Losses of ZOO_REPEATED steps on one batch from a fresh start at
+    Adam(ZOO_LR), the step captured from its second call: finite, the
+    last below the first."""
+    main_prog, startup, model, _ = _family_program(
+        fluid, build, lambda: fluid.optimizer.Adam(ZOO_LR), amp)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        got = [float(exe.run(main_prog, feed=feed,
+                             fetch_list=[model["loss"]])[0])
+               for _ in range(ZOO_REPEATED)]
+    exe.close()
+    assert all(np.isfinite(got)) and got[-1] < got[0], got
+    return got
+
+
+def _zoo_train(torch, np, fluid, fa, name, build, feeds, *, amp,
+               rerun=False):
+    """15a-d: one model trained through Executor.run / run_steps at
+    fluid_benchmark.py's defaults (``train_family``: captured = eager bit
+    for bit over three steps, turns, device ms by family, launches), and
+    its loss falling on a repeated batch."""
+    row, _ = train_family(torch, np, fluid, fa, name, build,
+                          lambda: fluid.optimizer.Adam(ZOO_LR), feeds,
+                          amp=amp, items=ZOO_B, unit="examples", rerun=rerun,
+                          device_turns=1 if rerun else 2)
+    assert not any(row["attention_launches_per_step"].values()), row
+    row["repeated_batch_losses"] = _falling_loss(torch, np, fluid, build,
+                                                 feeds[0], amp)
+    row.update(batch=ZOO_B, lr=ZOO_LR)
+    torch.cuda.empty_cache()
+    return row
+
+
+def _recurrence(row, layers, t):
+    """A recurrent model's row with its launches a layer and time step (a
+    step walks each of its ``layers`` lstm ops' T steps three times:
+    forward, the grad op's re-run, backward)."""
+    row.update(lstm_layers=layers, time_steps=t,
+               launches_per_time_step=row["launches_per_step"] / (layers * t))
+    return row
+
+
+def vgg_inference(torch, np, fluid, V, tmp):
+    """15e: VGG-16's is_test network at 3 x 224 x 224 exported by
+    ``io.save_inference_model`` and served through ``inference.Predictor``
+    at mb 64 (BASELINE.md's configuration), f32 and bf16: logits against
+    the source program's (f32 within TOL_BUCKET_REL, bf16 within
+    TOL_BF16_LOGIT_REL of the largest |logit|), ms a batch over
+    ``Predictor.run`` (numpy in and out; the step captured from its second
+    call), and the device ms of one run."""
+    from paddle_tpu_torch import inference, io
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("data", shape=[3, 224, 224], dtype="float32")
+        logits = V.vgg16(img, class_dim=1000, is_test=True)
+    startup.random_seed = SEED
+    x = _zoo_feeds(np, "vgg", VGG_INFER_B, 1, SEED)[0]["data"]
+    d = os.path.join(tmp, "vgg16")
+    scope, exe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        (ref,) = exe.run(main, feed={"data": x}, fetch_list=[logits])
+        t0 = time.perf_counter()
+        io.save_inference_model(d, ["data"], [logits], exe, main)
+        export_s = time.perf_counter() - t0
+    exe.close()
+    del scope
+    assert np.isfinite(ref).all() and ref.shape == (VGG_INFER_B, 1000)
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        config = inference.Config(d)
+        if dtype == "bfloat16":
+            config.enable_bf16()
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(config)
+        load_s = time.perf_counter() - t0
+        pred.run([x])  # the eager call
+        (got,) = pred.run([x])  # the capture
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            (got,) = pred.run([x])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times = _device_times(lambda: pred.run([x]), iters=2, replay=True)
+        graphs = _graphs(pred._exe)
+        pred.close()
+        err = _rel_err(np, got, ref)
+        tol = TOL_BUCKET_REL if dtype == "float32" else TOL_BF16_LOGIT_REL
+        assert err <= tol, (dtype, err)
+        rows[dtype] = {
+            "ms_a_batch": sorted(walls)[len(walls) // 2],
+            "ms_a_batch_min": min(walls), "walls_ms": walls,
+            "device_ms": sum(times.values()),
+            "images_per_s": VGG_INFER_B / (sorted(walls)[len(walls) // 2]
+                                           / 1e3),
+            "logit_rel_err": err, "tol": tol, "load_s": load_s,
+            "graphs": graphs,
+            "top1_agreement": float((got.argmax(1) == ref.argmax(1)).mean()),
+            "device_ms_by_family": _kernel_families(times)}
+    torch.cuda.empty_cache()
+    return {"batch": VGG_INFER_B, "image": [3, 224, 224], "classes": 1000,
+            "export_s": export_s, "export_bytes": _dir_bytes(d), **rows}
+
+
+def _rnn_op_cases(np):
+    """(name, op type, f64 inputs, attrs): each recurrent op at B 4, T 16,
+    H 32 with lengths (rows of length 0 and T), is_reverse, H0 / C0 and
+    forget_bias among them."""
+    r = np.random.RandomState(SEED)
+    b, t, h = 4, 16, 32
+
+    def f(*shape):
+        return r.normal(0, 0.5, shape)
+
+    lens = np.array([16, 9, 0, 3], np.int64)
+    return [
+        ("lstm", "lstm", {"Input": [f(b, t, 4 * h)],
+                          "Weight": [f(h, 4 * h)], "Bias": [f(4 * h)]},
+         {}),
+        ("lstm lengths H0 C0 forget_bias", "lstm",
+         {"Input": [f(b, t, 4 * h)], "Weight": [f(h, 4 * h)],
+          "Bias": [f(4 * h)], "H0": [f(b, h)], "C0": [f(b, h)],
+          "Length": [lens]}, {"forget_bias": 1.0}),
+        ("lstm lengths reverse", "lstm",
+         {"Input": [f(b, t, 4 * h)], "Weight": [f(h, 4 * h)],
+          "H0": [f(b, h)], "C0": [f(b, h)], "Length": [lens[:, None]]},
+         {"is_reverse": True}),
+        ("gru lengths reverse H0", "gru",
+         {"Input": [f(b, t, 3 * h)], "Weight": [f(h, 3 * h)],
+          "Bias": [f(3 * h)], "H0": [f(b, h)], "Length": [lens]},
+         {"is_reverse": True}),
+        ("gru", "gru", {"Input": [f(b, t, 3 * h)], "Weight": [f(h, 3 * h)]},
+         {}),
+        ("gru_unit", "gru_unit", {"Input": [f(b, 3 * h)],
+                                  "HiddenPrev": [f(b, h)],
+                                  "Weight": [f(h, 3 * h)],
+                                  "Bias": [f(3 * h)]}, {}),
+        ("lstm_unit forget_bias", "lstm_unit",
+         {"X": [f(b, 4 * h)], "C_prev": [f(b, h)]}, {"forget_bias": 1.0}),
+        ("lstmp reverse", "lstmp",
+         {"Input": [f(b, t, 4 * h)], "Weight": [f(16, 4 * h)],
+          "ProjWeight": [f(h, 16)], "Bias": [f(1, 7 * h)]},
+         {"is_reverse": True}),
+    ]
+
+
+def op_and_grads(torch, np, op_type, ins, attrs, dev, seed):
+    """One op's outputs and its derived gradients (``make_grad_compute``)
+    on ``dev`` from numpy inputs ``ins``, for one normal cotangent an
+    output drawn from ``seed``: {slot: numpy array}, outputs and grads."""
+    from paddle_tpu_torch.core import autodiff
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    opdef = get_op_def(op_type)
+    t_ins = {k: [torch.from_numpy(v).to(dev) for v in vs]
+             for k, vs in ins.items()}
+    outs = opdef.compute(t_ins, dict(attrs), dev)
+    r = np.random.RandomState(seed)
+    g_ins = dict(t_ins, **outs)
+    g_ins.update({"GRAD::" + k: [torch.from_numpy(
+        r.normal(0, 1, tuple(v[0].shape))).to(dev)] for k, v in outs.items()})
+    grads = autodiff.make_grad_compute(opdef)(
+        g_ins, dict(attrs, fwd_input_slots=list(ins),
+                    fwd_output_slots=list(outs)), dev)
+    return {k: v[0].cpu().numpy()
+            for k, v in list(outs.items()) + list(grads.items())
+            if v and v[0] is not None}
+
+
+def rnn_ops_vs_cpu(torch, np):
+    """15f: each recurrent op's outputs and derived gradients (one f64
+    cotangent an output) on the card against the CPU, in f64."""
+    rows = {}
+    for name, op, ins, attrs in _rnn_op_cases(np):
+        gpu, cpu = (op_and_grads(torch, np, op, ins, attrs, dev, SEED + 1)
+                    for dev in (torch.device("cuda", 0), torch.device("cpu")))
+        assert sorted(gpu) == sorted(cpu), (name, sorted(gpu), sorted(cpu))
+        errs = {k: _rel_err(np, gpu[k], cpu[k]) for k in cpu}
+        assert max(errs.values()) <= TOL_RNN_F64_REL, (name, errs)
+        rows[name] = {"max_rel_err": max(errs.values()),
+                      "values": len(errs)}
+    return {"dtype": "float64", "tol_rel": TOL_RNN_F64_REL, "ops": rows}
+
+
+def _vgg_blocks(fluid, V, blocks, side, fc_dim):
+    """VGG's first ``blocks`` conv blocks at their full widths over
+    3 x side x side images and its fc head (``fc_dim``, no dropout)."""
+    layers = fluid.layers
+    img = layers.data("data", shape=[3, side, side], dtype="float32")
+    label = layers.data("label", shape=[1], dtype="int64")
+    x = img
+    for filters, n in VGG16_BLOCKS[:blocks]:
+        x = V.conv_block(x, filters, n)
+    for _ in range(2):
+        x = layers.fc(x, fc_dim, act="relu")
+    logits = layers.fc(x, 1000)
+    return {"loss": layers.mean(layers.softmax_with_cross_entropy(logits,
+                                                                  label))}
+
+
+def zoo(torch, np, fluid, fa, tmp):
+    """Phase 15: stacked_dynamic_lstm (15a), machine_translation (15b),
+    VGG-16 f32 and bf16 (15c, with the dropout op's kernel held against
+    its plain version at its head's shape), MNIST conv and MLP (15d)
+    trained on the card at fluid_benchmark.py's defaults; VGG-16 served
+    through the Predictor at mb 64 (15e); the rnn ops and each model at
+    one or two layers against the CPU (15f). Returns {sub-phase: row}; a
+    line names each sub-phase before it runs, and its ``zoo_`` line
+    follows."""
+    from paddle_tpu_torch.models import mnist as MN
+    from paddle_tpu_torch.models import seq2seq as S2S
+    from paddle_tpu_torch.models import stacked_lstm as SL
+    from paddle_tpu_torch.models import vgg as V
+    from paddle_tpu_torch.ops import nn_ops
+
+    out = {"t0": time.perf_counter()}
+
+    def done(key, row):
+        row["at_s"] = time.perf_counter() - out["t0"]
+        out[key] = row
+        print(f"zoo_{key} " + json.dumps(row), flush=True)
+
+    print("phase 15a: stacked_dynamic_lstm (vocab 5148, 3 x (fc + lstm "
+          "128), seq_len 64, batch 32)", flush=True)
+    scfg = SL.StackedLSTMConfig(max_len=ZOO_T)
+    row = _zoo_train(torch, np, fluid, fa, "stacked_dynamic_lstm",
+                     lambda: SL.build(scfg),
+                     [SL.make_batch(scfg, ZOO_B, seed=SEED + s)
+                      for s in range(4)], amp=False, rerun=True)
+    done("15a", _recurrence(row, scfg.stacked_num, ZOO_T))
+
+    print("phase 15b: machine_translation (vocab 2000, 2 + 2 lstm 256, "
+          "dot attention, src and trg 64, batch 32)", flush=True)
+    mcfg = S2S.Seq2SeqConfig()
+    row = _zoo_train(torch, np, fluid, fa, "machine_translation",
+                     lambda: S2S.build(mcfg),
+                     [S2S.make_batch(mcfg, ZOO_B, ZOO_T, ZOO_T,
+                                     seed=SEED + s) for s in range(4)],
+                     amp=False, rerun=True)
+    done("15b", _recurrence(row, 2 * mcfg.num_layers, ZOO_T))
+
+    vfeeds = _zoo_feeds(np, "vgg", ZOO_B, 4, SEED)
+    flops = vgg16_train_flops_per_step(ZOO_B)
+    for amp in (False, True):
+        tag = "bf16" if amp else "f32"
+        print(f"phase 15c: VGG-16 {tag} (3 x 224 x 224, 1000 classes, "
+              f"batch 32)", flush=True)
+        row = _zoo_train(torch, np, fluid, fa, f"vgg16_{tag}",
+                         lambda: V.get_model(batch_size=ZOO_B), vfeeds,
+                         amp=amp)
+        peak = PEAK_FLOPS["bfloat16"]["bf16 tensor cores"] if amp else \
+            PEAK_FLOPS["float32"]["f32 CUDA cores"]
+        row.update(train_tflop_per_step=flops / 1e12,
+                   peak_share=flops / (row["step_ms"] * 1e-3) / peak,
+                   peak_tflop_s=peak / 1e12)
+        # the head's two dropout ops, each a launch of the dropout op's
+        # kernel on [batch, 4096] in the step's activation dtype; the
+        # kernel held bit for bit against its plain version there
+        assert row["dropout_launches_per_step"] == 2, row
+        row["dropout_op"] = check_dropout_op(
+            nn_ops, (ZOO_B, VGG_FC), torch.bfloat16 if amp else torch.float32,
+            VGG_DROP)
+        done(f"15c_{tag}", row)
+    del vfeeds
+
+    mfeeds = _zoo_feeds(np, "mnist", ZOO_B, 4, SEED)
+    for use_conv in (True, False):
+        tag = "conv" if use_conv else "mlp"
+        print(f"phase 15d: MNIST {tag} (batch 32)", flush=True)
+        done(f"15d_{tag}", _zoo_train(
+            torch, np, fluid, fa, f"mnist_{tag}",
+            lambda: MN.get_model(batch_size=ZOO_B, use_conv=use_conv),
+            mfeeds, amp=False))
+
+    print("phase 15e: VGG-16 inference through the Predictor at mb 64, "
+          "f32 and bf16", flush=True)
+    done("15e", vgg_inference(torch, np, fluid, V, tmp))
+
+    print("phase 15f: the rnn ops in f64 and each model at one or two "
+          "layers, the card against the CPU", flush=True)
+    done("15f_ops", rnn_ops_vs_cpu(torch, np))
+    c = SL.StackedLSTMConfig(stacked_num=2, max_len=ZOO_T)
+    done("15f_stacked_lstm", family_vs_cpu(
+        torch, np, fluid, "stacked_lstm_2_blocks", lambda: SL.build(c),
+        lambda: fluid.optimizer.Adam(ZOO_LR),
+        [SL.make_batch(c, ZOO_CPU_B, seed=SEED + s) for s in range(2)],
+        ["slstm_emb.w@GRAD", "slstm_fc0.w@GRAD", "slstm_lstm0.w@GRAD",
+         "slstm_lstm1.w@GRAD", "slstm_out.w@GRAD"]))
+    c = S2S.Seq2SeqConfig(num_layers=1)
+    done("15f_seq2seq", family_vs_cpu(
+        torch, np, fluid, "seq2seq_1_layer", lambda: S2S.build(c),
+        lambda: fluid.optimizer.Adam(ZOO_LR),
+        [S2S.make_batch(c, ZOO_CPU_B, ZOO_T, ZOO_T, seed=SEED + s)
+         for s in range(2)],
+        ["src_emb.w@GRAD", "enc_l0_hh.w@GRAD", "dec_l0_hh.w@GRAD",
+         "attn_merge.w@GRAD", "proj.w@GRAD"]))
+    done("15f_vgg", family_vs_cpu(
+        torch, np, fluid, "vgg16_2_blocks",
+        lambda: _vgg_blocks(fluid, V, 2, 64, 512),
+        lambda: fluid.optimizer.Adam(ZOO_LR),
+        [{"data": f["data"][:, :, :64, :64].copy(), "label": f["label"]}
+         for f in _zoo_feeds(np, "vgg", ZOO_CPU_B, 2, SEED)],
+        ["conv2d_0.w_0@GRAD", "conv2d_3.w_0@GRAD", "fc_0.w_0@GRAD",
+         "fc_2.w_0@GRAD"]))
+    done("15f_mnist", family_vs_cpu(
+        torch, np, fluid, "mnist_conv",
+        lambda: MN.get_model(batch_size=ZOO_CPU_B, use_conv=True),
+        lambda: fluid.optimizer.Adam(ZOO_LR),
+        _zoo_feeds(np, "mnist", ZOO_CPU_B, 2, SEED),
+        ["conv2d_0.w_0@GRAD", "conv2d_1.w_0@GRAD", "fc_0.w_0@GRAD"]))
+    out["seconds"] = time.perf_counter() - out.pop("t0")
+    return out
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -5619,11 +6022,35 @@ def main() -> int:
           f"resume bit-equal, no capture failure", flush=True)
 
     phase_done("14")
+
+    # 15. the recurrent family and the rest of the benchmark's zoo:
+    # stacked_dynamic_lstm (15a), machine_translation (15b), VGG-16 f32 and
+    # bf16 (15c), MNIST (15d) trained; VGG-16 served at mb 64 (15e); the
+    # rnn ops and each model small against the CPU (15f)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo15 = zoo(torch, np, fluid, fa, tmp)
+    a15, b15, e15 = zoo15["15a"], zoo15["15b"], zoo15["15e"]
+    print(f"benchmark zoo on {card}: stacked_dynamic_lstm "
+          f"{a15['examples_per_s']:.0f} examples/s ({a15['step_ms']:.2f} ms "
+          f"a step, {a15['launches_per_step']:.0f} launches); "
+          f"machine_translation {b15['examples_per_s']:.0f} examples/s "
+          f"({b15['step_ms']:.2f} ms, {b15['launches_per_step']:.0f} "
+          f"launches); VGG-16 {zoo15['15c_f32']['examples_per_s']:.1f} / "
+          f"{zoo15['15c_bf16']['examples_per_s']:.1f} images/s f32 / bf16; "
+          f"MNIST {zoo15['15d_conv']['examples_per_s']:.0f} / "
+          f"{zoo15['15d_mlp']['examples_per_s']:.0f} examples/s conv / "
+          f"MLP; VGG-16 Predictor at mb 64 "
+          f"{e15['float32']['ms_a_batch']:.2f} / "
+          f"{e15['bfloat16']['ms_a_batch']:.2f} ms a batch f32 / bf16; "
+          f"captured = eager bit for bit in all six", flush=True)
+
+    phase_done("15")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
     assert phase_s["12"] < 120, phase_s["12"]
     assert phase_s["13"] < 150, phase_s["13"]
     assert phase_s["14"] < 150, phase_s["14"]
+    assert phase_s["15"] < 150, phase_s["15"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]

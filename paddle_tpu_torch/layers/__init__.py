@@ -3,6 +3,7 @@
 from paddle_tpu_torch.layers.io import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.nn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.tensor import *  # noqa: F401,F403
+from paddle_tpu_torch.layers.rnn import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.more import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import detection  # noqa: F401
 from paddle_tpu_torch.layers.detection import *  # noqa: F401,F403

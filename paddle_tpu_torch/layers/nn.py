@@ -23,7 +23,12 @@ __all__ = [
     "logical_and", "logical_not", "where", "reshape", "split", "unsqueeze",
     "scatter", "increment", "transpose", "squeeze", "expand", "gelu",
     "greater_than", "sigmoid_cross_entropy_with_logits", "concat",
-    "multiclass_nms",
+    "multiclass_nms", "tanh", "square", "softplus", "softsign", "relu6",
+    "swish", "hard_swish", "hard_sigmoid", "elu", "leaky_relu",
+    "square_error_cost", "matmul", "reduce_mean", "reduce_min",
+    "reduce_prod", "flatten", "sequence_pool", "sequence_softmax",
+    "sequence_mask", "sequence_reverse", "sequence_expand", "im2sequence",
+    "sequence_conv", "add_position_encoding",
 ]
 
 
@@ -372,6 +377,32 @@ def gelu(x, approximate=False, name=None):
                       name=name)
 
 
+def _make_act(name):
+    """A layer of one activation op whose keywords (but ``name``) are its
+    attrs, as the JAX package's ``_make_act`` layers are."""
+    def _act(x, **kwargs):
+        attrs = {k: v for k, v in kwargs.items() if k != "name"}
+        return _single_op(name, x, attrs=attrs, name=kwargs.get("name"))
+
+    _act.__name__ = name
+    return _act
+
+
+tanh = _make_act("tanh")
+square = _make_act("square")
+softplus = _make_act("softplus")
+softsign = _make_act("softsign")
+relu6 = _make_act("relu6")
+swish = _make_act("swish")
+hard_swish = _make_act("hard_swish")
+hard_sigmoid = _make_act("hard_sigmoid")
+elu = _make_act("elu")
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _single_op("leaky_relu", x, attrs={"alpha": alpha}, name=name)
+
+
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     """``use_cudnn`` is taken for the JAX package's signature and changes
     nothing, as there."""
@@ -415,6 +446,14 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
         outputs={"Out": out},
         attrs={"ignore_index": ignore_index},
     )
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("square_error_cost", inputs={"X": input, "Label": label},
+                     outputs={"Out": out})
     return out
 
 
@@ -468,6 +507,16 @@ def topk(input, k, name=None):
 
 def mean(x, name=None):
     return _single_op("mean", x, name=name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        "matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    return out
 
 
 
@@ -525,8 +574,20 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_sum", input, dim, keep_dim, name)
 
 
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
 def reduce_max(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -713,6 +774,14 @@ def expand(x, expand_times, name=None):
                       attrs={"expand_times": list(expand_times)}, name=name)
 
 
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("flatten2", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
 def scatter(input, index, updates, name=None, overwrite=True):
     helper = LayerHelper("scatter", name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
@@ -742,3 +811,104 @@ def multiclass_nms(bboxes, scores, score_threshold=0.0, nms_top_k=64,
                "keep_top_k": keep_top_k, "nms_threshold": nms_threshold,
                "background_label": background_label})
     return out
+
+
+# --- sequence (padded [B, T, ...] + Length; see ops/sequence_ops.py) ---
+
+
+def sequence_pool(input, pool_type, length=None):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("sequence_pool", inputs=inputs, outputs={"Out": out},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_softmax(input, length=None, use_cudnn=False, name=None):
+    """``use_cudnn`` is taken for the JAX package's signature and changes
+    nothing, as there."""
+    helper = LayerHelper("sequence_softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": input}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("sequence_softmax", inputs=inputs, outputs={"Out": out})
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """Needs a static ``maxlen``: the op raises without one, as the JAX
+    op does."""
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        "sequence_mask", inputs={"X": x}, outputs={"Y": out},
+        attrs={"maxlen": maxlen if maxlen is not None else -1,
+               "out_dtype": dtype})
+    return out
+
+
+def sequence_reverse(x, length=None, name=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": x}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op("sequence_reverse", inputs=inputs, outputs={"Y": out})
+    return out
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    """``ref_level`` is taken for the JAX package's signature: the padded
+    layout has one level, as there."""
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("sequence_expand", inputs={"X": x, "Y": y},
+                     outputs={"Out": out})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """VALID patches as steps; ``padding``, ``input_image_size`` and
+    ``out_stride`` are taken for the JAX package's signature and change
+    nothing, as there."""
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "im2sequence", inputs={"X": input}, outputs={"Out": out},
+        attrs={"kernels": _two(filter_size), "strides": _two(stride)})
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, param_attr=None, bias_attr=None, act=None,
+                  name=None):
+    """Context-window convolution over padded [b, t, d] sequences (a
+    window of ``filter_size`` steps centred on each step); the filter is
+    [filter_size * d, num_filters]. ``filter_stride`` and ``padding`` are
+    taken for the JAX package's signature and change nothing, as there."""
+    helper = LayerHelper("sequence_conv", name=name, bias_attr=bias_attr,
+                         act=act)
+    d = input.shape[-1]
+    w = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=[filter_size * d, num_filters],
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "sequence_conv", inputs={"X": input, "Filter": w},
+        outputs={"Out": out},
+        attrs={"contextLength": filter_size,
+               "contextStart": -(filter_size // 2)})
+    out = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(out)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _single_op("add_position_encoding", input,
+                      attrs={"alpha": float(alpha), "beta": float(beta)},
+                      name=name)

@@ -11,6 +11,8 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     nn_ops,
     optimizer_ops,
     quant_ops,
+    rnn_ops,
+    sequence_ops,
     serving_ops,
     sparse_ops,
     tensor_ops,

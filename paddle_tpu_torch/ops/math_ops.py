@@ -82,6 +82,27 @@ def _mul(ins, attrs, device):
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:])]}
 
 
+@register_op("matmul", doc="batched matmul w/ transpose flags (matmul_op.cc)")
+def _matmul(ins, attrs, device):
+    """``torch.matmul`` with batch dims broadcast, after the JAX op's 1-D
+    rule: a 1-D X is a row [1, n], a 1-D Y a column [n, 1], and the
+    product keeps those dims (it is not squeezed back)."""
+    x, y = _x(ins), _x(ins, "Y")
+    if x.dim() == 1:
+        x = x[None, :]
+    if y.dim() == 1:
+        y = y[:, None]
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
 @register_op("sum", doc="add N tensors (sum_op.cc)")
 def _sum(ins, attrs, device):
     xs = ins["X"]
@@ -105,18 +126,27 @@ def _reduce_dims(x, attrs):
     return tuple(d % x.dim() for d in dims), attrs.get("keep_dim", False)
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ins, attrs, device):
-    x = _x(ins)
-    dims, keep = _reduce_dims(x, attrs)
-    return {"Out": [torch.sum(x, dim=dims, keepdim=keep)]}
+def _prod(x, dim, keepdim):
+    """``torch.prod`` over several dims (it takes one at a time)."""
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, d, keepdim=keepdim)
+    return x
 
 
-@register_op("reduce_max")
-def _reduce_max(ins, attrs, device):
-    x = _x(ins)
-    dims, keep = _reduce_dims(x, attrs)
-    return {"Out": [torch.amax(x, dim=dims, keepdim=keep)]}
+def _make_reduce(name, fn):
+    @register_op(name)
+    def _compute(ins, attrs, device, fn=fn):
+        x = _x(ins)
+        dims, keep = _reduce_dims(x, attrs)
+        return {"Out": [fn(x, dim=dims, keepdim=keep)]}
+
+
+_make_reduce("reduce_sum", torch.sum)
+_make_reduce("reduce_mean", torch.mean)
+# amax / amin split a tie's gradient evenly, as jnp.max / jnp.min do
+_make_reduce("reduce_max", torch.amax)
+_make_reduce("reduce_min", torch.amin)
+_make_reduce("reduce_prod", _prod)
 
 
 @register_op("increment")

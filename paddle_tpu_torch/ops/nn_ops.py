@@ -297,6 +297,11 @@ def _sigmoid_ce(ins, attrs, device):
     return {"Out": [loss]}
 
 
+@register_op("square_error_cost", diff_inputs=("X", "Label"))
+def _square_error_cost(ins, attrs, device):
+    return {"Out": [torch.square(_x(ins) - _x(ins, "Label"))]}
+
+
 @register_op("label_smooth", diff_inputs=("X",))
 def _label_smooth(ins, attrs, device):
     x = _x(ins)

@@ -11,6 +11,8 @@ by re-drawing them.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -78,6 +80,15 @@ def _reshape2(ins, attrs, device):
     # Fluid semantics: 0 copies the input dim, -1 infers (reshape_op.cc).
     shape = [x.shape[i] if d == 0 else d for i, d in enumerate(attrs["shape"])]
     return {"Out": [x.reshape(shape)], "XShape": []}
+
+
+@register_op("flatten2")
+def _flatten2(ins, attrs, device):
+    """[prod(dims before axis), prod(the rest)]; axis 0 gives [1, n]."""
+    x = _x(ins)
+    axis = attrs.get("axis", 1)
+    lead = math.prod(x.shape[:axis]) if axis else 1
+    return {"Out": [x.reshape(lead, -1)], "XShape": []}
 
 
 @register_op("concat")

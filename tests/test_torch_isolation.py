@@ -73,7 +73,14 @@ def test_every_module_of_the_port_is_scanned():
                 "paddle_tpu_torch/dataset/sentiment.py",
                 "paddle_tpu_torch/dataset/uci_housing.py",
                 "paddle_tpu_torch/dataset/wmt14.py",
-                "paddle_tpu_torch/dataset/wmt16.py", "chip_smoke.py"):
+                "paddle_tpu_torch/dataset/wmt16.py",
+                "paddle_tpu_torch/ops/rnn_ops.py",
+                "paddle_tpu_torch/ops/sequence_ops.py",
+                "paddle_tpu_torch/layers/rnn.py",
+                "paddle_tpu_torch/models/mnist.py",
+                "paddle_tpu_torch/models/vgg.py",
+                "paddle_tpu_torch/models/stacked_lstm.py",
+                "paddle_tpu_torch/models/seq2seq.py", "chip_smoke.py"):
         assert rel in scanned, rel
 
 
@@ -114,7 +121,9 @@ for name in ("benchmarks.conv_bwd", "benchmarks.grouped_conv",
              "inference", "ops.quant_ops", "slim.quantization",
              "slim.calibration", "slim.prune", "slim.distill", "flags",
              "faults", "retry", "monitor", "numerics", "serving_trace",
-             "profiler"):
+             "profiler", "ops.rnn_ops", "ops.sequence_ops", "layers.rnn",
+             "models.mnist", "models.vgg", "models.stacked_lstm",
+             "models.seq2seq"):
     assert "paddle_tpu_torch." + name in sys.modules, name
 print("isolated", len([n for n in sys.modules
                        if n.startswith("paddle_tpu_torch")]))

@@ -380,6 +380,101 @@ _KEYWORD_CALLS = {
     "create_global_var(force_cpu)": (lambda L, fluid, v: L.elementwise_add(
         v["x"], L.create_global_var([1], 0.5, "float32", True, True,
                                     name="kw_gv")), ["x"]),
+    # the activations, reductions, sequence and recurrent layers, each
+    # with every keyword the JAX layer takes
+    "tanh(name)": (lambda L, fluid, v: L.tanh(v["x"], name="kw_tanh"),
+                   ["x"]),
+    "square, softplus, softsign, relu6": (lambda L, fluid, v: L.relu6(
+        L.softsign(L.softplus(L.square(v["x"])))), ["x"]),
+    "swish(beta), hard_swish(threshold, scale, offset)": (
+        lambda L, fluid, v: L.hard_swish(L.swish(v["x"], beta=1.5),
+                                         threshold=5.0, scale=4.0,
+                                         offset=2.0), ["x"]),
+    "hard_sigmoid(slope, offset), elu(alpha)": (
+        lambda L, fluid, v: L.elu(L.hard_sigmoid(v["x"], slope=0.3,
+                                                 offset=0.4), alpha=0.5),
+        ["x"]),
+    "leaky_relu(alpha, name)": (lambda L, fluid, v: L.leaky_relu(
+        v["x"], alpha=0.1, name=None), ["x"]),
+    "brelu, soft_relu, stanh, selu": (lambda L, fluid, v: L.selu(L.stanh(
+        L.soft_relu(L.brelu(v["x"], t_min=-1.0, t_max=1.0, name=None),
+                    threshold=30.0), scale_a=0.5, scale_b=1.5),
+        scale=None, alpha=None), ["x"]),
+    "matmul(transpose_x, transpose_y, alpha)": (lambda L, fluid, v: L.matmul(
+        v["x"], v["y"], transpose_x=False, transpose_y=True, alpha=0.5,
+        name=None), ["x", "y"]),
+    "reduce_mean, reduce_min, reduce_prod(dim, keep_dim)": (
+        lambda L, fluid, v: L.elementwise_add(
+            L.reduce_mean(v["x"], dim=1, keep_dim=True, name=None),
+            L.elementwise_mul(L.reduce_min(v["x"], dim=[1], keep_dim=True),
+                              L.reduce_prod(v["y"], dim=1, keep_dim=True))),
+        ["x", "y"]),
+    "square_error_cost(input, label)": (lambda L, fluid, v:
+                                        L.square_error_cost(
+                                            input=v["x"], label=v["y"]),
+                                        ["x", "y"]),
+    "flatten(axis)": (lambda L, fluid, v: L.flatten(v["s"], axis=2,
+                                                    name=None), ["s"]),
+    "sequence_pool(pool_type, length)": (lambda L, fluid, v:
+                                         L.sequence_pool(
+                                             v["s"], pool_type="sqrt",
+                                             length=v["n"]), ["s", "n"]),
+    "sequence_softmax(length, use_cudnn)": (
+        lambda L, fluid, v: L.sequence_softmax(
+            v["x"], length=v["n"], use_cudnn=True, name=None), ["x", "n"]),
+    "sequence_mask(maxlen, dtype)": (lambda L, fluid, v: L.sequence_mask(
+        v["n"], maxlen=6, dtype="float32", name=None), ["n"]),
+    "sequence_reverse(length)": (lambda L, fluid, v: L.sequence_reverse(
+        v["s"], length=v["n"], name=None), ["s", "n"]),
+    "sequence_expand(ref_level)": (lambda L, fluid, v: L.sequence_expand(
+        v["x"], v["s"], ref_level=-1, name=None), ["x", "s"]),
+    "im2sequence(filter_size, stride, padding, ...)": (
+        lambda L, fluid, v: L.im2sequence(
+            L.unsqueeze(v["s"], [1]), filter_size=2, stride=[1, 2],
+            padding=0, input_image_size=None, out_stride=1, name=None),
+        ["s"]),
+    "sequence_conv(filter_size, filter_stride, padding, ...)": (
+        lambda L, fluid, v: L.sequence_conv(
+            v["s"], 3, filter_size=3, filter_stride=1, padding=True,
+            param_attr=fluid.ParamAttr(name="kw_sc.w"),
+            bias_attr=fluid.ParamAttr(name="kw_sc.b"), act="tanh",
+            name=None), ["s"]),
+    "add_position_encoding(alpha, beta)": (
+        lambda L, fluid, v: L.add_position_encoding(v["s"], alpha=0.5,
+                                                    beta=2.0, name=None),
+        ["s"]),
+    "dynamic_lstm(length, h_0, c_0, ...)": (
+        lambda L, fluid, v: L.dynamic_lstm(
+            L.fc(v["s"], 8, num_flatten_dims=2), 8, length=v["n"],
+            h_0=L.fc(v["x"], 2), c_0=L.fc(v["y"], 2),
+            param_attr=fluid.ParamAttr(name="kw_lstm.w"),
+            bias_attr=fluid.ParamAttr(name="kw_lstm.b"),
+            use_peepholes=False, is_reverse=True,
+            gate_activation="sigmoid", cell_activation="tanh",
+            candidate_activation="relu", dtype="float32", name=None)[1],
+        ["s", "n", "x", "y"]),
+    "dynamic_gru(length, h_0, ...)": (
+        lambda L, fluid, v: L.dynamic_gru(
+            L.fc(v["s"], 6, num_flatten_dims=2), 2, length=v["n"],
+            h_0=L.fc(v["x"], 2), param_attr=None, bias_attr=None,
+            is_reverse=False, gate_activation="sigmoid",
+            candidate_activation="tanh", dtype="float32", name=None),
+        ["s", "n", "x"]),
+    "dynamic_lstmp(proj_size, ...)": (
+        lambda L, fluid, v: L.dynamic_lstmp(
+            L.fc(v["s"], 8, num_flatten_dims=2), 8, 3, param_attr=None,
+            bias_attr=None, use_peepholes=False, is_reverse=False,
+            gate_activation="sigmoid", cell_activation="tanh",
+            candidate_activation="tanh", proj_activation="identity",
+            dtype="float32", name="kw_lstmp")[0], ["s"]),
+    "lstm_unit(forget_bias)": (lambda L, fluid, v: L.lstm_unit(
+        v["x"], L.fc(v["y"], 3), L.fc(v["x"], 3), forget_bias=1.0,
+        param_attr=None, bias_attr=None, name=None)[1], ["x", "y"]),
+    "gru_unit(activation, gate_activation, origin_mode)": (
+        lambda L, fluid, v: L.gru_unit(
+            L.fc(v["x"], 6), L.fc(v["y"], 2), 6, param_attr=None,
+            bias_attr=None, activation="tanh", gate_activation="sigmoid",
+            origin_mode=False)[0], ["x", "y"]),
 }
 
 _FEEDS = {
@@ -387,9 +482,12 @@ _FEEDS = {
     "y": np.random.RandomState(7).randn(4, 6).astype(np.float32),
     "ids": np.random.RandomState(8).randint(0, 10, (4, 5)).astype(np.int64),
     "label": np.random.RandomState(9).randint(0, 6, (4, 1)).astype(np.int64),
+    "s": np.random.RandomState(10).randn(4, 6, 4).astype(np.float32),
+    "n": np.array([6, 3, 0, 5], np.int64),
 }
 _DECL = {"x": ([6], "float32"), "y": ([6], "float32"), "ids": ([5], "int64"),
-         "label": ([1], "int64")}
+         "label": ([1], "int64"), "s": ([6, 4], "float32"),
+         "n": ([], "int64")}
 
 
 @pytest.mark.parametrize("case", sorted(_KEYWORD_CALLS))

@@ -344,6 +344,24 @@ FAMILY_OP_TYPES = ["adam_sparse", "bipartite_match", "box_coder", "concat",
 # the learning-rate schedules' ops (their tests: test_torch_lr_schedule.py)
 SCHEDULE_OP_TYPES = ["cos", "elementwise_floordiv", "elementwise_min", "exp",
                      "floor", "pow"]
+# the recurrent and sequence families, the other activations and the ops
+# of the rest of the zoo (tests/test_torch_{rnn,sequence,zoo}.py hold
+# their cases)
+ZOO_OP_TYPES = [
+    "gru", "gru_unit", "lstm", "lstm_unit", "lstmp",
+    "add_position_encoding", "conv_shift", "im2sequence", "sequence_concat",
+    "sequence_conv", "sequence_enumerate", "sequence_erase",
+    "sequence_expand", "sequence_expand_as", "sequence_mask",
+    "sequence_pad", "sequence_pool", "sequence_reshape", "sequence_reverse",
+    "sequence_scatter", "sequence_slice", "sequence_softmax",
+    "sequence_unpad",
+    "brelu", "ceil", "elu", "hard_shrink", "hard_sigmoid", "hard_swish",
+    "leaky_relu", "logsigmoid", "reciprocal", "relu6", "round", "rsqrt",
+    "selu", "silu", "sin", "soft_relu", "softplus", "softshrink",
+    "softsign", "square", "stanh", "swish", "tanh", "tanh_shrink",
+    "thresholded_relu",
+    "flatten2", "matmul", "reduce_mean", "reduce_min", "reduce_prod",
+    "square_error_cost"]
 
 
 def test_cases_cover_exactly_the_path_op_types():
@@ -353,7 +371,7 @@ def test_cases_cover_exactly_the_path_op_types():
                                       + RECIPE_OP_TYPES + DEPLOY_OP_TYPES
                                       + QUANT_OP_TYPES + PLANES_OP_TYPES
                                       + DECODE_OP_TYPES + FAMILY_OP_TYPES
-                                      + SCHEDULE_OP_TYPES)
+                                      + SCHEDULE_OP_TYPES + ZOO_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):

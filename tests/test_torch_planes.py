@@ -35,7 +35,11 @@ from paddle_tpu import flags as jflags
 from paddle_tpu import monitor as jmonitor
 from paddle_tpu import retry as jretry
 
-import paddle_tpu_torch  # noqa: F401  (declares every port fault site)
+# the package and the three modules that wire the training runtime's sites
+# declare every port fault site
+import paddle_tpu_torch.contrib.trainer  # noqa: F401
+import paddle_tpu_torch.parallel.checkpoint  # noqa: F401
+import paddle_tpu_torch.reader.pipeline  # noqa: F401
 from paddle_tpu_torch import faults as tfaults
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import monitor as tmonitor
@@ -238,6 +242,18 @@ def test_retry_call_retries_gives_up_and_meters(telemetry, monkeypatch):
 # --- monitor ----------------------------------------------------------------
 
 
+@pytest.fixture()
+def drill_metrics():
+    """Drops the scripted instruments from both registries afterwards: a
+    later test in the same process holds every registered ``pt_`` metric
+    to a README entry."""
+    yield
+    for _, _, _, monitor in PACKAGES.values():
+        for name in ("pt_planes_drill_total", "pt_planes_drill_gauge",
+                     "pt_planes_drill_seconds"):
+            monitor._REGISTRY.pop(name, None)
+
+
 def _script(monitor):
     c = monitor.counter("pt_planes_drill_total", "a scripted counter")
     g = monitor.gauge("pt_planes_drill_gauge", "a scripted gauge")
@@ -255,7 +271,8 @@ def _script(monitor):
     return h
 
 
-def test_scripted_metrics_give_equal_text_and_quantiles(telemetry):
+def test_scripted_metrics_give_equal_text_and_quantiles(telemetry,
+                                                        drill_metrics):
     hists = [_script(monitor) for _, _, _, monitor in PACKAGES.values()]
     assert tmonitor.QUANTILE_LABELS == jmonitor.QUANTILE_LABELS
 

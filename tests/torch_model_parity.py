@@ -1,13 +1,21 @@
 """A model built and trained in both packages on the CPU, for the port's
 parity tests: the same build function, the JAX package's startup state
 carried across by name (optimizer slots by (param, kind)), the same numpy
-feeds, and the fetches of every step from each package."""
+feeds, and the fetches of every step from each package; and one op run in
+both packages with its derived gradients (``run_both``)."""
 
 import numpy as np
+import torch
+
+import jax.numpy as jnp
 
 import paddle_tpu as pfluid
 import paddle_tpu_torch as tfluid
+from paddle_tpu.core import autodiff as jautodiff
+from paddle_tpu.core.registry import get_op_def as jax_op_def
 from paddle_tpu_torch import io as tio
+from paddle_tpu_torch.core import autodiff as tautodiff
+from paddle_tpu_torch.core.registry import get_op_def
 
 
 def build(fluid, model_fn, opt_fn):
@@ -71,3 +79,71 @@ def same_programs(model_fn, opt_fn):
     params = [{p.name: tuple(p.shape) for p in m.all_parameters()}
               for m in (jm, tm)]
     return ops, params
+
+
+def _grad_attrs(op_type, ins, outs, attrs):
+    return dict(attrs, fwd_input_slots=list(ins),
+                fwd_output_slots=list(outs))
+
+
+def run_both(op_type, ins, attrs, seed=99):
+    """One op in both packages on the same numpy inputs: (JAX outputs,
+    port outputs, JAX input grads, port input grads) as numpy, the grads
+    from each package's derived grad op (``make_grad_compute``) for one
+    random cotangent an output; no grads for a no_grad op."""
+    j_ins = {k: [jnp.asarray(v) for v in vs] for k, vs in ins.items()}
+    t_ins = {k: [torch.from_numpy(np.array(v)) for v in vs]
+             for k, vs in ins.items()}
+    jdef, tdef = jax_op_def(op_type), get_op_def(op_type)
+    j_outs = jdef.compute(j_ins, dict(attrs))
+    t_outs = tdef.compute(t_ins, dict(attrs), torch.device("cpu"))
+    jo = {k: [np.asarray(v) for v in vs] for k, vs in j_outs.items()}
+    to = {k: [v.numpy() for v in vs] for k, vs in t_outs.items()}
+    if jdef.no_grad:
+        return jo, to, None, None
+    r = np.random.RandomState(seed)
+    cots = {k: [np.asarray(r.randn(*v.shape), v.dtype) for v in vs]
+            for k, vs in jo.items()
+            if vs and np.issubdtype(vs[0].dtype, np.floating)}
+    g_attrs = _grad_attrs(op_type, ins, jo, attrs)
+    jg_ins = dict(j_ins, **{k: [jnp.asarray(v) for v in vs]
+                            for k, vs in j_outs.items()})
+    jg_ins.update({"GRAD::" + k: [jnp.asarray(v) for v in vs]
+                   for k, vs in cots.items()})
+    tg_ins = dict(t_ins, **t_outs)
+    tg_ins.update({"GRAD::" + k: [torch.from_numpy(v) for v in vs]
+                   for k, vs in cots.items()})
+    jg = jautodiff.make_grad_compute(jdef)(jg_ins, g_attrs)
+    tg = tautodiff.make_grad_compute(tdef)(tg_ins, g_attrs,
+                                           torch.device("cpu"))
+    jg = {k: [None if v is None else np.asarray(v) for v in vs]
+          for k, vs in jg.items()}
+    tg = {k: [None if v is None else v.numpy() for v in vs]
+          for k, vs in tg.items()}
+    return jo, to, jg, tg
+
+
+def assert_match(jo, to, jg, tg, tol_fwd=1e-5, tol_grad=1e-4):
+    """``run_both``'s results agree: the same output slots, shapes and
+    dtypes, float outputs within ``tol_fwd`` and gradients within
+    ``tol_grad`` of the largest |element| of the JAX value (``rel``),
+    integer and bool outputs exactly."""
+    assert sorted(to) == sorted(jo), (sorted(to), sorted(jo))
+    for k, vs in jo.items():
+        assert len(to[k]) == len(vs), k
+        for j, t in zip(vs, to[k]):
+            assert t.shape == j.shape and t.dtype == j.dtype, (
+                k, t.shape, j.shape, t.dtype, j.dtype)
+            if np.issubdtype(j.dtype, np.floating):
+                assert rel(t, j) <= tol_fwd, (k, rel(t, j))
+            else:
+                np.testing.assert_array_equal(t, j, err_msg=k)
+    if jg is None:
+        return
+    assert sorted(tg) == sorted(jg), (sorted(tg), sorted(jg))
+    for k, vs in jg.items():
+        for j, t in zip(vs, tg[k]):
+            assert (j is None) == (t is None), k
+            if j is not None:
+                assert t.shape == j.shape, (k, t.shape, j.shape)
+                assert rel(t, j) <= tol_grad, (k, rel(t, j))
