@@ -244,7 +244,38 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     Executor.train_from_dataset over an InMemoryDataset of text files
     equals the same batches through Executor.run bit for bit, and
     release_scope frees the scope's captured steps; bounded to 150 s;
-15. print the kernels' JSON line, the card line, and the result line.
+15. the recurrent family and the rest of the benchmark's zoo (``zoo``):
+    stacked_dynamic_lstm (15a), machine_translation (15b), VGG-16 f32 and
+    bf16 (15c), MNIST conv and MLP (15d) trained at fluid_benchmark.py's
+    defaults, captured equal to eager bit for bit; VGG-16 served through
+    the Predictor at mb 64 (15e); the rnn ops in f64 and each model small
+    against the CPU (15f); bounded to 150 s;
+16. structured control flow, CRF / CTC and the label-semantic-roles
+    chapter (``control_flow``), a line naming each sub-phase before it
+    runs: (16a) the book's db_lstm at its widths (8 layers of LSTM 128
+    from fc 512, 59 labels, the frozen 44,068 x 32 conll05 table, the
+    CRF's transition at lr 1e-3, SGD on an exponential decay) at batch
+    10 x T 30 from conll05.train() through DataFeeder: captured equal to
+    eager bit for bit, timed in turns (step and device ms, launches,
+    idle share, examples/s, the derived grads' re-runs), the loss falling
+    on a repeated batch, the decode path and chunk F1, and the path
+    through save / load_inference_model bit for bit; (16b)
+    transformer.build_scan at phase 5's configuration: in f32 at dropout
+    0, from one state, every gradient of its first SGD step within 1e-5
+    (loss) / 1e-4 (gradients) of build()'s on its stacked weights, every
+    parameter after that step within 0.5 of build()'s update, and its
+    free-running second step within the same limits of build()'s from
+    its state; in bf16 AMP at dropout 0.1 captured equal to
+    eager bit for bit, each scan's forward recomputed in its scan_grad
+    equal to the forward's, unroll 6 equal to unroll 1, the captured
+    step's ms beside phase 5's with its fwd_wgmma_kernel, pass A + B and
+    dropout launches; (16c) cond with a non-finite untaken branch,
+    bounded_while under and at its bound, Switch, DynamicRNN, StaticRNN,
+    IfElse, warpctc, the greedy decoder, edit_distance, chunk_eval,
+    hash, print / py_func in a training step (uncaptured, printing every
+    step), the card against the CPU, and the CRF / CTC ops in f64;
+    bounded to 120 s;
+17. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -1740,9 +1771,14 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
         assert all(np.isfinite(losses)), losses
         assert losses[-1] < losses[0], losses
 
+        traced_turns = {True: 0, False: 0}
+
         def turn(eager):
-            """One timed window, its launch counts and the device time of
-            one step (a profiler trace, by kernel name)."""
+            """One timed window, its launch counts and, in the first eager
+            turn and the second captured one, the device time of one step
+            (a profiler trace, by kernel name)."""
+            traced_turns[eager] += 1
+            trace_this = traced_turns[eager] == (1 if eager else 2)
             torch.cuda.synchronize()
             kernels.reset_counts()
             t0 = time.perf_counter()
@@ -1768,29 +1804,30 @@ def train(torch, np, fluid, T, fa, *, seq, batch, route, max_length=256,
             want[f"{route}/fwd"] = want[f"{route}/bwd"] = per_route
             want["dropout"] = float(n_drop)
             assert per_step == want, per_step
-            counts, trace = {}, {}
-            if eager:
+            counts, trace, times, traced = {}, {}, {}, None
+            if trace_this and eager:
                 times = _device_times(lambda: exe.run(
                     main_prog, feed=feeds[0], fetch_list=[loss],
                     use_program_cache=False), iters=2, expect=expect,
                     counts=counts, trace=trace)
-            else:
+            elif trace_this:
                 times = _device_times(lambda: exe.run_steps(
                     main_prog, feeds[:1], 1, [loss]), iters=2, expect=expect,
                     counts=counts, replay=True, trace=trace)
-            traced = {str(m): sum(n for k, n in counts.items()
-                                  if _matches(k, m)) for m in expect}
-            # the replay counts and the trace's, kernel by kernel name
-            assert list(traced.values()) == [
-                per_step[f"{route}/fwd"], per_step[f"{route}/bwd"],
-                per_step[f"{route}/bwd"], per_step["dropout"]], (traced,
-                                                                 per_step)
-            device_ms = sum(times.values())
+            if trace_this:
+                traced = {str(m): sum(n for k, n in counts.items()
+                                      if _matches(k, m)) for m in expect}
+                # the replay counts and the trace's, kernel by kernel name
+                assert list(traced.values()) == [
+                    per_step[f"{route}/fwd"], per_step[f"{route}/bwd"],
+                    per_step[f"{route}/bwd"], per_step["dropout"]], (
+                        traced, per_step)
+            device_ms = sum(times.values()) if trace_this else None
             tokens = sum(float(feeds[i % 4]["trg_pad_mask"].sum())
                          for i in range(window))
             step_ms = wall / window * 1e3
             return {"step_ms": step_ms, "step_device_ms": device_ms,
-                    "idle_share": 1 - device_ms / step_ms,
+                    "idle_share": device_ms and 1 - device_ms / step_ms,
                     "target_tokens_per_s": tokens / wall,
                     "last_loss": float(value), "launches": launches,
                     "trace_let_off": trace,
@@ -4156,7 +4193,7 @@ def _family_program(fluid, build, make_opt, amp):
 
 def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
                  amp, items, unit, window=4, equal_steps=3, expect=None,
-                 tables=(), rerun=False, device_turns=2):
+                 tables=(), rerun=False):
     """Phase 13a-c: train one model through Executor.run / run_steps on
     the card. First ``equal_steps`` steps from one startup, two eager
     sequences, one through the step runner (captured from its second
@@ -4170,10 +4207,9 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
     row-sparse tables, whose rows no batch touched (and those rows of
     their Adam moments) must keep their startup bits. ``rerun``: the
     device ms an eager step spends in the forwards that derived grad ops
-    re-run (``rerun_share``). ``device_turns``: the turns of each mode
-    that also trace a step's device time (the first ones; a trace of a
-    recurrent model's ~10^4 launches a step takes seconds to read).
-    Returns (row, the captured step's traced launches by kernel name)."""
+    re-run (``rerun_share``). The first turn of each mode also traces a
+    step's device time (one a mode: a trace of a recurrent model's ~10^4
+    launches a step takes seconds to read). Returns (row, the captured step's traced launches by kernel name)."""
     from paddle_tpu_torch import kernels
 
     main_prog, startup, model, opt = _family_program(fluid, build,
@@ -4231,7 +4267,7 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
                        for p in main_prog.all_parameters()), \
                 (name, "non-finite weights")
             counts, trace, times = {}, {}, None
-            if traced[eager] < device_turns:
+            if not traced[eager]:
                 traced[eager] += 1
                 if eager:
                     times = _device_times(lambda: exe.run(
@@ -5159,12 +5195,13 @@ def _zoo_feeds(np, name, batch, n, seed):
     return out
 
 
-def _falling_loss(torch, np, fluid, build, feed, amp):
+def _falling_loss(torch, np, fluid, build, feed, amp, make_opt=None):
     """Losses of ZOO_REPEATED steps on one batch from a fresh start at
-    Adam(ZOO_LR), the step captured from its second call: finite, the
-    last below the first."""
+    ``make_opt()`` (Adam(ZOO_LR) by default), the step captured from its
+    second call: finite, the last below the first."""
     main_prog, startup, model, _ = _family_program(
-        fluid, build, lambda: fluid.optimizer.Adam(ZOO_LR), amp)
+        fluid, build, make_opt or (lambda: fluid.optimizer.Adam(ZOO_LR)),
+        amp)
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     with fluid.scope_guard(scope):
         exe.run(startup)
@@ -5176,16 +5213,14 @@ def _falling_loss(torch, np, fluid, build, feed, amp):
     return got
 
 
-def _zoo_train(torch, np, fluid, fa, name, build, feeds, *, amp,
-               rerun=False):
+def _zoo_train(torch, np, fluid, fa, name, build, feeds, *, amp):
     """15a-d: one model trained through Executor.run / run_steps at
     fluid_benchmark.py's defaults (``train_family``: captured = eager bit
     for bit over three steps, turns, device ms by family, launches), and
     its loss falling on a repeated batch."""
     row, _ = train_family(torch, np, fluid, fa, name, build,
                           lambda: fluid.optimizer.Adam(ZOO_LR), feeds,
-                          amp=amp, items=ZOO_B, unit="examples", rerun=rerun,
-                          device_turns=1 if rerun else 2)
+                          amp=amp, items=ZOO_B, unit="examples")
     assert not any(row["attention_launches_per_step"].values()), row
     row["repeated_batch_losses"] = _falling_loss(torch, np, fluid, build,
                                                  feeds[0], amp)
@@ -5390,7 +5425,7 @@ def zoo(torch, np, fluid, fa, tmp):
     row = _zoo_train(torch, np, fluid, fa, "stacked_dynamic_lstm",
                      lambda: SL.build(scfg),
                      [SL.make_batch(scfg, ZOO_B, seed=SEED + s)
-                      for s in range(4)], amp=False, rerun=True)
+                      for s in range(4)], amp=False)
     done("15a", _recurrence(row, scfg.stacked_num, ZOO_T))
 
     print("phase 15b: machine_translation (vocab 2000, 2 + 2 lstm 256, "
@@ -5400,7 +5435,7 @@ def zoo(torch, np, fluid, fa, tmp):
                      lambda: S2S.build(mcfg),
                      [S2S.make_batch(mcfg, ZOO_B, ZOO_T, ZOO_T,
                                      seed=SEED + s) for s in range(4)],
-                     amp=False, rerun=True)
+                     amp=False)
     done("15b", _recurrence(row, 2 * mcfg.num_layers, ZOO_T))
 
     vfeeds = _zoo_feeds(np, "vgg", ZOO_B, 4, SEED)
@@ -5474,6 +5509,786 @@ def zoo(torch, np, fluid, fa, tmp):
         ["conv2d_0.w_0@GRAD", "conv2d_1.w_0@GRAD", "fc_0.w_0@GRAD"]))
     out["seconds"] = time.perf_counter() - out.pop("t0")
     return out
+
+
+# --- phase 16: structured control flow, CRF / CTC, the SRL chapter ------
+
+# the reference's book/test_label_semantic_roles.py: word_dim 32, mark_dim
+# 5, hidden_dim 512 (dynamic_lstm(size=512) is an LSTM of 128), depth 8,
+# mix_hidden_lr 1e-3 on the CRF's transition, SGD on exponential_decay(
+# 0.01, 100000, 0.5, staircase=True), BATCH_SIZE 10; conll05's
+# dictionaries (44,068 words, 3,162 predicates, 59 labels: 29 chunk types
+# in IOB). Sequences are padded to 30 (conll05's sentences are 5-29
+# words). The one departure from the book: no peepholes (the JAX
+# package's dynamic_lstm raises on them).
+SRL_WORD, SRL_PRED, SRL_MARK, SRL_LABELS = 44068, 3162, 2, 59
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_MIX_LR = 1e-3
+SRL_B, SRL_T = 10, 30
+SRL_CHUNK_TYPES = (SRL_LABELS - 1 + 1) // 2
+SRL_FIELDS = ["word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+              "ctx_p1_data", "ctx_p2_data", "verb_data", "mark_data",
+              "target"]
+# 16b: build_scan against build() at Transformer-base, f32, dropout 0, SGD
+# steps from one state: the same ops in the same order, but the scan's
+# gradients come from autograd through the re-run layer (other summation
+# orders than the registered and derived grads of build()): loss
+# relative, and each gradient relative to its largest element; each
+# parameter after the first update relative to its largest update
+# element: a missing or doubled update reads 1, rounding one ulp of a
+# weight over its update (1/6 on the H100: the decoder's first
+# cross-attention q and k weights move by at most 6 ulps in that step)
+TOL_SCAN_LOSS_REL, TOL_SCAN_GRAD_REL, TOL_SCAN_STATE_REL = 1e-5, 1e-4, 0.5
+# 16c: the drills' small programs, card against CPU (family_vs_cpu)
+DRILL_B = 4
+
+
+def srl_db_lstm(fluid, table):
+    """The book's ``db_lstm`` and its objective, from the port's public
+    layers: six word-context embeddings sharing the frozen ``emb`` table
+    (``table``: conll05.get_embedding()), the predicate and mark
+    embeddings (row-sparse), fc + sums into SRL_DEPTH dynamic_lstm of
+    alternating direction (candidate relu, cell sigmoid), each layer's
+    fc over the previous lstm's (hidden, cell) pair as the book wrote it;
+    linear_chain_crf on ``crfw`` (its learning rate SRL_MIX_LR),
+    crf_decoding and chunk_eval; the test program cloned before the
+    optimizer."""
+    L = fluid.layers
+    feeds = {n: L.data(n, shape=[SRL_T], dtype="int64") for n in SRL_FIELDS}
+    length = L.data("word_data_len", shape=[], dtype="int64")
+    pred_emb = L.embedding(feeds["verb_data"],
+                           size=[SRL_PRED, SRL_WORD_DIM], is_sparse=True,
+                           param_attr="vemb")
+    mark_emb = L.embedding(feeds["mark_data"],
+                           size=[SRL_MARK, SRL_MARK_DIM], is_sparse=True)
+    emb_attr = fluid.ParamAttr(
+        name="emb", trainable=False,
+        initializer=fluid.initializer.NumpyArrayInitializer(table))
+    embs = [L.embedding(feeds[n], size=[SRL_WORD, SRL_WORD_DIM],
+                        is_sparse=True, param_attr=emb_attr)
+            for n in SRL_FIELDS[:6]] + [pred_emb, mark_emb]
+
+    def lstm(x, reverse):
+        return L.dynamic_lstm(x, SRL_HIDDEN, length=length,
+                              candidate_activation="relu",
+                              gate_activation="sigmoid",
+                              cell_activation="sigmoid", is_reverse=reverse)
+
+    hidden_0 = L.sums([L.fc(e, SRL_HIDDEN, num_flatten_dims=2, act="tanh")
+                       for e in embs])
+    tmp = [hidden_0, lstm(hidden_0, False)]
+    for i in range(1, SRL_DEPTH):
+        mix = L.sums([
+            L.fc(tmp[0], SRL_HIDDEN, num_flatten_dims=2, act="tanh"),
+            L.fc(list(tmp[1]), SRL_HIDDEN, num_flatten_dims=2, act="tanh")])
+        tmp = [mix, lstm(mix, i % 2 == 1)]
+    feature = L.sums([
+        L.fc(tmp[0], SRL_LABELS, num_flatten_dims=2, act="tanh"),
+        L.fc(list(tmp[1]), SRL_LABELS, num_flatten_dims=2, act="tanh")])
+    cost = L.linear_chain_crf(feature, feeds["target"], length=length,
+                              param_attr=fluid.ParamAttr(
+                                  name="crfw", learning_rate=SRL_MIX_LR))
+    decode = L.crf_decoding(feature, param_attr=fluid.ParamAttr(name="crfw"),
+                            length=length)
+    _, _, f1, n_infer, n_label, n_correct = L.chunk_eval(
+        decode, feeds["target"], "IOB", SRL_CHUNK_TYPES, seq_length=length)
+    test_program = fluid.default_main_program().clone(for_test=True)
+    return {"loss": L.mean(cost), "decode": decode, "f1": f1,
+            "n_infer": n_infer, "n_label": n_label, "n_correct": n_correct,
+            "feed_vars": [feeds[n] for n in SRL_FIELDS],
+            "test_program": test_program}
+
+
+def _srl_sgd(fluid):
+    return fluid.optimizer.SGD(learning_rate=fluid.layers.exponential_decay(
+        learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+        staircase=True))
+
+
+def _srl_feeds(conll05, DataFeeder, model, n):
+    """``n`` batches of SRL_B records of conll05.train() through the
+    DataFeeder, each field padded to SRL_T (with its length)."""
+    reader = conll05.train()()
+    feeder = DataFeeder(model["feed_vars"],
+                        pad_to={f: SRL_T for f in SRL_FIELDS})
+    out = []
+    for _ in range(n):
+        fd = feeder.feed([next(reader) for _ in range(SRL_B)])
+        out.append({k: fd[k] for k in SRL_FIELDS + ["word_data_len"]})
+    return out
+
+
+def srl_16a(torch, np, fluid, fa, tmp):
+    """16a: the label-semantic-roles chapter at the book's widths trained
+    on the card (``train_family``: captured = eager bit for bit over three
+    steps, the step timed in turns, launches, device ms, the derived
+    grads' re-runs), its loss falling on a repeated batch under the
+    book's SGD; then the decode path of the test program after four
+    steps, its chunk F1, and the same path through save_inference_model
+    / load_inference_model (captured from its second call) bit for
+    bit."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.data_feeder import DataFeeder
+    from paddle_tpu_torch.dataset import conll05
+
+    table = conll05.get_embedding()
+
+    def build():
+        return srl_db_lstm(fluid, table)
+
+    def make_opt():
+        return _srl_sgd(fluid)
+
+    main_prog, startup, model, _ = _family_program(fluid, build, make_opt,
+                                                   amp=False)
+    feeds = _srl_feeds(conll05, DataFeeder, model, 4)
+    row, _ = train_family(torch, np, fluid, fa, "srl_db_lstm", build,
+                          make_opt, feeds, amp=False, items=SRL_B,
+                          unit="examples", rerun=True)
+    assert not any(row["attention_launches_per_step"].values()), row
+    assert row["dropout_launches_per_step"] == 0, row
+    row["repeated_batch_losses"] = _falling_loss(torch, np, fluid, build,
+                                                 feeds[0], False, make_opt)
+    fetch = [model[k] for k in ("decode", "n_infer", "n_label",
+                                "n_correct")]
+    feed_names = [n for n in SRL_FIELDS if n != "target"] + ["word_data_len"]
+    d = os.path.join(tmp, "srl")
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        assert np.array_equal(scope.find_var("emb").cpu().numpy(), table)
+        losses = [float(exe.run(main_prog, feed=f,
+                                fetch_list=[model["loss"]])[0])
+                  for f in feeds]
+        ref = [exe.run(model["test_program"], feed=f, fetch_list=fetch)
+               for f in feeds]
+        io.save_inference_model(d, feed_names, [model["decode"]], exe,
+                                main_prog)
+        assert np.array_equal(scope.find_var("emb").cpu().numpy(), table), \
+            "the frozen table moved"
+    exe.close()
+    del scope
+    exe2 = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        loaded, names, targets = io.load_inference_model(d, exe2)
+        got = [exe2.run(loaded, feed={k: f[k] for k in names},
+                        fetch_list=targets)[0] for f in feeds + feeds]
+    graphs = _graphs(exe2)
+    exe2.close()
+    for g, r in zip(got, ref + ref):
+        assert np.array_equal(g, r[0]), "the loaded decode path differs"
+    n_i, n_l, n_c = (sum(int(r[k][0]) for r in ref) for k in (1, 2, 3))
+    p = n_c / n_i if n_i else 0.0
+    rc = n_c / n_l if n_l else 0.0
+    row.update(
+        batch=SRL_B, seq=SRL_T, depth=SRL_DEPTH, hidden=SRL_HIDDEN,
+        labels=SRL_LABELS, decode_after_steps=losses,
+        chunks={"infer": n_i, "label": n_l, "correct": n_c,
+                "f1": 2 * p * rc / (p + rc) if p + rc else 0.0},
+        loaded_decode_bit_equal=True, loaded_graphs=graphs,
+        export_bytes=_dir_bytes(d))
+    torch.cuda.empty_cache()
+    return row
+
+
+def _scan_program(fluid, T, cfg, scan, unroll=1, amp=False, sgd=False):
+    """build() or build_scan() minimized by Adam(1e-4), phase 5's
+    optimizer, or by SGD(1e-3) (``sgd``: a parity check, where Adam's
+    first, sign-like steps would turn 1e-7 differences of a gradient
+    into visible ones)."""
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
+        model = (T.build_scan(cfg, unroll=unroll) if scan
+                 else T.build(cfg))
+        opt = (fluid.optimizer.SGD(1e-3) if sgd
+               else fluid.optimizer.Adam(1e-4))
+        opt.minimize(model["loss"])
+    if amp:
+        fluid.amp.enable_amp(main_prog)
+    startup.random_seed = main_prog.random_seed = SEED
+    return main_prog, startup, model
+
+
+def _steps_from(torch, np, fluid, place, main_prog, state, feeds, fetch):
+    """Each feed's step (cached runs) from ``state`` on ``place``: the
+    fetches, and the state after the first step (numpy). ``state`` is
+    copied: on the CPU a scope's tensors would share its arrays, which
+    the steps update in place."""
+    from paddle_tpu_torch import io as tio
+
+    exe = fluid.Executor(place)
+    scope = tio.scope_from_numpy({n: np.array(v) for n, v in state.items()},
+                                 place)
+    got, after_first = [], None
+    with fluid.scope_guard(scope):
+        for f in feeds:
+            got.append(exe.run(main_prog, feed=f, fetch_list=fetch))
+            if after_first is None:  # copies: later replays write in place
+                after_first = {n: scope.find_var(n).cpu().numpy().copy()
+                               for n in scope.var_names()}
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    return got, after_first
+
+
+def _numpy_state(fluid, place, startup, dtype):
+    """A startup program's state, run on ``place``, as numpy, its f32
+    arrays cast to ``dtype``."""
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    exe.close()
+    out = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+    return {n: v.astype(dtype) if v.dtype.name == "float32" else v
+            for n, v in out.items()}
+
+
+def _scan_slices(T, cfg):
+    """build()'s per-layer parameter name -> (build_scan's stacked
+    parameter, layer); the other parameters keep their names."""
+    return {src_fn(i): (f"{prefix}_{key}_stacked", i)
+            for prefix, specs in (("enc_stack", T._enc_weight_specs(cfg)),
+                                  ("dec_stack", T._dec_weight_specs(cfg)))
+            for key, _shape, src_fn in specs for i in range(cfg.n_layer)}
+
+
+def scan_vs_build(torch, np, fluid, T, place, cfg, batch, dtype="float32"):
+    """build() and build_scan() at dropout 0, two SGD steps each from
+    build()'s startup state (cast to ``dtype``; build_scan's stacks from
+    ``stack_weights_from_layers``), and build()'s second step from
+    build_scan's state after its first. Every parameter is compared on
+    build()'s names, each stacked one by its layer slices:
+
+    - ``step_1``: the loss (relative) and every gradient (relative to its
+      largest element; the attention K biases, whose gradient is zero but
+      for rounding because softmax ignores a shift of a query's logits,
+      to their weight's) from one state;
+    - ``state_after_step_1``: each parameter after the first update,
+      relative to the largest element of build()'s update;
+    - ``step_2_same_state``: build_scan's free-running second step
+      against build()'s from the same state (build_scan's);
+    - ``step_2_free_running`` (build_scan's second step against
+      build()'s own) and ``build_at_the_two_states`` (build()'s second
+      step from its state against from build_scan's): what rounding in
+      the first step moves in the second.
+
+    Returns the readings; ``hold_scan_vs_build`` holds them."""
+    from paddle_tpu_torch.core import lowering
+
+    dtype = np.dtype(dtype)
+    b, t = batch
+    feeds = [T.make_batch(cfg, b, t, t, seed=SEED + i) for i in range(2)]
+    a_prog, a_start, a_model = _scan_program(fluid, T, cfg, scan=False,
+                                             sgd=True)
+    b_prog, b_start, b_model = _scan_program(fluid, T, cfg, scan=True,
+                                             sgd=True)
+    state_a = _numpy_state(fluid, place, a_start, dtype)
+    state_b0 = _numpy_state(fluid, place, b_start, dtype)
+    slices = _scan_slices(T, cfg)
+    params = [p.name for p in a_prog.global_block().all_parameters()
+              if p.trainable]
+    b_params = list(dict.fromkeys(slices.get(n, (n, None))[0]
+                                  for n in params))
+
+    def stacked(state):
+        per_layer, scan = fluid.Scope(), fluid.Scope()
+        for n, v in state.items():
+            per_layer.set(n, v)
+        for n, v in state_b0.items():
+            scan.set(n, state.get(n, v))
+        T.stack_weights_from_layers(cfg, per_layer, scan)
+        return {n: scan.find_var(n) for n in scan.var_names()}
+
+    def unstacked(values):
+        """build_scan's {name: array} on build()'s parameter names."""
+        out = {}
+        for n in params:
+            sn, i = slices.get(n, (n, None))
+            out[n] = values[sn] if i is None else values[sn][i]
+        return out
+
+    def scale_of(n):
+        return n[:-2] + ".w" if n.endswith("_k_colp.b") else n
+
+    def reading(want, got, scan=True):
+        """The loss (relative) and every gradient (relative) of build()'s
+        step ``want`` and build_scan's (``scan``) or build()'s ``got``."""
+        gw = dict(zip(params, want[1:]))
+        gg = (unstacked(dict(zip(b_params, got[1:]))) if scan
+              else dict(zip(params, got[1:])))
+        grads = {n: float(np.abs(np.asarray(gg[n], np.float64) - gw[n]).max()
+                          / max(np.abs(gw[scale_of(n)]).max(), 1e-30))
+                 for n in params}
+        return {"loss_want": float(want[0]), "loss_got": float(got[0]),
+                "loss_rel_err": abs(float(got[0]) - float(want[0]))
+                / abs(float(want[0])),
+                "grad_rel_err_max": max(grads.values()),
+                "worst_grads": dict(sorted(grads.items(),
+                                           key=lambda kv: -kv[1])[:4])}
+
+    a_fetch = [a_model["loss"]] + [n + "@GRAD" for n in params]
+    b_fetch = [b_model["loss"]] + [n + "@GRAD" for n in b_params]
+    got_a, state_a1 = _steps_from(torch, np, fluid, place, a_prog, state_a,
+                                  feeds, a_fetch)
+    got_b, state_b1 = _steps_from(torch, np, fluid, place, b_prog,
+                                  stacked(state_a), feeds, b_fetch)
+    b1 = unstacked(state_b1)
+    (at_b1,), _ = _steps_from(torch, np, fluid, place, a_prog,
+                              {**state_a1, **b1}, feeds[1:], a_fetch)
+    upd = {n: np.abs(state_a1[n].astype(np.float64) - state_a[n]).max()
+           for n in params}
+    state = {n: float(np.abs(b1[n].astype(np.float64) - state_a1[n]).max()
+                      / max(upd[scale_of(n)], 1e-30)) for n in params}
+    lw = lowering.lower_block(b_prog, 0, sorted(feeds[0]),
+                              [b_model["loss"].name],
+                              fluid.framework.resolve_device(place))
+    return {
+        "dtype": dtype.name, "batch": b, "seq": t, "layers": cfg.n_layer,
+        "params": len(params), "scan_params": len(b_params),
+        "step_1": reading(got_a[0], got_b[0]),
+        "state_after_step_1": {
+            "rel_err_max": max(state.values()),
+            "worst": dict(sorted(state.items(), key=lambda kv: -kv[1])[:4])},
+        "step_2_same_state": reading(at_b1, got_b[1]),
+        "step_2_free_running": reading(got_a[1], got_b[1]),
+        "build_at_the_two_states": reading(got_a[1], at_b1, scan=False),
+        "ops_build": len(a_prog.global_block().ops),
+        "ops_build_scan": len(b_prog.global_block().ops),
+        "uncaptured": lw.uncaptured}
+
+
+def hold_scan_vs_build(row, loss_rel, grad_rel, state_rel):
+    """Hold ``scan_vs_build``'s readings from one state (step 1, the
+    state after it, step 2 from one state) at the limits; the two
+    free-running second steps are read, not held."""
+    for k in ("step_1", "step_2_same_state"):
+        assert row[k]["loss_rel_err"] <= loss_rel, (k, row)
+        assert row[k]["grad_rel_err_max"] <= grad_rel, (k, row)
+    assert row["state_after_step_1"]["rel_err_max"] <= state_rel, row
+    assert row["uncaptured"] is None, row
+    row["tol"] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                  "state_rel": state_rel}
+
+
+def _scan_reruns_replay(torch, np, fluid, prog, startup, feed, loss):
+    """One eager step of a build_scan program with the scan op's compute
+    wrapped: each scan's FinalState from its forward (grad off) and from
+    its grad op's re-run (grad on, the derived scan_grad) compared bit
+    for bit: the re-run replays the forward's dropout seeds."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    opdef = get_op_def("scan")
+    plain = opdef.compute
+    seen = {False: [], True: []}
+
+    def recording(ins, attrs, device, **kw):
+        out = plain(ins, attrs, device, **kw)
+        seen[torch.is_grad_enabled()].append(
+            out["FinalState"][0].detach().clone())
+        return out
+
+    opdef.compute = recording
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            exe.run(prog, feed=feed, fetch_list=[loss],
+                    use_program_cache=False)
+        exe.close()
+    finally:
+        opdef.compute = plain
+    fwd, rerun = seen[False], seen[True]
+    # the backward runs the decoder's scan_grad first
+    assert len(fwd) == len(rerun) == 2, (len(fwd), len(rerun))
+    for a, b in zip(fwd, reversed(rerun)):
+        assert torch.equal(a, b), "a scan_grad re-run drew other masks"
+    return {"scans": 2, "rerun_final_state_bit_equal": True,
+            "dtype": str(fwd[0].dtype)}
+
+
+def build_scan_16b(torch, np, fluid, T, fa):
+    """16b: transformer.build_scan at phase 5's configuration (bf16 AMP,
+    dropout 0.1, label smoothing 0.1, Adam 1e-4, b 64 x t 256): (1) f32
+    at dropout 0 against build(); (2) three steps eager, captured by
+    ``run`` and in a run_steps window from one startup, bit for bit, and
+    each scan's forward recomputed inside its grad op equal to the
+    forward's; unroll 6 equal to unroll 1 bit for bit; (3) the captured
+    step timed (unroll 1 and 6) with its fwd_wgmma_kernel (#6), pass A +
+    B (#7) and dropout_apply_kernel launches a step, counted over one
+    window each. Returns (row, the unroll-1 window's launches)."""
+    from paddle_tpu_torch import kernels
+
+    f32 = scan_vs_build(torch, np, fluid, T, fluid.CUDAPlace(0),
+                        T.TransformerConfig(max_length=TRAIN_T, dropout=0.0),
+                        (TRAIN_B, TRAIN_T))
+    hold_scan_vs_build(f32, TOL_SCAN_LOSS_REL, TOL_SCAN_GRAD_REL,
+                       TOL_SCAN_STATE_REL)
+    out = {"f32_vs_build": f32}
+    cfg = T.TransformerConfig(max_length=TRAIN_T, dropout=0.1)
+    feeds = [T.make_batch(cfg, TRAIN_B, TRAIN_T, TRAIN_T, seed=SEED + i)
+             for i in range(4)]
+    dev = torch.device("cuda", 0)
+    staged = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+              for f in feeds]
+    progs = {u: _scan_program(fluid, T, cfg, True, unroll=u, amp=True)
+             for u in (1, cfg.n_layer)}
+    prog, startup, model = progs[1]
+    loss = model["loss"]
+    same = _same_runs(torch, np, fluid, prog, startup, staged, [loss], 3)
+    _held_same(same)
+    ec, ew = same["eager_vs_captured"], same["eager_vs_run_steps"]
+    assert ec["fetch"] == ec["state"] == ew["last_fetch"] == ew["state"] \
+        == 0.0, same
+    out["captured_vs_eager"] = {k: same[k] for k in (
+        "steps", "eager_vs_eager", "eager_vs_captured", "eager_vs_run_steps",
+        "first_fetch")}
+    out["rerun_replays_seeds"] = _scan_reruns_replay(
+        torch, np, fluid, prog, startup, staged[0], loss)
+    timed, launches = {}, None
+    for u, (p, st, m) in progs.items():
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(st)
+            first = [float(exe.run(p, feed=staged[i],
+                                   fetch_list=[m["loss"]],
+                                   use_program_cache=False)[0])
+                     for i in range(2)]
+            exe.run_steps(p, staged, 2, [m["loss"]])  # the capture
+            windows = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                kernels.reset_counts()
+                t0 = time.perf_counter()
+                (value,) = exe.run_steps(p, staged, 4, [m["loss"]])
+                torch.cuda.synchronize()
+                windows.append((time.perf_counter() - t0) / 4 * 1e3)
+                counts = _counts(fa)
+                counts["dropout"] = kernels.launch_counts["dropout"]
+            assert np.isfinite(float(value)), value
+            traced = {}
+            times = _device_times(lambda: exe.run_steps(
+                p, staged[:1], 1, [m["loss"]]), iters=2, counts=traced,
+                replay=True)
+        exe.close()
+        del scope
+        torch.cuda.empty_cache()
+        per_step = {k: v / 4 for k, v in counts.items() if v}
+        device_ms = sum(times.values())
+        timed[u] = {"eager_first_losses": first, "step_ms": windows,
+                    "step_device_ms": device_ms,
+                    "idle_share": 1 - device_ms / min(windows),
+                    "launches_per_step": per_step,
+                    "by_family": _families(times, traced),
+                    "op_types": dict(collections.Counter(
+                        op.type for op in p.global_block().ops)),
+                    "top_kernels_ms": [[k[:80], ms] for k, ms in sorted(
+                        times.items(), key=lambda kv: -kv[1])[:12]]}
+        if u == 1:
+            launches = counts
+    assert timed[1]["eager_first_losses"] == \
+        timed[cfg.n_layer]["eager_first_losses"], timed
+    # 6 encoder and 6 decoder layers: 18 attentions a step, each forward
+    # launched once more in its scan_grad's re-run; 18 backward launches;
+    # each dropout op of a layer body twice a layer (its forward, its
+    # re-run), the others once
+    blk = prog.global_block()
+    body = sum(op.type == "dropout" for o in blk.ops if o.type == "scan"
+               for op in o.attrs["sub_block"].ops)
+    drops = sum(o.type == "dropout" for o in blk.ops) + 2 * cfg.n_layer * body
+    per = timed[1]["launches_per_step"]
+    assert per.get("small/fwd") == 36 and per.get("small/bwd") == 18, per
+    assert per.get("dropout") == drops, (per, drops)
+    assert not any(k for k in per if not k.startswith(("small/",
+                                                       "dropout"))), per
+    out.update(unroll=timed, batch=TRAIN_B, seq=TRAIN_T, amp=True,
+               dropout=cfg.dropout)
+    return out, launches
+
+
+def _drill_models(fluid):
+    """16c's programs: (name, build, make_opt, feeds, gradient names,
+    exact fetches), each small, held card against CPU."""
+    import numpy as np
+
+    L = fluid.layers
+    r = np.random.RandomState(SEED)
+    b = DRILL_B
+
+    def cond_log():
+        p = L.create_parameter([3], "float32", name="cond_p",
+                               default_initializer=fluid.initializer
+                               .ConstantInitializer(0.0))
+        flag = L.data("flag", shape=[1], dtype="bool",
+                      append_batch_size=False)
+        out = L.cond(flag, lambda: L.log(p), lambda: L.scale(p, 2.0))
+        return {"loss": L.reduce_sum(out)}
+
+    def bounded(lim):
+        def build():
+            x = L.data("x", shape=[4], dtype="float32")
+            acc = L.fc(x, 4, bias_attr=False,
+                       param_attr=fluid.ParamAttr(name="bw_w"))
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", lim)
+            cond = L.less_than(i, n)
+            w = L.While(cond, max_trip_count=5)
+            with w.block():
+                L.assign(L.tanh(L.fc(acc, 4, bias_attr=False,
+                                     param_attr=fluid.ParamAttr(
+                                         name="bw_w2"))), output=acc)
+                L.increment(i)
+                L.less_than(i, n, cond=cond)
+            return {"loss": L.mean(acc), "steps": w._steps_var,
+                    "cond": cond}
+        return build
+
+    lr_holder = {}
+
+    def switch_warmup():
+        step = L.data("step", shape=[1], dtype="float32",
+                      append_batch_size=False)
+        x = L.data("x", shape=[4], dtype="float32")
+        lr = L.fill_constant([1], "float32", 0.0)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(step, L.fill_constant(
+                    [1], "float32", 10.0))):
+                L.assign(L.scale(step, 0.01), output=lr)
+            with sw.default():
+                L.assign(L.fill_constant([1], "float32", 0.1), output=lr)
+        lr_holder["lr"] = lr
+        return {"loss": L.mean(L.fc(x, 3, param_attr=fluid.ParamAttr(
+            name="sw_w"))), "lr": lr}
+
+    def rnns():
+        x = L.data("seq", shape=[5, 3], dtype="float32")
+        length = L.data("length", shape=[1], dtype="int64")
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            xt = drnn.step_input(x, length=length)
+            acc = drnn.memory(shape=[3])
+            h = L.fc([xt, acc], 3, act="tanh",
+                     param_attr=[fluid.ParamAttr(name="dr_x"),
+                                 fluid.ParamAttr(name="dr_h")])
+            drnn.update_memory(acc, h)
+            drnn.output(h)
+        dyn = drnn()
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(dyn)
+            prev = rnn.memory(shape=[3], batch_ref=dyn, ref_batch_dim_idx=0)
+            h = L.tanh(L.fc([xt, prev], 3, param_attr=[
+                fluid.ParamAttr(name="sr_x"), fluid.ParamAttr(name="sr_h")]))
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        st = L.reduce_mean(rnn(), dim=1)
+        ie = L.IfElse(L.less_than(L.reduce_sum(st, dim=1, keep_dim=True),
+                                  L.fill_constant([1], "float32", 0.0)))
+        with ie.true_block():
+            ie.output(L.fc(ie.input(st), 2, param_attr=fluid.ParamAttr(
+                name="ie_t")))
+        with ie.false_block():
+            ie.output(L.scale(L.fc(ie.input(st), 2, param_attr=fluid
+                                   .ParamAttr(name="ie_f")), -1.0))
+        return {"loss": L.mean(L.square(ie())), "dyn": dyn}
+
+    def ctc():
+        x = L.data("ctc_x", shape=[8, 6], dtype="float32")
+        tags = L.data("ctc_tags", shape=[8], dtype="int64")
+        lab = L.data("ctc_lab", shape=[3], dtype="int64")
+        xl = L.data("ctc_xl", shape=[1], dtype="int64")
+        ll = L.data("ctc_ll", shape=[1], dtype="int64")
+        logits = L.fc(x, 5, num_flatten_dims=2, param_attr=fluid.ParamAttr(
+            name="ctc_w"))
+        loss = L.mean(L.warpctc(logits, lab, blank=0, input_length=xl,
+                                label_length=ll))
+        dec, dlen = L.ctc_greedy_decoder(L.softmax(logits), blank=0,
+                                         input_length=xl)
+        dist, _ = L.edit_distance(dec, lab, normalized=False,
+                                  input_length=dlen, label_length=ll)
+        _, _, f1, _, _, nc = L.chunk_eval(L.argmax(logits, axis=-1), tags,
+                                          "IOB", 2, seq_length=xl)
+        return {"loss": loss, "decoded": dec, "dist": dist, "nc": nc,
+                "hash": L.hash(lab, hash_size=1000, num_hash=3)}
+
+    seq = r.normal(0, 1, (b, 5, 3)).astype(np.float32)
+    lens = np.array([[5], [2], [0], [4]], np.int64)
+    ctc_feed = {"ctc_x": r.normal(0, 1, (b, 8, 6)).astype(np.float32),
+                "ctc_lab": r.randint(1, 5, (b, 3)).astype(np.int64),
+                "ctc_tags": r.randint(0, 5, (b, 8)).astype(np.int64),
+                "ctc_xl": np.array([[8], [5], [6], [3]], np.int64),
+                "ctc_ll": np.array([[3], [2], [0], [1]], np.int64)}
+    xs = [{"x": r.normal(0, 1, (b, 4)).astype(np.float32)}
+          for _ in range(2)]
+    sgd = lambda: fluid.optimizer.SGD(0.1)  # noqa: E731
+    return [
+        ("cond non-finite untaken branch", cond_log, sgd,
+         [{"flag": np.array([False])}] * 2, ["cond_p@GRAD"], ()),
+        ("bounded_while 3 of 5", bounded(3), sgd, xs,
+         ["bw_w@GRAD", "bw_w2@GRAD"], (("steps", "steps"),
+                                       ("cond", "cond"))),
+        ("bounded_while truncated at 5", bounded(7), sgd, xs,
+         ["bw_w@GRAD", "bw_w2@GRAD"], (("steps", "steps"),
+                                       ("cond", "cond"))),
+        ("Switch LR warmup", switch_warmup,
+         lambda: fluid.optimizer.SGD(lr_holder["lr"]),
+         [dict(xs[0], step=np.array([3.0], np.float32)),
+          dict(xs[1], step=np.array([30.0], np.float32))], ["sw_w@GRAD"],
+         ()),
+        ("DynamicRNN, StaticRNN, IfElse", rnns, sgd,
+         [{"seq": seq, "length": lens}] * 2,
+         ["dr_x@GRAD", "dr_h@GRAD", "sr_x@GRAD", "ie_t@GRAD", "ie_f@GRAD"],
+         ()),
+        ("warpctc, greedy decode, edit_distance, chunk_eval, hash", ctc,
+         sgd, [ctc_feed] * 2, ["ctc_w@GRAD"],
+         (("decoded", "decoded"), ("edit distance", "dist"),
+          ("chunk_eval", "nc"), ("hash", "hash"))),
+    ]
+
+
+def _host_callback_drill(torch, np, fluid):
+    """16c: print and py_func in a training step on the card: the step
+    reports itself uncaptured (its reason counted at every call), print
+    writes every step and the py_func's forward and backward run every
+    step; its losses equal the CPU's."""
+    import contextlib
+    import io as _io
+
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.core import lowering
+
+    calls = collections.Counter()
+
+    def tanh(a):
+        calls["fwd"] += 1
+        return np.tanh(a)
+
+    def tanh_grad(y, dy):
+        calls["bwd"] += 1
+        return dy * (1.0 - y * y)
+
+    L = fluid.layers
+
+    def build():
+        x = L.data("x", shape=[4], dtype="float32", append_batch_size=False)
+        h = L.fc(L.reshape(x, [1, 4]), 4, param_attr=fluid.ParamAttr(
+            name="hc_w"))
+        y = fluid.default_main_program().global_block().create_var(
+            name="hc_y", shape=(1, 4), dtype="float32")
+        L.py_func(tanh, h, y, backward_func=tanh_grad,
+                  skip_vars_in_backward_input=h)
+        y = L.Print(y, message="hc-drill", summarize=4, print_phase="both")
+        return {"loss": L.mean(y)}
+
+    feed = {"x": np.linspace(-1, 1, 4).astype(np.float32)}
+    main_prog, startup, model, _ = _family_program(
+        fluid, build, lambda: fluid.optimizer.SGD(0.5), amp=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    exe.close()
+    state = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+    runs = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        lowering.uncaptured_steps.clear()
+        calls.clear()
+        err = _io.StringIO()
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(tio.scope_from_numpy(state, place)), \
+                contextlib.redirect_stderr(err):
+            losses = [float(exe.run(main_prog, feed=feed,
+                                    fetch_list=[model["loss"]])[0])
+                      for _ in range(3)]
+        exe.close()
+        runs[place.__class__.__name__] = {
+            "losses": losses, "uncaptured": dict(lowering.uncaptured_steps),
+            "printed": err.getvalue().count("hc-drill"),
+            "py_func_calls": dict(calls)}
+    card = runs["CUDAPlace"]
+    assert card["uncaptured"] == {"host_callback op 'py_func'": 3}, card
+    assert card["printed"] == 6 and card["py_func_calls"] == {
+        "fwd": 3, "bwd": 3}, card
+    cpu = runs["CPUPlace"]["losses"]
+    assert max(abs(a - c) / abs(c) for a, c in zip(card["losses"], cpu)) \
+        <= TOL_FAMILY_LOSS_REL, runs
+    return runs
+
+
+def drills_16c(torch, np, fluid):
+    """16c: the drills at small sizes, the card against the CPU: cond with
+    a non-finite untaken branch (a finite gradient), bounded_while under
+    and at its bound, Switch as an LR warmup, DynamicRNN frozen past each
+    length with StaticRNN and IfElse, warpctc with the greedy decoder,
+    edit_distance, chunk_eval and hash (exactly), print / py_func in a
+    training step; and linear_chain_crf / crf_decoding / warpctc in f64
+    with their gradients (``op_and_grads``)."""
+    out = {}
+    for name, build, make_opt, feeds, names, exact in _drill_models(fluid):
+        out[name] = family_vs_cpu(torch, np, fluid, name, build, make_opt,
+                                  feeds, names, exact=exact)
+    out["print and py_func"] = _host_callback_drill(torch, np, fluid)
+    r = np.random.RandomState(SEED + 16)
+    em, trans = r.normal(0, 1, (4, 12, 6)), r.normal(0, 0.5, (8, 6))
+    lens = np.array([12, 7, 1, 9], np.int64)
+    cases = [
+        ("linear_chain_crf", {"Emission": [em], "Transition": [trans],
+                              "Label": [r.randint(0, 6, (4, 12))],
+                              "Length": [lens]}, {}),
+        ("crf_decoding", {"Emission": [em], "Transition": [trans],
+                          "Length": [lens]}, {}),
+        ("warpctc", {"Logits": [r.normal(0, 1, (4, 12, 6))],
+                     "Label": [r.randint(1, 6, (4, 4))],
+                     "LogitsLength": [lens],
+                     "LabelLength": [np.array([4, 3, 0, 2], np.int64)]},
+         {"norm_by_times": True}),
+    ]
+    ops = {}
+    for op, ins, attrs in cases:
+        gpu, cpu = (op_and_grads(torch, np, op, ins, attrs, dev, SEED + 2)
+                    for dev in (torch.device("cuda", 0),
+                                torch.device("cpu")))
+        assert sorted(gpu) == sorted(cpu), (op, sorted(gpu), sorted(cpu))
+        errs = {}
+        for k in cpu:
+            if np.issubdtype(cpu[k].dtype, np.floating):
+                errs[k] = _rel_err(np, gpu[k], cpu[k])
+            else:
+                assert np.array_equal(gpu[k], cpu[k]), (op, k)
+                errs[k] = 0.0
+        assert max(errs.values()) <= TOL_RNN_F64_REL, (op, errs)
+        ops[op] = {"max_rel_err": max(errs.values()), "values": len(errs)}
+    out["f64 ops"] = {"dtype": "float64", "tol_rel": TOL_RNN_F64_REL,
+                      "ops": ops}
+    return out
+
+
+def control_flow(torch, np, fluid, T, fa, tmp):
+    """Phase 16: the label-semantic-roles chapter (16a), transformer.
+    build_scan (16b) and the control-flow / CRF drills (16c). Returns
+    ({sub-phase: row}, the launches of 16b's timed unroll-1 window); a
+    line names each sub-phase before it runs, and its ``control_`` line
+    follows."""
+    out = {"t0": time.perf_counter()}
+
+    def done(key, row):
+        row["at_s"] = time.perf_counter() - out["t0"]
+        out[key] = row
+        print(f"control_{key} " + json.dumps(row), flush=True)
+
+    print(f"phase 16a: label semantic roles (db_lstm: hidden "
+          f"{SRL_HIDDEN}, depth {SRL_DEPTH}, {SRL_LABELS} labels, batch "
+          f"{SRL_B}, T {SRL_T}, SGD)", flush=True)
+    done("16a", srl_16a(torch, np, fluid, fa, tmp))
+    print("phase 16b: transformer.build_scan at Transformer-base, b 64 x "
+          "t 256", flush=True)
+    row, launches = build_scan_16b(torch, np, fluid, T, fa)
+    done("16b", row)
+    print("phase 16c: control-flow and CRF drills, the card against the "
+          "CPU", flush=True)
+    done("16c", drills_16c(torch, np, fluid))
+    out["seconds"] = time.perf_counter() - out.pop("t0")
+    return out, launches
 
 
 def _study_entry(name, source, replaces, launches, first, rows):
@@ -6045,12 +6860,32 @@ def main() -> int:
           f"captured = eager bit for bit in all six", flush=True)
 
     phase_done("15")
+
+    # 16. structured control flow, CRF / CTC and the label-semantic-roles
+    # chapter: db_lstm trained at the book's widths (16a),
+    # transformer.build_scan at Transformer-base (16b), the drills card
+    # against CPU (16c)
+    with tempfile.TemporaryDirectory() as tmp:
+        cf16, p16 = control_flow(torch, np, fluid, T, fa, tmp)
+    a16, b16 = cf16["16a"], cf16["16b"]
+    print(f"control flow on {card}: SRL db_lstm "
+          f"{a16['examples_per_s']:.0f} examples/s ({a16['step_ms']:.2f} ms "
+          f"a step, {a16['step_device_ms']:.2f} device, "
+          f"{a16['launches_per_step']:.0f} launches, chunk F1 "
+          f"{a16['chunks']['f1']:.3f}); build_scan "
+          f"{min(b16['unroll'][1]['step_ms']):.1f} ms a step (unroll 6 "
+          f"{min(b16['unroll'][6]['step_ms']):.1f}) beside build()'s "
+          f"{t['step_ms']:.1f}; captured = eager bit for bit in both; "
+          f"{len(cf16['16c'])} drills card = CPU", flush=True)
+
+    phase_done("16")
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
     assert phase_s["12"] < 120, phase_s["12"]
     assert phase_s["13"] < 150, phase_s["13"]
     assert phase_s["14"] < 150, phase_s["14"]
     assert phase_s["15"] < 150, phase_s["15"]
+    assert phase_s["16"] < 120, phase_s["16"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]
@@ -6080,7 +6915,7 @@ def main() -> int:
             "flash_attention_bthd_fwd, bf16 fwd_wgmma_kernel (small route)",
             _SRC_FWD, f"{_TPU_FA}:808",
             t["launches"]["small/fwd"] + p10_recipe["small/fwd"]
-            + p14["small/fwd"], fwd_main, err(fwd_main)),
+            + p14["small/fwd"] + p16["small/fwd"], fwd_main, err(fwd_main)),
         _kernel_entry(
             "flash_attention_bthd_fwd, f32 fwd_kernel (CUDA cores, 64-row "
             "tiles; small route, serving prefill and beam decode)",
@@ -6092,7 +6927,8 @@ def main() -> int:
             "flash_attention_bthd_bwd (bf16: bwd_dkdv_wgmma_kernel + "
             "bwd_dq_wgmma_kernel)", _SRC_BWD, f"{_TPU_FA}:861",
             t["launches"]["small/bwd"] + p10_recipe["small/bwd"]
-            + p14["small/bwd"], bwd_main, max(bwd_main["err_dq_dk_dv"])),
+            + p14["small/bwd"] + p16["small/bwd"], bwd_main,
+            max(bwd_main["err_dq_dk_dv"])),
         _kernel_entry(
             "flash_attention_bthd_bwd (f32: bwd_dkdv_tf32_kernel + "
             "bwd_dq_tf32_kernel, 3xTF32 on mma.sync; small route, f32 "
@@ -6129,8 +6965,8 @@ def main() -> int:
             "paddle_tpu_torch/csrc/dropout_mask.cu",
             "no Pallas source: the JAX dropout op draws its mask with "
             "jax.random, paddle_tpu/ops/nn_ops.py:244",
-            t["launches"]["dropout"] + p10_dropout + p14["dropout"],
-            drop_rows[0], 0.0),
+            t["launches"]["dropout"] + p10_dropout + p14["dropout"]
+            + p16["dropout"], drop_rows[0], 0.0),
         _kernel_entry(
             "dropout_keep_mask (dropout_mask_kernel)",
             "paddle_tpu_torch/csrc/dropout_mask.cu",

@@ -38,6 +38,7 @@ from paddle_tpu_torch import (  # noqa: F401
     slim,
     unique_name,
 )
+from paddle_tpu_torch.backward import append_backward, gradients  # noqa: F401
 from paddle_tpu_torch.dataset_api import DatasetFactory  # noqa: F401
 from paddle_tpu_torch.executor import (  # noqa: F401
     Executor,

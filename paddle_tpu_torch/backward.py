@@ -126,10 +126,12 @@ def append_backward(
                 raise RuntimeError(
                     "Cannot backprop through a data-dependent `while` "
                     "loop: it has no gradient, so the loss's gradient "
-                    "through it would be silently dropped. Give the loop "
-                    "an iteration bound (While(cond, max_trip_count=N), "
-                    "the differentiable bounded_while: not ported yet) or "
-                    "write the recurrence without a while loop.")
+                    "through it would be silently dropped. Either give "
+                    "the loop an iteration bound (While(cond, "
+                    "max_trip_count=N), the differentiable bounded_while: "
+                    "a fixed-trip loop with dead iterations masked) or "
+                    "write the recurrence with layers.StaticRNN / the "
+                    "scan op.")
             continue
 
         out_grads: Dict[str, List[str]] = {}

@@ -16,6 +16,12 @@ Grad op desc convention (produced by backward.append_backward):
   with the forward input slot; "" marks a hole (no grad needed);
 - attrs: the forward attrs + ``fwd_input_slots`` / ``fwd_output_slots``
   + ``forward_op_idx`` (so random ops replay their forward's seed).
+
+An op whose forward calls a hand-written kernel must stay differentiable
+when a derived grad re-runs it (a ``scan`` body's attention and dropout):
+with grad enabled those ops go through ``torch.autograd.Function``s whose
+backward is their registered grad's arithmetic, since a kernel's outputs
+are opaque to autograd on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from paddle_tpu_torch import kernels
 from paddle_tpu_torch.core.registry import OpDef
 
 GRAD_SLOT_PREFIX = "GRAD::"
@@ -45,11 +52,22 @@ def _floatp(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
+def vjp(ys, primals, cots):
+    """``torch.autograd.grad(ys, primals, cots)`` (None for a primal no
+    output reaches). Autograd runs the backward of CUDA tensors on its
+    own device threads: their kernel launches count into the calling
+    thread's recording (a capture's; kernels.lend_recording)."""
+    if not (ys and primals):
+        return [None] * len(primals)
+    with kernels.lend_recording():
+        return torch.autograd.grad(ys, primals, cots, allow_unused=True)
+
+
 def make_grad_compute(fwd: OpDef):
     """Build the compute fn of the derived grad op of ``fwd``."""
 
     def grad_compute(ins: Dict[str, List[Any]], attrs: Dict[str, Any],
-                     device, seed=None, generator=None):
+                     device, seed=None, generator=None, amp=False):
         in_slots = list(attrs["fwd_input_slots"])
         out_slots = list(attrs["fwd_output_slots"])
         fwd_attrs = {k: v for k, v in attrs.items()
@@ -59,6 +77,8 @@ def make_grad_compute(fwd: OpDef):
             kwargs["seed"] = seed
         if fwd.host_rng:
             kwargs["generator"] = generator
+        if fwd.sub_blocks:
+            kwargs["amp"] = amp
         fwd_ins = {s: list(ins.get(s, [])) for s in in_slots}
 
         # which (slot, position) entries are differentiable
@@ -92,9 +112,7 @@ def make_grad_compute(fwd: OpDef):
                         g = g.expand(y.shape)
                     ys.append(y)
                     cots.append(g)
-            grads = (torch.autograd.grad(ys, primals, cots,
-                                         allow_unused=True)
-                     if ys and primals else [None] * len(primals))
+            grads = vjp(ys, primals, cots)
 
         result: Dict[str, List[Any]] = {}
         for (s, i), p, g in zip(diff_keys, primals, grads):

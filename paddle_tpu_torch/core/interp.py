@@ -15,8 +15,11 @@ fill) instead receives a ``torch.Generator`` seeded on the host with the
 same op seed, from ``host_seed``.
 
 AMP (bf16 activation stream) casting is applied here, with the JAX
-package's op sets; a ``host_loop`` op (``while``) receives ``amp`` too,
-for the ops of its body.
+package's op sets; a ``host_loop`` or ``sub_blocks`` op (``while``,
+``scan``, ``cond``, ``bounded_while``) and a derived grad of one receive
+``amp`` too, for the ops of their sub-blocks. A run with no seed buffer
+(shape inference over a sub-block) passes ``seed=None`` to its random
+ops, as inference does at the top level.
 """
 
 from __future__ import annotations
@@ -108,6 +111,8 @@ def resolve_op_def(op_type: str) -> OpDef:
                 compute=autodiff.make_grad_compute(fwd),
                 needs_rng=fwd.needs_rng,
                 host_rng=fwd.host_rng,
+                host_callback=fwd.host_callback,
+                sub_blocks=fwd.sub_blocks,
                 no_grad=True,
             )
     return get_op_def(op_type)
@@ -138,10 +143,10 @@ def exec_ops(
         }
         kwargs = {"device": device}
         if opdef.needs_rng:
-            kwargs["seed"] = rng.SeedHandle(
+            kwargs["seed"] = None if seed is None else rng.SeedHandle(
                 seed, op.attrs.get("forward_op_idx", idx))
-        if opdef.host_loop:
-            # a loop runs its body's ops under the block's AMP setting
+        if opdef.host_loop or opdef.sub_blocks:
+            # a sub-block's ops run under the block's AMP setting
             kwargs["amp"] = amp
         if opdef.host_rng:
             gen = torch.Generator(device=gen_device)

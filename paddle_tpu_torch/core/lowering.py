@@ -59,6 +59,13 @@ executor keeps the loop runners by (program, op, shapes), hands the
 running op their table and its graph pool through the thread's
 ``LoopContext`` during a cached call, and frees them in ``close()``.
 
+**Host callbacks.** A block that holds a ``host_callback`` op
+(``print``, ``py_func``), directly or in any of its ops' sub-blocks, is
+not captured either: the callback must run on the host at every step, so
+the block runs eagerly at every call. ``uncaptured_reason`` names the op
+that keeps a block uncaptured, and ``uncaptured_steps`` counts the steps
+that ran uncaptured for each reason (``StepRunner.run``).
+
 **The capture gate** (``GATE``). A capture runs in CUDA's global
 capture mode, which is what catches a stray call: any CUDA call another
 thread makes while it runs (a launch on the legacy default stream, a
@@ -250,6 +257,29 @@ class CaptureGate:
 GATE = CaptureGate()
 
 
+# reason (``uncaptured_reason``) -> steps a StepRunner ran uncaptured
+uncaptured_steps: Counter = Counter()
+
+
+def uncaptured_reason(ops, op_defs) -> Optional[str]:
+    """Why a block of ``ops`` (their resolved ``op_defs``) cannot run as
+    one CUDA graph, or None when it can: the first op that draws from a
+    host-seeded generator, loops on the host or calls back into Python
+    on the host, looked for in the ops' sub-blocks too."""
+    for op, d in zip(ops, op_defs):
+        for flag in ("host_rng", "host_loop", "host_callback"):
+            if getattr(d, flag):
+                return f"{flag} op '{op.type}'"
+        for v in op.attrs.values():
+            if isinstance(v, Block):
+                sub = list(v.ops)
+                why = uncaptured_reason(sub, [resolve_op_def(o.type)
+                                              for o in sub])
+                if why is not None:
+                    return f"{why} in block {v.idx}"
+    return None
+
+
 @dataclasses.dataclass
 class LoweredBlock:
     """A runnable block: ``fn(state, feeds, seed, host_seed=None) ->
@@ -261,9 +291,11 @@ class LoweredBlock:
     ``state_in_names``: persistable vars read before being written —
     gathered from the Scope. ``state_out_names``: every state-in var plus
     every persistable var the block writes; the executor commits them
-    back to the Scope. ``capturable``: no op draws from a host-seeded
-    generator or loops on the host (``while``, whose body is captured on
-    its own: ``LoopRunner``), so the block may run as a CUDA graph.
+    back to the Scope. ``uncaptured`` says why the block cannot run as a
+    CUDA graph (``uncaptured_reason``: an op draws from a host-seeded
+    generator, loops on the host (``while``, whose body is captured on
+    its own: ``LoopRunner``) or calls back into Python on the host, at
+    any depth of sub-blocks), or is None when it can (``capturable``).
     """
 
     fn: Callable
@@ -272,7 +304,11 @@ class LoweredBlock:
     feed_names: Tuple[str, ...]
     fetch_names: Tuple[str, ...]
     needs_rng: bool
-    capturable: bool
+    uncaptured: Optional[str]
+
+    @property
+    def capturable(self) -> bool:
+        return self.uncaptured is None
 
 
 def analyze_state(
@@ -345,7 +381,7 @@ def lower_block(
         feed_names=tuple(feed_names),
         fetch_names=fetch_names,
         needs_rng=any(d.needs_rng or d.host_rng for d in op_defs),
-        capturable=not any(d.host_rng or d.host_loop for d in op_defs),
+        uncaptured=uncaptured_reason(ops, op_defs),
     )
 
 
@@ -595,6 +631,8 @@ class StepRunner:
         """The runner's call: eager first (the warm-up) and for a block
         that cannot be captured, captured from the second call on."""
         self.calls += 1
+        if not self.lowered.capturable:
+            uncaptured_steps[self.lowered.uncaptured] += 1
         if self.calls == 1 or not self.lowered.capturable:
             return run_eager(self.lowered, scope,
                              {n: as_tensor(v, self.device)

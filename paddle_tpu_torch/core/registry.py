@@ -13,8 +13,14 @@ fills) instead receive ``generator``, a ``torch.Generator`` seeded on the
 host for the op and the run: a block that holds one is never captured
 (core/lowering.py). A ``host_loop`` op (``while``) runs a loop on the
 host, so its block is never captured whole either: the op captures its
-loop body itself (ops/control_flow_ops.py). Shape inference runs the
-same function over tensors on ``device="meta"``
+loop body itself (ops/control_flow_ops.py). A ``host_callback`` op
+(``print``, ``py_func``) calls back into Python on the host each time it
+runs, so a block that holds one, at any depth of sub-blocks, is never
+captured, and the executor counts its steps as uncaptured
+(core/lowering.py). A ``sub_blocks`` op (``scan``, ``cond``,
+``bounded_while``) runs the ops of its sub-blocks inside its compute and
+receives ``amp``, the block's AMP setting, for them. Shape inference
+runs the same function over tensors on ``device="meta"``
 (framework.infer_op_outputs).
 
 Gradients follow the JAX package's convention: an op without a
@@ -60,6 +66,12 @@ class OpDef:
     # after each iteration); a block that holds such an op is never
     # captured whole, the op captures its body itself.
     host_loop: bool = False
+    # True if compute calls back into Python on the host (print, py_func);
+    # a block that holds such an op, at any depth, is never captured.
+    host_callback: bool = False
+    # True if compute runs the ops of its sub-blocks (scan, cond,
+    # bounded_while) and wants the block's ``amp`` setting for them.
+    sub_blocks: bool = False
     doc: str = ""
 
     def __post_init__(self):
@@ -79,6 +91,8 @@ def register_op(
     needs_rng: bool = False,
     host_rng: bool = False,
     host_loop: bool = False,
+    host_callback: bool = False,
+    sub_blocks: bool = False,
     doc: str = "",
 ) -> Callable[[ComputeFn], ComputeFn]:
     """Decorator registering ``fn`` as the compute for op ``type``."""
@@ -95,6 +109,8 @@ def register_op(
             needs_rng=needs_rng,
             host_rng=host_rng,
             host_loop=host_loop,
+            host_callback=host_callback,
+            sub_blocks=sub_blocks,
             doc=doc or (fn.__doc__ or ""),
         )
         return fn

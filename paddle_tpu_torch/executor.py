@@ -25,7 +25,9 @@ captured: that is read from the program's ops before it runs, and such a
 block runs eagerly at every call. So does a block that holds a ``while``
 op, whose loop runs on the host: its body is captured on its own
 (core/lowering.py ``LoopRunner``), one runner by (program, op, shapes)
-on the executor, in its graph pool. Anything else that cannot be captured
+on the executor, in its graph pool. So does a block that holds a
+``print`` or ``py_func`` op at any depth of sub-blocks (a host callback
+at every step): ``lowering.uncaptured_steps`` counts its steps. Anything else that cannot be captured
 raises, naming the program and the op; nothing gives way to an eager run
 on the card. ``close()`` frees the graphs and their memory pool.
 

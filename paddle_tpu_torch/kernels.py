@@ -133,17 +133,45 @@ def check(name: str, rc: int, what: str) -> None:
 launch_counts: Counter = Counter()
 _COUNTS_LOCK = threading.Lock()
 _recording = threading.local()
+# a recording thread's counter, lent to the threads that launch on its
+# behalf while it waits for them (``lend_recording``)
+_lent: Optional[Counter] = None
 
 
 def count(key) -> None:
     """Add one to ``launch_counts[key]``, or to the calling thread's
-    ``recording`` counter while it records."""
+    ``recording`` counter while it records (or to the counter a waiting
+    recording thread lent)."""
     rec = getattr(_recording, "counter", None)
+    if rec is None:
+        rec = _lent
     if rec is not None:
-        rec[key] += 1
+        with _COUNTS_LOCK:
+            rec[key] += 1
         return
     with _COUNTS_LOCK:
         launch_counts[key] += 1
+
+
+@contextlib.contextmanager
+def lend_recording():
+    """While the calling thread records (a capture) and waits for other
+    threads that launch kernels on its behalf, count their launches into
+    its recording: autograd runs a derived grad op's backward of CUDA
+    tensors on its own device threads (the attention backward kernels of
+    a ``scan_grad``), inside the capture. A capture holds the capture
+    gate alone (core/lowering.py), so no other executor launches
+    meanwhile."""
+    global _lent
+    rec = getattr(_recording, "counter", None)
+    if rec is None:
+        yield
+        return
+    prev, _lent = _lent, rec
+    try:
+        yield
+    finally:
+        _lent = prev
 
 
 def add_counts(counts) -> None:

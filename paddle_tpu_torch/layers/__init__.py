@@ -8,7 +8,15 @@ from paddle_tpu_torch.layers.more import *  # noqa: F401,F403
 from paddle_tpu_torch.layers import detection  # noqa: F401
 from paddle_tpu_torch.layers.detection import *  # noqa: F401,F403
 from paddle_tpu_torch.layers.control_flow import (  # noqa: F401
+    DynamicRNN,
+    IfElse,
+    Print,
+    StaticRNN,
+    Switch,
     While,
+    array_fill,
+    array_write_step,
+    cond,
     while_loop,
 )
 from paddle_tpu_torch.layers import learning_rate_scheduler  # noqa: F401

@@ -2,7 +2,9 @@
 modules use: the all-finite check and ``greater_equal`` (amp.py's
 loss-scaling state machine builds on both), four activations, and the
 recurrent units ``dynamic_lstmp``, ``lstm_unit`` and ``gru_unit``
-(ops/rnn_ops.py). The bool outputs are fresh vars that stop gradients;
+(ops/rnn_ops.py), and the dense arrays ``create_array`` /
+``array_write`` / ``array_read`` (a preallocated ``[maxlen, ...]``
+tensor, layers/control_flow.py ``array_fill``). The bool outputs are fresh vars that stop gradients;
 ``greater_equal`` takes ``cond`` for the JAX package's signature and
 builds a new var, as there."""
 
@@ -13,7 +15,8 @@ from paddle_tpu_torch.layer_helper import append_simple_op as _op
 from paddle_tpu_torch.param_attr import ParamAttr
 
 __all__ = ["isfinite", "greater_equal", "brelu", "soft_relu", "stanh",
-           "selu", "dynamic_lstmp", "lstm_unit", "gru_unit"]
+           "selu", "dynamic_lstmp", "lstm_unit", "gru_unit",
+           "create_array", "array_write", "array_read"]
 
 
 def _bool_op(op_type, inputs, name=None):
@@ -146,3 +149,33 @@ def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
         attrs={"activation": activation, "gate_activation": gate_activation,
                "origin_mode": origin_mode})
     return out, reset, gate
+
+
+def create_array(dtype, maxlen, template=None, value=0.0):
+    """Fixed-capacity dense array (the reference's LoDTensorArray; see
+    control_flow.array_fill: a captured step needs static shapes, so the
+    capacity is declared up front)."""
+    from paddle_tpu_torch.layers.control_flow import array_fill
+
+    if template is None:
+        raise ValueError(
+            "create_array needs a `template` variable: the dense design "
+            "preallocates [maxlen, *template.shape]")
+    return array_fill(maxlen, template, value)
+
+
+def array_write(x, i, array):
+    """Write x at position i (reference: array_write). Returns the
+    UPDATED array (functional, not in place)."""
+    from paddle_tpu_torch.layers.control_flow import array_write_step
+
+    return array_write_step(array, i, x)
+
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(dtype=array.dtype)
+    helper.append_op("dynamic_slice",
+                     inputs={"X": [array], "Index": [i]},
+                     outputs={"Out": [out]}, attrs={})
+    return out

@@ -28,7 +28,9 @@ __all__ = [
     "square_error_cost", "matmul", "reduce_mean", "reduce_min",
     "reduce_prod", "flatten", "sequence_pool", "sequence_softmax",
     "sequence_mask", "sequence_reverse", "sequence_expand", "im2sequence",
-    "sequence_conv", "add_position_encoding",
+    "sequence_conv", "add_position_encoding", "linear_chain_crf",
+    "crf_decoding", "warpctc", "edit_distance", "chunk_eval",
+    "ctc_greedy_decoder", "py_func", "hash", "tree_conv",
 ]
 
 
@@ -48,7 +50,7 @@ def _single_op(op_type, x, attrs=None, dtype=None, slot_in="X", slot_out="Out",
 
 
 def fc(
-    input: Variable,
+    input: Union[Variable, Sequence[Variable]],
     size: int,
     num_flatten_dims: int = 1,
     param_attr=None,
@@ -57,22 +59,37 @@ def fc(
     is_test: bool = False,
     name: Optional[str] = None,
 ):
-    """Fully-connected layer: ``mul`` + bias add + activation.
-    ``is_test`` is taken for the JAX package's signature and changes
+    """Fully-connected layer: ``mul`` + bias add + activation; a list of
+    inputs gets one weight each, their products summed. ``is_test`` is
+    taken for the JAX package's signature and changes
     nothing, as there."""
     helper = LayerHelper("fc", name=name, bias_attr=bias_attr, act=act)
-    in_features = math.prod(input.shape[num_flatten_dims:])
-    w = helper.create_parameter(
-        ParamAttr._to_attr(param_attr), shape=[in_features, size],
-        dtype=input.dtype,
-    )
-    pre_bias = helper.create_variable_for_type_inference(dtype=input.dtype)
-    helper.append_op(
-        "mul",
-        inputs={"X": input, "Y": w},
-        outputs={"Out": pre_bias},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = (param_attr if isinstance(param_attr, (list, tuple))
+                   else [param_attr] * len(inputs))
+    mul_results = []
+    for x, pa in zip(inputs, param_attrs):
+        in_features = math.prod(x.shape[num_flatten_dims:])
+        w = helper.create_parameter(
+            ParamAttr._to_attr(pa), shape=[in_features, size],
+            dtype=x.dtype,
+        )
+        tmp = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(
+            "mul",
+            inputs={"X": x, "Y": w},
+            outputs={"Out": tmp},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        # several inputs: their products summed, one bias (the JAX fc's)
+        pre_bias = helper.create_variable_for_type_inference(
+            dtype=inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": pre_bias})
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -912,3 +929,239 @@ def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
     return _single_op("add_position_encoding", input,
                       attrs={"alpha": float(alpha), "beta": float(beta)},
                       name=name)
+
+
+# --- structured prediction, metrics and host callbacks (ops/crf_ops.py,
+# ops/metric_ops.py, ops/misc_ops.py) ---
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """CRF loss layer (reference: layers/nn.py linear_chain_crf).
+    ``input`` [b, t, c] emissions, ``label`` [b, t]; creates the [c+2, c]
+    transition parameter. Returns the per-sequence NEGATIVE
+    log-likelihood [b, 1] (the reference kernel's semantics: minimize
+    ``mean(...)`` directly)."""
+    helper = LayerHelper("linear_chain_crf")
+    c = input.shape[-1]
+    trans = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=[c + 2, c], dtype=input.dtype,
+    )
+    ll = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Emission": input, "Transition": trans, "Label": label}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(
+        "linear_chain_crf", inputs=inputs, outputs={"LogLikelihood": ll}
+    )
+    return ll
+
+
+def crf_decoding(input, param_attr=None, label=None, length=None):
+    """Viterbi decode with a (shared, by ParamAttr name) transition
+    parameter (reference: layers/nn.py crf_decoding). With ``label``, the
+    output is the reference's per-position correctness mask (1 where the
+    Viterbi path agrees with the label) instead of tag ids."""
+    helper = LayerHelper("crf_decoding")
+    c = input.shape[-1]
+    trans = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=[c + 2, c], dtype=input.dtype,
+    )
+    out = helper.create_variable_for_type_inference(
+        dtype="int64", stop_gradient=True)
+    inputs = {"Emission": input, "Transition": trans}
+    if length is not None:
+        inputs["Length"] = length
+    helper.append_op(
+        "crf_decoding", inputs=inputs, outputs={"ViterbiPath": out}
+    )
+    if label is None:
+        return out
+    return cast(equal(out, label), "int64")
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss (reference: layers/nn.py warpctc). ``input`` [b, t, c]
+    unnormalized logits (batch-major; the reference's time-major LoD
+    convention becomes padded + length vectors)."""
+    helper = LayerHelper("warpctc")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Logits": input, "Label": label}
+    if input_length is not None:
+        inputs["LogitsLength"] = input_length
+    if label_length is not None:
+        inputs["LabelLength"] = label_length
+    helper.append_op(
+        "warpctc", inputs=inputs, outputs={"Loss": out},
+        attrs={"blank": blank, "norm_by_times": norm_by_times},
+    )
+    return out
+
+
+def edit_distance(input, label, normalized=True, input_length=None,
+                  label_length=None):
+    """Levenshtein distance a row (reference: layers/nn.py
+    edit_distance). Returns (distance [b, 1], seq_num [1])."""
+    helper = LayerHelper("edit_distance")
+    out = helper.create_variable_for_type_inference(
+        dtype="float32", stop_gradient=True)
+    num = helper.create_variable_for_type_inference(
+        dtype="int64", stop_gradient=True)
+    inputs = {"Hyps": input, "Refs": label}
+    if input_length is not None:
+        inputs["HypsLength"] = input_length
+    if label_length is not None:
+        inputs["RefsLength"] = label_length
+    helper.append_op(
+        "edit_distance", inputs=inputs,
+        outputs={"Out": out, "SequenceNum": num},
+        attrs={"normalized": normalized},
+    )
+    return out, num
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """Chunk-level P / R / F1 for tagging (reference: layers/nn.py
+    chunk_eval). Returns (precision, recall, f1, n_infer, n_label,
+    n_correct)."""
+    helper = LayerHelper("chunk_eval")
+    outs = {}
+    for slot, dt in [("Precision", "float32"), ("Recall", "float32"),
+                     ("F1-Score", "float32"), ("NumInferChunks", "int64"),
+                     ("NumLabelChunks", "int64"),
+                     ("NumCorrectChunks", "int64")]:
+        outs[slot] = helper.create_variable_for_type_inference(
+            dtype=dt, stop_gradient=True)
+    inputs = {"Inference": input, "Label": label}
+    if seq_length is not None:
+        inputs["SeqLength"] = seq_length
+    helper.append_op(
+        "chunk_eval", inputs=inputs, outputs=outs,
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return (outs["Precision"], outs["Recall"], outs["F1-Score"],
+            outs["NumInferChunks"], outs["NumLabelChunks"],
+            outs["NumCorrectChunks"])
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """Greedy CTC decode: the argmax a step, then ctc_align's merge and
+    blank removal (reference: layers/nn.py ctc_greedy_decoder). ``input``
+    [B, T, C] probabilities; returns (decoded [B, T] left-compacted with
+    -1 / 0 padding, out_length [B, 1])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    top1 = argmax(input, axis=-1)
+    decoded = helper.create_variable_for_type_inference(
+        dtype="int64", stop_gradient=True)
+    out_len = helper.create_variable_for_type_inference(
+        dtype="int32", stop_gradient=True)
+    inputs = {"Input": top1}
+    if input_length is not None:
+        inputs["InputLength"] = input_length
+    helper.append_op(
+        "ctc_align", inputs=inputs,
+        outputs={"Output": decoded, "OutputLength": out_len},
+        attrs={"blank": blank, "merge_repeated": True})
+    return decoded, out_len
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """Register a user Python callable as an operator (reference:
+    layers/nn.py:11059 py_func + operators/py_func_op.cc:105). ``func``
+    runs on the host each time the op runs (a step that holds it is not
+    captured as a CUDA graph); ``out`` variables must be created
+    beforehand with shapes and dtypes (the reference's contract).
+    ``backward_func`` receives the forward inputs, the forward outputs,
+    then the output gradients (None where absent), and returns the input
+    gradients (None = no grad)."""
+    from paddle_tpu_torch.ops.misc_ops import register_py_func
+
+    helper = LayerHelper("py_func")
+    if x is None:
+        x = []
+    elif isinstance(x, Variable):
+        x = [x]
+    if out is None:
+        out_list = []
+    elif isinstance(out, Variable):
+        out_list = [out]
+    else:
+        out_list = list(out)
+    for o in out_list:
+        if o.shape is None:
+            raise ValueError(
+                "py_func output shapes must be provided by users manually")
+        if any(int(d) < 0 for d in o.shape):
+            raise ValueError(
+                f"py_func output '{o.name}' has dynamic shape "
+                f"{tuple(o.shape)}; the host callback needs a static "
+                f"signature — declare concrete dims (including batch)")
+    fwd_id = register_py_func(func)
+    bwd_id = register_py_func(backward_func) if backward_func else -1
+    skip = skip_vars_in_backward_input
+    if isinstance(skip, Variable):
+        skip = [skip]
+    skip_names = [v.name if isinstance(v, Variable) else v
+                  for v in skip or []]
+    in_out = {v.name for v in list(x) + out_list}
+    for n in skip_names:
+        if n not in in_out:
+            raise ValueError(f"Variable {n} is not found in forward inputs "
+                             f"and outputs")
+    helper.append_op(
+        "py_func",
+        inputs={"X": list(x)},
+        outputs={"Out": out_list},
+        attrs={
+            "forward_callable_id": fwd_id,
+            "backward_callable_id": bwd_id,
+            "out_shapes": [[int(d) for d in o.shape] for o in out_list],
+            "out_dtypes": [str(o.dtype) for o in out_list],
+            "backward_skip_vars": skip_names,
+        },
+    )
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """Multi-seed feature hashing into ``[0, hash_size)`` buckets
+    (reference: layers/nn.py:10456 + operators/hash_op.cc). ``input``
+    [N, d] integer ids; output [N, num_hash, 1]: XXH64 buckets, the
+    reference's and the JAX package's under x64."""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference(
+        dtype=input.dtype, stop_gradient=True)
+    helper.append_op(
+        "hash", inputs={"X": input}, outputs={"Out": out},
+        attrs={"num_hash": num_hash, "mod_by": hash_size})
+    return out
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """Tree-based convolution over node features (reference:
+    layers/nn.py:11351 tree_conv + operators/tree_conv_op.cc).
+    ``nodes_vector`` [N, n, f], ``edge_set`` [N, e, 2] directional
+    parent->child 1-indexed edges; output [N, n, output_size,
+    num_filters]."""
+    helper = LayerHelper("tree_conv", name=name, bias_attr=bias_attr,
+                         act=act)
+    dtype = nodes_vector.dtype
+    feature_size = int(nodes_vector.shape[2])
+    w = helper.create_parameter(
+        attr=param_attr, shape=[feature_size, 3, output_size, num_filters],
+        dtype=dtype, is_bias=False)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        "tree_conv",
+        inputs={"NodesVector": nodes_vector, "EdgeSet": edge_set,
+                "Filter": w},
+        outputs={"Out": out},
+        attrs={"max_depth": max_depth})
+    if bias_attr is not False:
+        out = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(out)

@@ -13,8 +13,8 @@ from paddle_tpu_torch.framework import (
 )
 from paddle_tpu_torch.layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "fill_constant", "assign", "zeros_like",
-           "range_", "slice"]
+__all__ = ["create_global_var", "create_parameter", "fill_constant",
+           "assign", "zeros_like", "range_", "slice"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -35,6 +35,22 @@ def create_global_var(shape, value, dtype, persistable=False,
     mb = default_main_program().global_block()
     return mb.create_var(name=name, shape=shape, dtype=dtype,
                          persistable=persistable)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape`` (``name`` when ``attr`` names none),
+    initialized by the startup program."""
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr._to_attr(attr)
+    if name and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(
+        attr, shape, dtype, is_bias=is_bias,
+        default_initializer=default_initializer,
+    )
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

@@ -5,9 +5,12 @@ from paddle_tpu_torch.ops import (  # noqa: F401
     activation_ops,
     attention_ops,
     control_flow_ops,
+    crf_ops,
     decode_ops,
     detection_ops,
     math_ops,
+    metric_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     quant_ops,

@@ -79,16 +79,21 @@ def _sdpa(ins, attrs, device, seed=None):
     in training (``dropout_prob > 0`` and not ``is_test``), attention
     dropout inside the kernel from the op's seed handle; emits Out (Q's
     dtype) and the real f32 logsumexp rows Lse ([b, tq, h, 1] or [b, h,
-    tq, 1]), which the grad op consumes."""
+    tq, 1]), which the grad op consumes. The kernels run inside
+    autograd.Functions (``flash_attention_bthd_with_lse`` /
+    ``flash_attention_with_lse``) whose backward is the registered
+    grad's, because their outputs are opaque to autograd on the card and
+    a derived grad op re-runs this op with grad enabled (a scan body's
+    attention); under no_grad they are the bare kernel calls."""
     q, k, v = _x(ins, "Q"), _x(ins, "K"), _x(ins, "V")
     scale, p_drop, seed = _sdpa_config(ins, attrs, seed)
     causal = bool(attrs.get("causal", False))
     if _bthd_layout(attrs):
-        out, lse = fa.flash_attention_bthd_fwd(q, k, v, _x(ins, "Bias"),
-                                               seed, scale, p_drop, causal)
+        out, lse = fa.flash_attention_bthd_with_lse(
+            q, k, v, _x(ins, "Bias"), seed, scale, p_drop, causal)
     else:
-        out, lse = fa.flash_attention_fwd(q, k, v, _x(ins, "Bias"), seed,
-                                          scale, p_drop, causal=causal)
+        out, lse = fa.flash_attention_with_lse(
+            q, k, v, _x(ins, "Bias"), seed, scale, p_drop, causal=causal)
     return {"Out": [out], "Lse": [lse]}
 
 

@@ -223,7 +223,10 @@ def _dropout(ins, attrs, device, seed=None):
     says which); ``upscale_in_train`` scales kept elements by 1/(1 - p)
     (rounded to f32) in training, ``downgrade_in_infer`` scales by (1 - p)
     at test time. The mask is the hash of the op's seed and each element's
-    index (``dropout_fwd``; its bits differ from the JAX package's)."""
+    index (``dropout_fwd``; its bits differ from the JAX package's). The
+    kernel runs inside ``_Dropout``, whose backward is ``dropout_grad``'s,
+    because a derived grad op re-runs this op with grad enabled (a scan
+    body's dropout); under no_grad it is the bare kernel call."""
     x = _x(ins)
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
@@ -233,9 +236,37 @@ def _dropout(ins, attrs, device, seed=None):
         return {"Out": [x * (1.0 - p)], "Mask": []}
     if p <= 0.0:
         return {"Out": [x], "Mask": []}
-    out, mask = dropout_fwd(x, 0 if seed is None else seed, p,
-                            impl == "upscale_in_train")
+    seed = 0 if seed is None else seed
+    upscale = impl == "upscale_in_train"
+    out, mask = _Dropout.apply(x, seed, p, upscale)
     return {"Out": [out], "Mask": [mask]}
+
+
+def _dropout_bwd(g, mask, p, upscale):
+    """dX of a training-mode dropout from its saved Mask."""
+    keep = mask.to(torch.bool)
+    gs = g * rng.keep_scale(p) if upscale else g
+    return torch.where(keep, gs, torch.zeros((), dtype=g.dtype,
+                                             device=g.device))
+
+
+class _Dropout(torch.autograd.Function):
+    """``dropout_fwd`` differentiable through autograd: the backward is
+    ``dropout_grad``'s arithmetic from the saved mask (no bits are drawn
+    again)."""
+
+    @staticmethod
+    def forward(ctx, x, seed, p, upscale):
+        out, mask = dropout_fwd(x, seed, p, upscale)
+        ctx.save_for_backward(mask)
+        ctx.p, ctx.upscale = p, upscale
+        ctx.mark_non_differentiable(mask)
+        return out, mask
+
+    @staticmethod
+    def backward(ctx, g, _g_mask):
+        (mask,) = ctx.saved_tensors
+        return _dropout_bwd(g, mask, ctx.p, ctx.upscale), None, None, None
 
 
 @register_op("dropout_grad", no_grad=True)
@@ -250,10 +281,7 @@ def _dropout_grad(ins, attrs, device):
     elif p <= 0.0:  # the forward was the identity (no mask)
         dx = g
     else:
-        keep = _x(ins, "Mask").to(torch.bool)
-        gs = g * rng.keep_scale(p) if impl == "upscale_in_train" else g
-        dx = torch.where(keep, gs, torch.zeros((), dtype=g.dtype,
-                                               device=g.device))
+        dx = _dropout_bwd(g, _x(ins, "Mask"), p, impl == "upscale_in_train")
     return {"GRAD::X": [dx]}
 
 

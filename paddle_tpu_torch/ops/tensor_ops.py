@@ -33,6 +33,19 @@ def _fill_constant(ins, attrs, device):
                                device=device)]}
 
 
+@register_op("fill_constant_batch_size_like", no_grad=True)
+def _fill_constant_batch_size_like(ins, attrs, device):
+    """``fill_constant`` whose dim ``output_dim_idx`` is Input's dim
+    ``input_dim_idx`` (a memory's batch, layers/control_flow.py)."""
+    ref = _x(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[int(attrs.get("output_dim_idx", 0))] = ref.shape[
+        int(attrs.get("input_dim_idx", 0))]
+    dtype = torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+                               dtype=dtype, device=ref.device)]}
+
+
 @register_op("fill_zeros_like", no_grad=True)
 def _fill_zeros_like(ins, attrs, device):
     return {"Out": [torch.zeros_like(_x(ins))]}
@@ -236,7 +249,8 @@ def _dynamic_update(ins, attrs, device):
     of X. The index clamps into range like ``lax.dynamic_update_slice``,
     and stays a tensor so the op never syncs the host."""
     x = _x(ins)
-    idx = ins["Index"][0].reshape(1).clamp(0, x.shape[0] - 1)
+    idx = ins["Index"][0].reshape(1).to(torch.int64).clamp(
+        0, x.shape[0] - 1)
     v = ins["Value"][0].to(x.dtype).unsqueeze(0)
     return {"Out": [x.index_copy(0, idx, v)]}
 

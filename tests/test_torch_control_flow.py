@@ -300,8 +300,12 @@ def test_while_layer_errors():
         i = L.fill_constant(shape=[1], dtype="int64", value=0)
         lim = L.fill_constant(shape=[1], dtype="int64", value=3)
         cond = L.less_than(i, lim)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            L.While(cond, max_trip_count=4)
+        # a bound makes the loop the differentiable bounded_while
+        with L.While(cond, max_trip_count=4).block():
+            L.increment(i, value=1.0, in_place=True)
+            L.less_than(i, lim, cond=cond)
+        op = main.global_block().ops[-1]
+        assert (op.type, op.attrs["max_trip_count"]) == ("bounded_while", 4)
         with pytest.raises(ValueError, match="condition"):
             with L.While(cond).block():
                 L.increment(i, value=1.0, in_place=True)

@@ -2328,3 +2328,106 @@ def test_captured_lstm_step_equals_the_eager_step(cuda):
     for n in se:
         assert torch.equal(se[n], sc[n]), n
     assert float(lc[-1]) != float(lc[0])
+
+
+# --- slice 20: scan, cond, hash on the card -------------------------------
+
+
+def _scan_layer_grads(dev, amp):
+    """One build_scan step (2 + 2 layers, dropout 0.1 in attention and in
+    the layer bodies) on ``dev`` from the CPU's startup state: the loss
+    and the stacked weights' gradients, which come from the derived
+    scan_grad re-running each layer (the attention and dropout kernels
+    through their autograd.Functions on the card)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(src_vocab_size=64, trg_vocab_size=64,
+                              max_length=32, d_model=128, d_inner=256,
+                              n_head=2, n_layer=2, dropout=0.1,
+                              label_smooth_eps=0.1)
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_prog, startup), fluid.unique_name.guard():
+        model = T.build_scan(cfg)
+        fluid.append_backward(model["loss"])
+    if amp:
+        fluid.amp.enable_amp(main_prog)
+    main_prog.random_seed = startup.random_seed = 20
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    state = {n: scope.find_var(n).numpy() for n in scope.var_names()}
+    names = ["enc_stack_qkv.w_stacked@GRAD", "enc_stack_ffn1.w_stacked@GRAD",
+             "dec_stack_self_q.w_stacked@GRAD", "dec_stack_q.w_stacked@GRAD",
+             "src_emb.w@GRAD"]
+    place = fluid.CUDAPlace(0) if dev.type == "cuda" else fluid.CPUPlace()
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(tio.scope_from_numpy(state, place)):
+        got = exe.run(main_prog, feed=T.make_batch(cfg, 4, 16, 12, seed=3),
+                      fetch_list=[model["loss"]] + names)
+    exe.close()
+    return [np.asarray(g, np.float64) for g in got]
+
+
+@pytest.mark.parametrize("amp,tol", [(False, 1e-4), (True, 3e-2)])
+def test_scan_grad_through_the_kernels_equals_the_cpu(cuda, amp, tol):
+    """scan_grad over Transformer layers with dropout on the card against
+    the CPU: the dropout masks are one hash on both, so the gradients
+    agree within f32 (1e-4 of the largest element) or bf16 AMP (3e-2)
+    rounding; none is zero (the kernels' outputs reach autograd)."""
+    from paddle_tpu_torch import kernels
+
+    kernels.reset_counts()
+    got = _scan_layer_grads(cuda, amp)
+    assert kernels.launch_counts["dropout"] > 0
+    assert fa.launched("fwd") > 0 and fa.launched("bwd") > 0
+    want = _scan_layer_grads(torch.device("cpu"), amp)
+    for g, w in zip(got, want):
+        assert np.abs(w).max() > 0
+        err = np.abs(g - w).max() / np.abs(w).max()
+        assert err <= tol, err
+
+
+def test_cond_grad_is_finite_on_the_card(cuda):
+    """cond(False, log(x), 2 x) at x = 0: the registered cond_grad's
+    gradient is 2 everywhere on the card (the untaken log's inf never
+    reaches it)."""
+    import paddle_tpu_torch as fluid
+
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        blk = main.global_block()
+        x = blk.create_var(name="x", shape=(3,), dtype="float32",
+                           stop_gradient=False)
+        flag = blk.create_var(name="flag", shape=(1,), dtype="bool")
+        out = fluid.layers.cond(flag, lambda: fluid.layers.log(x),
+                                lambda: fluid.layers.scale(x, 2.0))
+        (dx,) = fluid.gradients(fluid.layers.reduce_sum(out), x)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        for cached in (False, True, True):
+            o, g = exe.run(main, feed={"x": np.zeros(3, np.float32),
+                                       "flag": np.array([False])},
+                           fetch_list=[out, dx], use_program_cache=cached)
+            np.testing.assert_array_equal(g, np.full(3, 2.0, np.float32))
+            np.testing.assert_array_equal(o, np.zeros(3, np.float32))
+    exe.close()
+
+
+@pytest.mark.parametrize("dtype,d", [(np.int64, 9), (np.int64, 2),
+                                     (np.int32, 11)])
+def test_hash_bits_on_the_card_equal_the_cpu(cuda, dtype, d):
+    """XXH64 buckets in int64 tensor ops: the card's bits are the CPU's
+    (tests/test_torch_crf.py holds the CPU to the JAX op and the
+    spec)."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    x = np.random.RandomState(d).randint(-2 ** 31, 2 ** 31 - 1,
+                                         (64, d)).astype(dtype)
+    attrs = {"num_hash": 4, "mod_by": 100003}
+    outs = [get_op_def("hash").compute(
+        {"X": [torch.from_numpy(x).to(dev)]}, dict(attrs), dev)["Out"][0]
+        for dev in (cuda, torch.device("cpu"))]
+    assert torch.equal(outs[0].cpu(), outs[1])

@@ -475,6 +475,65 @@ _KEYWORD_CALLS = {
             L.fc(v["x"], 6), L.fc(v["y"], 2), 6, param_attr=None,
             bias_attr=None, activation="tanh", gate_activation="sigmoid",
             origin_mode=False)[0], ["x", "y"]),
+    # slice 20: structured prediction, metrics, host callbacks, control
+    # flow and the dense arrays
+    "fc(list of inputs, list of param_attrs)": (lambda L, fluid, v: L.fc(
+        [v["x"], v["y"]], 3, param_attr=[fluid.ParamAttr(name="kw_fl0.w"),
+                                         fluid.ParamAttr(name="kw_fl1.w")],
+        act="tanh"), ["x", "y"]),
+    "linear_chain_crf(param_attr, length)": (
+        lambda L, fluid, v: L.linear_chain_crf(
+            v["s"], v["tags"], param_attr=fluid.ParamAttr(name="kw_crfw"),
+            length=v["m"]), ["s", "tags", "m"]),
+    "crf_decoding(param_attr, label, length)": (
+        lambda L, fluid, v: L.crf_decoding(
+            v["s"], param_attr=fluid.ParamAttr(name="kw_crfw2"),
+            label=v["tags"], length=v["m"]), ["s", "tags", "m"]),
+    "warpctc(blank, norm_by_times, input_length, label_length)": (
+        lambda L, fluid, v: L.warpctc(
+            v["s"], v["lab2"], blank=0, norm_by_times=True,
+            input_length=v["m"], label_length=v["k"]),
+        ["s", "lab2", "m", "k"]),
+    "edit_distance(normalized, input_length, label_length)": (
+        lambda L, fluid, v: L.edit_distance(
+            v["tags"], v["lab2"], normalized=True, input_length=v["m"],
+            label_length=v["k"])[0], ["tags", "lab2", "m", "k"]),
+    "chunk_eval(excluded_chunk_types, seq_length)": (
+        lambda L, fluid, v: L.chunk_eval(
+            v["tags"], L.scale(v["tags"], scale=1.0), chunk_scheme="IOB",
+            num_chunk_types=2, excluded_chunk_types=[1],
+            seq_length=v["m"])[2], ["tags", "m"]),
+    "ctc_greedy_decoder(blank, input_length)": (
+        lambda L, fluid, v: L.ctc_greedy_decoder(
+            L.softmax(v["s"]), blank=0, input_length=v["m"], name=None)[0],
+        ["s", "m"]),
+    "hash(hash_size, num_hash)": (lambda L, fluid, v: L.hash(
+        v["ids"], hash_size=100, num_hash=2, name=None), ["ids"]),
+    "tree_conv(output_size, num_filters, max_depth, act, ...)": (
+        lambda L, fluid, v: L.tree_conv(
+            v["s"], v["edges"], 3, num_filters=2, max_depth=2, act="tanh",
+            param_attr=fluid.ParamAttr(name="kw_tc.w"), bias_attr=None,
+            name=None), ["s", "edges"]),
+    "Print(first_n, message, summarize, ...)": (lambda L, fluid, v: L.Print(
+        v["x"], first_n=1, message="kw", summarize=3,
+        print_tensor_name=True, print_tensor_type=True,
+        print_tensor_shape=True, print_tensor_lod=True,
+        print_phase="both"), ["x"]),
+    "cond(pred, true_fn, false_fn, name)": (lambda L, fluid, v: L.cond(
+        L.less_than(L.reduce_sum(v["x"]),
+                    L.fill_constant([1], "float32", 0.0)),
+        lambda: L.scale(v["x"], 2.0), lambda: L.scale(v["y"], -1.0),
+        name=None), ["x", "y"]),
+    "create_parameter, create_array, array_write, array_read": (
+        lambda L, fluid, v: L.elementwise_add(v["x"], L.array_read(
+            L.array_write(
+                L.create_parameter([6], "float32", name="kw_cp", attr=None,
+                                   is_bias=True, default_initializer=None),
+                L.fill_constant([1], "int64", 1),
+                L.create_array("float32", 3,
+                               template=L.fill_constant([6], "float32", 0.0),
+                               value=0.5)),
+            L.fill_constant([1], "int64", 1))), ["x"]),
 }
 
 _FEEDS = {
@@ -484,10 +543,17 @@ _FEEDS = {
     "label": np.random.RandomState(9).randint(0, 6, (4, 1)).astype(np.int64),
     "s": np.random.RandomState(10).randn(4, 6, 4).astype(np.float32),
     "n": np.array([6, 3, 0, 5], np.int64),
+    "m": np.array([6, 3, 2, 5], np.int64),
+    "k": np.array([2, 1, 0, 2], np.int64),
+    "tags": np.random.RandomState(11).randint(0, 4, (4, 6)).astype(np.int64),
+    "lab2": np.random.RandomState(12).randint(1, 4, (4, 2)).astype(np.int64),
+    "edges": np.tile(np.array([[1, 2], [1, 3], [2, 4], [0, 0], [0, 0]],
+                              np.int64), (4, 1, 1)),
 }
 _DECL = {"x": ([6], "float32"), "y": ([6], "float32"), "ids": ([5], "int64"),
          "label": ([1], "int64"), "s": ([6, 4], "float32"),
-         "n": ([], "int64")}
+         "n": ([], "int64"), "m": ([], "int64"), "k": ([], "int64"), "tags": ([6], "int64"),
+         "lab2": ([2], "int64"), "edges": ([5, 2], "int64")}
 
 
 @pytest.mark.parametrize("case", sorted(_KEYWORD_CALLS))
