@@ -8,7 +8,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 1. the card: name and power limit (nvidia-smi), torch's device name;
 2. build every CUDA source in csrc/ (six sources, one nvcc each, all
    started together) and print ptxas' register / shared-memory report and
-   each build's seconds (or that it was cached);
+   each build's seconds (or that it was cached); while the two attention
+   sources compile (minutes), the phases that launch none of their
+   kernels run on the card, in this order: 17, 3c (once the study
+   sources have built), 7, 8 and 15 (once the dropout source has built);
+   phase 3 waits for every build;
 3. hold each kernel against its plain PyTorch version on the card, with
    stated tolerances, and time kernel, plain version and the one PyTorch
    library call that computes the same function (the yardstick, never
@@ -275,7 +279,24 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     hash, print / py_func in a training step (uncaptured, printing every
     step), the card against the CPU, and the CRF / CTC ops in f64;
     bounded to 120 s;
-17. print the kernels' JSON line, the card line, and the result line.
+17. the op-library slice (``op_library``), a line naming each sub-phase
+    before it runs: (17a) each of the slice's 88 op types (math, tensor,
+    nn, proximal optimizer) at small shapes in f64 on the card against
+    the CPU, outputs and derived gradients (one normal cotangent an
+    output; ``op_and_grads``), the draws of the random ops bit for bit and
+    each random op held to its properties (range, uniformity, moments);
+    (17b) the word2vec chapter's N-gram model at a 10,000-word
+    vocabulary (4 context words, embedding 256, fc 1024 relu, batch 1024,
+    Adam 1e-3) with four heads: fc + softmax + the older cross_entropy,
+    hsigmoid, nce (10 negatives), sampled softmax (1,024 samples), each
+    50 steps eager and captured, equal bit for bit, the loss falling, the
+    captured step's wall and device ms, launches, examples/s, and two f32
+    steps against the CPU (TF32 off); (17c) the DCGAN generator (z 100 ->
+    4 x 4 x 1024 -> conv2d_transpose 512, 256, 128, 3 -> 64 x 64 x 3) at
+    batch 128, f32 and bf16 AMP, Adam(2e-4, beta1 0.5), 20 steps eager
+    and captured equal bit for bit (cuDNN deterministic for that check),
+    timed, and two f32 steps at batch 8 against the CPU; bounded to 120 s;
+18. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
 freed).
@@ -1912,21 +1933,25 @@ def _upstream(program, idx):
     return need
 
 
-def hold_cpu_f32(np, program, names, ref, got):
-    """The CPU's f32 step against its f64 step (TOL_GATE_REL): ``ref`` /
-    ``got`` hold the f64 / f32 fetches, the loss, the gradients of
-    ``names`` and the pre-activation of every relu gate, in that order.
-    Returns the loss error, each gradient's relative error, the flipped
-    gates and the gradients they reach (printed, not held)."""
+def hold_vs_f64(np, program, names, ref, got,
+                tol=(TOL_STEP_LOSS, TOL_GATE_REL, TOL_STEP_GRAD_REL)):
+    """A step in f32 (or bf16) against the same step in f64, held as
+    TOL_GATE_REL sets out: ``ref`` / ``got`` hold the f64 / other fetches,
+    the loss, the gradients of ``names`` and the pre-activation of every
+    relu gate of ``program``, in that order; ``tol``: (loss absolute,
+    gate, gradient relative to its largest element). Returns the loss
+    error, each gradient's relative error, the flipped gates and the
+    gradients they reach (printed, not held)."""
+    tol_loss, tol_gate, tol_grad = tol
     gates = _relu_gates(program)
     k = 1 + len(names)
     assert len(ref) == len(got) == k + len(gates)
     loss_err = abs(float(got[0]) - float(ref[0]))
-    assert loss_err <= TOL_STEP_LOSS, (float(got[0]), float(ref[0]))
+    assert loss_err <= tol_loss, (float(got[0]), float(ref[0]))
     flips, reached, gate_err = {}, set(), 0.0
     for (idx, name), x32, x64 in zip(gates, got[k:], ref[k:]):
         err = float(np.abs(x32 - x64).max() / np.abs(x64).max())
-        assert err <= TOL_GATE_REL, (name, err)
+        assert err <= tol_gate, (name, err)
         gate_err = max(gate_err, err)
         flipped = (x32 > 0) != (x64 > 0)
         if flipped.any():
@@ -1937,11 +1962,11 @@ def hold_cpu_f32(np, program, names, ref, got):
     rel = {n: float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
            for n, g, c in zip(names, got[1:k], ref[1:k])}
     held = {n: e for n, e in rel.items() if n not in reached}
-    assert max(held.values(), default=0.0) <= TOL_STEP_GRAD_REL, held
+    assert max(held.values(), default=0.0) <= tol_grad, held
     return {"loss_err": loss_err, "gate_rel_err": gate_err,
             "flipped_gates": flips, "grad_rel_err": held,
             "reached_by_a_flip": {n: e for n, e in rel.items()
-                                  if n in reached}}
+                                  if n in reached}, "tol": list(tol)}
 
 
 def cpu_steps(np, fluid, program, state, feed, fetch):
@@ -1966,7 +1991,7 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
     """Phase 6/6b: one f32 training step (dropout 0, Adam) on the card,
     through the captured path, against the same step, from the same
     state, on the CPU in f64; and the CPU's own f32 step against its f64
-    step (``hold_cpu_f32``)."""
+    step (``hold_vs_f64``)."""
     from paddle_tpu_torch import kernels
 
     cfg = T.TransformerConfig(dropout=0.0, n_layer=n_layer,
@@ -2011,8 +2036,8 @@ def train_vs_cpu(torch, np, fluid, T, fa, *, n_layer, seq, batch,
             "launches": launches[f"{route}/bwd"],
             "loss_gpu": float(gpu[0]), "loss_cpu_f64": float(ref[0]),
             "loss_err": loss_err, "grad_rel_err": rel,
-            "cpu_f32_vs_f64": hold_cpu_f32(np, main_prog, names, ref,
-                                           cpu["float32"])}
+            "cpu_f32_vs_f64": hold_vs_f64(np, main_prog, names, ref,
+                                          cpu["float32"])}
 
 
 def _study_row(name, shape, launch, plain, library, match, err, tol, flops,
@@ -2400,32 +2425,35 @@ def live_shapes(resnet_prog, se_prog, batch, conv_shapes, gconv_shapes):
     return counts
 
 
-def vision_vs_cpu(torch, np, fluid, name, build, names, head, *, double,
-                  batch=4, image=64, classes=1000):
-    """Phase 8: one training step (TF32 off, Momentum) of a vision model
-    on the card, through the captured path, against the same step, from
-    the same state and batch, on the CPU: the loss and the named
-    gradients, each relative to its largest element. ``double``: state
-    and images cast to float64 (every op of the path follows its inputs'
-    dtype), and every named gradient is held; in f32 only those of
-    ``head`` (the classifier's) are."""
-    main_prog, startup, model = _build_vision(fluid, build, VISION_LR,
-                                              amp=False)
-    rng = np.random.RandomState(SEED)
-    wide = np.float64 if double else np.float32
-    feed = {"data": rng.uniform(-1, 1, (batch, 3, image, image)).astype(wide),
-            "label": rng.randint(0, classes, (batch, 1)).astype(np.int64)}
-    fetch = [model["loss"]] + [n + "@GRAD" for n in names]
-    from paddle_tpu_torch import io as tio
-
+def card_startup_state(fluid, startup):
+    """The state ``startup`` makes on the card: {name: numpy array}."""
     scope = fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     with fluid.scope_guard(scope):
         exe.run(startup)
     exe.close()
-    state = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
-    state = {n: v.astype(wide) if v.dtype == np.float32 else v
-             for n, v in state.items()}
+    return {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
+
+
+def step_vs_cpu(np, fluid, name, main_prog, state, loss, feed, names, held,
+                tol, *, double, extra=()):
+    """One training step (TF32 off) of ``main_prog`` on the card, through
+    the captured path, against the same step, from the same ``state``
+    and ``feed``, on the CPU: the loss (absolute) and the gradients of
+    ``names``, each relative to its largest element; those of ``held``
+    within ``tol`` = (loss, gradient), the others printed. ``double``:
+    state and float feeds cast to float64 (every op of the path follows
+    its inputs' dtype). ``extra``: vars fetched after the gradients.
+    Returns (row, the card's fetches, the CPU's)."""
+    from paddle_tpu_torch import io as tio
+
+    wide = np.float64 if double else np.float32
+
+    def cast(d):
+        return {n: v.astype(wide) if v.dtype == np.float32 else v
+                for n, v in d.items()}
+    state, feed = cast(state), cast(feed)
+    fetch = [loss] + [n + "@GRAD" for n in names] + list(extra)
     gpu = run_captured(fluid, main_prog, state, feed, fetch)
     with fluid.scope_guard(tio.scope_from_numpy(state, fluid.CPUPlace())):
         cpu = fluid.Executor(fluid.CPUPlace()).run(main_prog, feed=feed,
@@ -2435,17 +2463,14 @@ def vision_vs_cpu(torch, np, fluid, name, build, names, head, *, double,
     rel = {}
     for n, g, c in zip(names, gpu[1:], cpu[1:]):
         assert g.shape == c.shape and np.isfinite(g).all(), n
-        rel[n] = float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30))
-    tol_loss, tol_grad = TOL_VISION_F64 if double else TOL_VISION_F32
-    row = {"model": name, "dtype": np.dtype(wide).name, "batch": batch,
-           "image": image, "loss_gpu": float(gpu[0]),
-           "loss_cpu": float(cpu[0]), "loss_err": loss_err,
-           "grad_rel_err": rel, "tol_loss": tol_loss,
-           "tol_grad_rel": tol_grad,
-           "grads_held": list(names if double else head)}
-    held = names if double else head
-    assert loss_err <= tol_loss and max(rel[n] for n in held) <= tol_grad, row
-    return row
+        rel[n] = _rel_err(np, g, c)
+    row = {"model": name, "dtype": np.dtype(wide).name,
+           "feed_shapes": {k: list(v.shape) for k, v in feed.items()},
+           "loss_gpu": float(gpu[0]), "loss_cpu": float(cpu[0]),
+           "loss_err": loss_err, "grad_rel_err": rel, "tol_loss": tol[0],
+           "tol_grad_rel": tol[1], "grads_held": list(held)}
+    assert loss_err <= tol[0] and max(rel[n] for n in held) <= tol[1], row
+    return row, gpu, cpu
 
 
 # Phase 9 (export and deploy): tolerances. The exported program runs the
@@ -4376,13 +4401,7 @@ def family_vs_cpu(torch, np, fluid, name, build, make_opt, feeds, names, *,
                                                      amp=False)
     slots = opt.slot_descriptor()
     adam = isinstance(opt, fluid.optimizer.Adam)
-    scope = fluid.Scope()
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    with fluid.scope_guard(scope):
-        exe.run(startup)
-    exe.close()
-    state = {n: scope.find_var(n).cpu().numpy() for n in scope.var_names()}
-    del scope
+    state = card_startup_state(fluid, startup)
     fetch = [model["loss"]] + [model.get(k, k) for _, k in exact] \
         + list(names)
     gpu, gpu_final = _family_steps(fluid, fluid.CUDAPlace(0), main_prog,
@@ -5343,24 +5362,29 @@ def _rnn_op_cases(np):
     ]
 
 
-def op_and_grads(torch, np, op_type, ins, attrs, dev, seed):
+def op_and_grads(torch, np, op_type, ins, attrs, dev, seed, op_seed=None):
     """One op's outputs and its derived gradients (``make_grad_compute``)
     on ``dev`` from numpy inputs ``ins``, for one normal cotangent an
-    output drawn from ``seed``: {slot: numpy array}, outputs and grads."""
+    output drawn from ``seed`` (in a float output's dtype, else f64):
+    {slot: numpy array}, outputs and grads. ``op_seed``: a random op's
+    seed handle, for the op and its grad."""
     from paddle_tpu_torch.core import autodiff
     from paddle_tpu_torch.core.registry import get_op_def
 
     opdef = get_op_def(op_type)
-    t_ins = {k: [torch.from_numpy(v).to(dev) for v in vs]
+    rng_kw = {} if op_seed is None else {"seed": op_seed}
+    t_ins = {k: [torch.from_numpy(np.asarray(v)).to(dev) for v in vs]
              for k, vs in ins.items()}
-    outs = opdef.compute(t_ins, dict(attrs), dev)
+    outs = opdef.compute(t_ins, dict(attrs), dev, **rng_kw)
     r = np.random.RandomState(seed)
     g_ins = dict(t_ins, **outs)
     g_ins.update({"GRAD::" + k: [torch.from_numpy(
-        r.normal(0, 1, tuple(v[0].shape))).to(dev)] for k, v in outs.items()})
+        r.normal(0, 1, tuple(v[0].shape))).to(
+            dev, v[0].dtype if v[0].is_floating_point() else torch.float64)]
+        for k, v in outs.items()})
     grads = autodiff.make_grad_compute(opdef)(
         g_ins, dict(attrs, fwd_input_slots=list(ins),
-                    fwd_output_slots=list(outs)), dev)
+                    fwd_output_slots=list(outs)), dev, **rng_kw)
     return {k: v[0].cpu().numpy()
             for k, v in list(outs.items()) + list(grads.items())
             if v and v[0] is not None}
@@ -6291,6 +6315,666 @@ def control_flow(torch, np, fluid, T, fa, tmp):
     return out, launches
 
 
+# --- phase 17: the op-library slice ----------------------------------------
+
+# 17a: the slice's op types, card against CPU in f64 (one normal cotangent
+# an output): outputs and derived gradients relative to their largest
+# element; f32 outputs (the metrics' histograms, the random ops' values)
+# at f32's rounding; integers, bools and the random ops' draws exactly
+TOL_SLICE_F64_REL = 1e-10
+TOL_SLICE_F32_REL = 1e-5
+# 17b: the word2vec chapter's N-gram model (tests/test_book.py:117) at the
+# Penn Treebank vocabulary of Mikolov et al.'s language models: 4 context
+# words, a shared 256-wide embedding, fc 1024 relu, batch 1024; four heads
+NGRAM_VOCAB, NGRAM_CTX, NGRAM_EMB, NGRAM_HIDDEN = 10000, 4, 256, 1024
+NGRAM_B, NGRAM_STEPS, NGRAM_LR = 1024, 50, 1e-3
+NGRAM_NEG, NGRAM_SAMPLES = 10, 1024
+NGRAM_HEADS = ("cross_entropy", "hsigmoid", "nce", "sampled_softmax")
+# the bigram corpus: each word's successor is its fixed permutation image
+# with probability NGRAM_FOLLOW, else uniform (tests/test_book.py:121-128)
+NGRAM_FOLLOW = 0.8
+# 17c: the DCGAN generator of Radford et al. 2016, Fig. 1: z 100 -> 4 x 4 x
+# 1024 -> conv2d_transpose 512, 256, 128, 3 (4 x 4, stride 2, padding 1),
+# batch_norm + relu between, tanh out: 64 x 64 x 3; batch 128, Adam(2e-4,
+# beta1 0.5), mean square error against seeded targets
+DCGAN_Z, DCGAN_BASE, DCGAN_WIDTHS = 100, 1024, (512, 256, 128, 3)
+DCGAN_B, DCGAN_STEPS, DCGAN_LR, DCGAN_BETA1 = 128, 20, 2e-4, 0.5
+# the CPU's part of 17c: the same widths at batch 8, one step from the
+# card's startup state against the CPU's f64 step. The card's f64 step:
+# the loss (absolute) and every gradient relative to its largest element
+# (read on an H100: 5.6e-15). The card's f32 step as phase 6 holds the
+# CPU's (``hold_vs_f64``, TOL_GATE_REL): the loss (read 1.2e-8), every
+# relu gate's pre-activation (read 6.9e-7) and the gradients no flipped
+# gate reaches (read 3.0e-7, the output layer's). One gate flips there:
+# a pre-activation of the last relu is +8.6e-7 in f64 and -3.0e-7 in
+# f32, so every gradient upstream of it moves (up to 1.1e-2 of its
+# largest element; with cuDNN off no gate flips and every gradient reads
+# <= 9.0e-7: paddle_tpu_torch/benchmarks/conv_transpose_precision.py).
+# No op is at fault: each algorithm cuDNN picks is IEEE f32, which
+# ``conv_transpose_ops_f32`` holds at TOL_SLICE_F32_REL (read <= 3.0e-6;
+# TF32's 10-bit inputs would round at 4.9e-4). The bf16 AMP step the
+# same way at bf16's rounding (8 significant bits): TOL_DCGAN_BF16 =
+# (loss absolute: read 4.3e-5 of a loss of 0.55; gate: read 1.1e-2;
+# gradient: read 7.0e-3, the output layer's)
+DCGAN_CPU_B = 8
+TOL_DCGAN_F64 = (1e-11, 1e-10)
+TOL_DCGAN_BF16 = (1e-3, 3e-2, 3e-2)
+
+
+def ngram_head_model(fluid, head, vocab=NGRAM_VOCAB, ctx=NGRAM_CTX,
+                     emb=NGRAM_EMB, hidden=NGRAM_HIDDEN, neg=NGRAM_NEG,
+                     samples=NGRAM_SAMPLES):
+    """17b's next-word model with one of NGRAM_HEADS: the context words'
+    shared embeddings concatenated, fc ``hidden`` relu, then (i) fc to
+    the vocabulary, softmax and the older ``cross_entropy``; (ii)
+    ``hsigmoid``; (iii) ``nce`` with ``neg`` negatives; (iv)
+    ``sampled_softmax_with_cross_entropy`` of ``samples`` over the fc
+    logits. Returns {"loss": mean cost}."""
+    layers = fluid.layers
+    words = layers.data("ctx", shape=[ctx], dtype="int64")
+    nxt = layers.data("next", shape=[1], dtype="int64")
+    embs = layers.embedding(words, size=[vocab, emb],
+                            param_attr=fluid.ParamAttr(name="shared_emb.w"))
+    h = layers.fc(layers.reshape(embs, [0, ctx * emb]), hidden, act="relu")
+    if head == "cross_entropy":
+        cost = layers.cross_entropy(layers.fc(h, vocab, act="softmax"), nxt)
+    elif head == "hsigmoid":
+        cost = layers.hsigmoid(h, nxt, vocab)
+    elif head == "nce":
+        cost = layers.nce(h, nxt, vocab, num_neg_samples=neg)
+    else:
+        cost = layers.sampled_softmax_with_cross_entropy(
+            layers.fc(h, vocab), nxt, samples)
+    return {"loss": layers.mean(cost)}
+
+
+def ngram_feeds(np, vocab, ctx, batch, steps, seed):
+    """``steps`` batches of (``ctx`` words, the next word) windows from a
+    seeded bigram corpus, consecutive windows, one batch after another."""
+    r = np.random.RandomState(seed)
+    succ = r.permutation(vocab)
+    n = batch * steps + ctx
+    follow = r.rand(n) < NGRAM_FOLLOW
+    other = r.randint(vocab, size=n)
+    corpus = np.empty(n, np.int64)
+    corpus[0] = 0
+    for i in range(1, n):
+        corpus[i] = succ[corpus[i - 1]] if follow[i] else other[i]
+    idx = np.arange(batch * steps)[:, None] + np.arange(ctx + 1)[None, :]
+    win = corpus[idx]
+    return [{"ctx": win[s * batch:(s + 1) * batch, :ctx],
+             "next": win[s * batch:(s + 1) * batch, ctx:]}
+            for s in range(steps)]
+
+
+def dcgan_generator(fluid, base=DCGAN_BASE, widths=DCGAN_WIDTHS, z=DCGAN_Z):
+    """17c's generator: z -> fc to 4 x 4 x ``base`` -> batch_norm + relu ->
+    a conv2d_transpose (4 x 4, stride 2, padding 1) a width, batch_norm +
+    relu between them, tanh after the last; the loss is the mean square
+    error against the ``target`` images. Returns {"loss", "image"}."""
+    layers = fluid.layers
+    noise = layers.data("z", shape=[z], dtype="float32")
+    side = 4 * 2 ** len(widths)
+    target = layers.data("target", shape=[widths[-1], side, side],
+                         dtype="float32")
+    x = layers.reshape(layers.fc(noise, 4 * 4 * base), [0, base, 4, 4])
+    x = layers.batch_norm(x, act="relu")
+    for i, width in enumerate(widths):
+        last = i == len(widths) - 1
+        x = layers.conv2d_transpose(x, width, filter_size=4, stride=2,
+                                    padding=1, bias_attr=False if not last
+                                    else None, act="tanh" if last else None)
+        if not last:
+            x = layers.batch_norm(x, act="relu")
+    return {"loss": layers.mean(layers.square_error_cost(x, target)),
+            "image": x}
+
+
+def dcgan_feeds(np, batch, steps, seed, z=DCGAN_Z, side=64, channels=3):
+    r = np.random.RandomState(seed)
+    return [{"z": r.uniform(-1, 1, (batch, z)).astype(np.float32),
+             "target": np.tanh(r.normal(0, 1, (batch, channels, side, side)))
+             .astype(np.float32)} for _ in range(steps)]
+
+
+def slice_op_cases(np):
+    """(name, op type, inputs, attrs) of every op type of the slice at
+    small shapes, float inputs f64; the random ops' value dtype f32. Kinks
+    of max / abs are kept off the inputs."""
+    r = np.random.RandomState(SEED + 17)
+
+    def f(*shape, scale=1.0):
+        return r.normal(0, scale, shape)
+
+    def off0(*shape):
+        x = f(*shape)
+        return np.where(np.abs(x) < 0.1, 0.3, x)
+
+    def probs(*shape):
+        p = r.uniform(0.05, 1.0, shape)
+        return p / p.sum(-1, keepdims=True)
+
+    def ints(hi, *shape):
+        return r.randint(0, hi, shape).astype(np.int64)
+
+    def bits(*shape):
+        return r.rand(*shape) < 0.5
+
+    y01 = ints(2, 6, 1).astype(np.float64)
+    ypm = np.where(y01 > 0, 1.0, -1.0)
+    x1 = f(6, 1)
+    labels = np.stack([r.choice(40, 2, replace=False) for _ in range(6)])
+    grid = r.uniform(-1.2, 1.2, (2, 3, 2, 2))
+    return [
+        # math_ops
+        ("p_norm", {"X": [off0(3, 5)]}, {"porder": 3.0, "axis": 1}),
+        ("log_loss", {"Predicted": [r.uniform(0.05, 0.95, (6, 1))],
+                      "Labels": [y01]}, {}),
+        ("rank_loss", {"Label": [y01], "Left": [f(6, 1)],
+                       "Right": [f(6, 1)]}, {}),
+        ("margin_rank_loss", {"Label": [ypm], "X1": [x1], "X2": [
+            x1 - ypm * np.array([[.5], [-.7], [1.2], [-.3], [.9], [-1.5]])]},
+         {"margin": 0.1}),
+        ("hinge_loss", {"Logits": [np.array([[.2], [-1.7], [2.5], [.6],
+                                             [-.4], [1.3]])],
+                        "Labels": [y01]}, {}),
+        ("kldiv_loss", {"X": [np.log(probs(3, 5))],
+                        "Target": [probs(3, 5)]}, {"reduction": "batchmean"}),
+        ("bpr_loss", {"X": [f(4, 6)], "Label": [ints(6, 4, 1)]}, {}),
+        ("cos_sim", {"X": [f(4, 5)], "Y": [f(4, 5)]}, {}),
+        ("sign", {"X": [f(3, 4)]}, {}),
+        ("minus", {"X": [f(3, 4)], "Y": [f(3, 4)]}, {}),
+        ("l1_norm", {"X": [off0(3, 4)]}, {}),
+        ("squared_l2_distance", {"X": [f(4, 3, 2)], "Y": [f(4, 3, 2)]}, {}),
+        ("modified_huber_loss", {"X": [np.array([[-2.], [-.5], [.3], [1.6],
+                                                 [.8], [-1.3]])],
+                                 "Y": [y01]}, {}),
+        ("teacher_student_sigmoid_loss", {
+            "X": [np.array([[-20.], [-.5], [.3], [1.6], [18.], [-1.3]])],
+            "Label": [np.array([[0.], [-1.], [.4], [1.], [.7], [0.]])]}, {}),
+        ("cvm", {"X": [np.abs(f(4, 6)) * 3], "CVM": [f(4, 2)]}, {}),
+        ("data_norm", {"X": [f(5, 3)], "BatchSize": [np.full(3, 1e4)],
+                       "BatchSum": [f(3, scale=100.0)],
+                       "BatchSquareSum": [np.abs(f(3, scale=1e4)) + 1e3]},
+         {}),
+        ("spectral_norm", {"Weight": [f(4, 3, 2)], "U": [f(4)],
+                           "V": [f(6)]}, {"dim": 0, "power_iters": 2}),
+        ("fsp", {"X": [f(2, 3, 4, 5)], "Y": [f(2, 4, 4, 5)]}, {}),
+        ("is_empty", {"X": [f(2, 3)]}, {}),
+        ("fill", {}, {"value": [1.5, -2.0, 3.25, 0.0, 7.0, 8.5],
+                      "shape": [2, 3], "dtype": "float64"}),
+        ("uniform_random_batch_size_like", {"Input": [f(7, 5)]},
+         {"shape": [-1, 300], "min": -2.0, "max": 3.0}),
+        ("gaussian_random_batch_size_like", {"Input": [f(7, 5)]},
+         {"shape": [-1, 300], "mean": 1.5, "std": 0.5}),
+        ("cross_entropy2", {"X": [probs(5, 4)], "Label": [ints(4, 5, 1)]},
+         {"ignore_index": 0}),
+        ("fill_zeros_like2", {"X": [f(3, 2)]}, {}),
+        ("reduce_all", {"X": [bits(3, 4)]}, {"dim": [1]}),
+        ("reduce_any", {"X": [bits(3, 4)]}, {}),
+        ("has_inf", {"X": [np.array([1.0, np.inf])]}, {}),
+        ("has_nan", {"X": [np.array([1.0, np.nan])]}, {}),
+        ("elementwise_mod", {"X": [f(3, 4, scale=5.0)],
+                             "Y": [np.array([2.5, -3.0, 1.5, -0.75])]}, {}),
+        ("not_equal", {"X": [ints(3, 3, 4)], "Y": [ints(3, 3, 4)]}, {}),
+        ("less_equal", {"X": [f(3, 4)], "Y": [f(4)]}, {}),
+        ("logical_or", {"X": [bits(3, 4)], "Y": [bits(3, 4)]}, {}),
+        ("logical_xor", {"X": [bits(3, 4)], "Y": [bits(3, 4)]}, {}),
+        # tensor_ops
+        ("truncated_gaussian_random", {}, {"shape": [300, 200], "mean": 0.5,
+                                           "std": 2.0}),
+        ("shape", {"X": [f(2, 3, 4)]}, {}),
+        ("stack", {"X": [f(2, 3), f(2, 3), f(2, 3)]}, {"axis": 1}),
+        ("unstack", {"X": [f(3, 4, 2)]}, {"axis": 1}),
+        ("expand_as", {"X": [f(3, 1)], "Y": [f(3, 4)]}, {}),
+        ("gather", {"X": [f(5, 3)], "Index": [np.array([[0, 4], [4, 1]])]},
+         {}),
+        ("arg_min", {"X": [f(3, 5)]}, {"axis": 1}),
+        ("cumsum", {"X": [f(2, 3, 4)]}, {"axis": -1, "reverse": True,
+                                          "exclusive": True}),
+        ("pad", {"X": [f(2, 3)]}, {"paddings": [1, 0, 2, 3],
+                                   "pad_value": 0.5}),
+        ("tile", {"X": [f(2, 3)]}, {"repeat_times": [2, 1]}),
+        ("reverse", {"X": [f(3, 4, 2)]}, {"axis": [0, 2]}),
+        ("argsort", {"X": [np.array([[1.0, -0.0, 2.0, 0.0, 1.0, -1.0]])]},
+         {"descending": True}),
+        ("diag", {"Diagonal": [f(4)]}, {}),
+        ("linspace", {"Start": [np.array([0.5])], "Stop": [np.array([3.0])]},
+         {"num": 7, "dtype": "float64"}),
+        ("gather_nd", {"X": [f(3, 4, 2)],
+                       "Index": [np.array([[0, 1], [2, 3], [0, 1]])]}, {}),
+        ("scatter_nd_add", {"X": [f(3, 4)],
+                            "Index": [np.array([[2], [0], [2]])],
+                            "Updates": [f(3, 4)]}, {}),
+        ("pad2d", {"X": [f(2, 3, 4, 5)]}, {"paddings": [1, 2, 2, 1],
+                                           "mode": "reflect"}),
+        ("pad_constant_like", {"X": [f(4, 5)], "Y": [f(2, 3)]},
+         {"pad_value": 1.5}),
+        ("crop", {"X": [f(3, 5, 4)]}, {"offsets": [1, 2, 0],
+                                       "shape": [2, 2, 3]}),
+        ("shuffle_channel", {"X": [f(2, 6, 2, 3)]}, {"group": 3}),
+        ("pixel_shuffle", {"X": [f(2, 8, 3, 2)]}, {"upscale_factor": 2}),
+        ("space_to_depth", {"X": [f(2, 3, 4, 6)]}, {"blocksize": 2}),
+        ("multiplex", {"X": [f(4, 3), f(4, 3), f(4, 3)],
+                       "Ids": [np.array([[2], [0], [1], [2]])]}, {}),
+        ("sampling_id", {"X": [probs(64, 9)]}, {}),
+        ("shard_index", {"X": [np.array([[1], [7], [15], [8]])]},
+         {"index_num": 16, "nshards": 2, "shard_id": 1,
+          "ignore_value": -1}),
+        ("flatten", {"X": [f(2, 3, 4)]}, {"axis": 2}),
+        ("anchor_generator", {"Input": [f(1, 8, 3, 5)]},
+         {"anchor_sizes": [32.0, 64.0], "stride": [16.0, 8.0]}),
+        ("reshape", {"X": [f(2, 3, 4)]}, {"shape": [0, -1, 2]}),
+        ("transpose", {"X": [f(2, 3, 4)]}, {"axis": [2, 0, 1]}),
+        ("squeeze", {"X": [f(2, 1, 3, 1)]}, {"axes": [1]}),
+        ("unsqueeze", {"X": [f(2, 3)]}, {"axes": [0, 2]}),
+        # nn_ops
+        ("conv2d_transpose", {"Input": [f(2, 4, 4, 3)],
+                              "Filter": [f(4, 3, 3, 2)]},
+         {"strides": [1, 2], "paddings": [0, 1], "dilations": [2, 1],
+          "groups": 2}),
+        ("cross_entropy", {"X": [probs(5, 4)], "Label": [ints(4, 5, 1)]},
+         {}),
+        ("huber_loss", {"X": [f(6, 1)], "Y": [f(6, 1)]}, {"delta": 0.8}),
+        ("smooth_l1_loss", {"X": [f(4, 3)], "Y": [f(4, 3)],
+                            "InsideWeight": [np.abs(f(4, 3)) + 0.5],
+                            "OutsideWeight": [np.abs(f(4, 3))]}, {}),
+        ("mean_iou", {"Predictions": [ints(5, 4, 6)],
+                      "Labels": [ints(5, 4, 6)]}, {"num_classes": 6}),
+        ("maxout", {"X": [f(2, 6, 3, 2)]}, {"groups": 3}),
+        ("prelu", {"X": [off0(2, 3, 2, 2)], "Alpha": [f(3)]},
+         {"mode": "channel"}),
+        ("group_norm", {"X": [f(2, 6, 3, 4)], "Scale": [f(6)],
+                        "Bias": [f(6)]}, {"groups": 3}),
+        ("sync_batch_norm", {"X": [f(4, 3, 2, 2)], "Scale": [f(3)],
+                             "Bias": [f(3)], "Mean": [f(3)],
+                             "Variance": [np.abs(f(3)) + 0.5]}, {}),
+        ("norm", {"X": [f(2, 3, 4)]}, {"axis": 1}),
+        ("affine_channel", {"X": [f(2, 3, 2, 2)], "Scale": [f(3)],
+                            "Bias": [f(3)]}, {}),
+        ("bilinear_interp", {"X": [f(2, 3, 4, 5)]},
+         {"out_h": 3, "out_w": 9, "align_corners": False, "align_mode": 0}),
+        ("nearest_interp", {"X": [f(2, 3, 4, 5)]}, {"out_h": 7,
+                                                     "out_w": 9}),
+        ("row_conv", {"X": [f(2, 5, 3)], "Filter": [f(3, 3)]}, {}),
+        ("temporal_shift", {"X": [f(6, 8, 2, 2)]}, {"seg_num": 3}),
+        ("grid_sampler", {"X": [f(2, 3, 4, 5)], "Grid": [grid]}, {}),
+        ("auc", {"Predict": [probs(64, 2)], "Label": [ints(2, 64, 1)]}, {}),
+        ("bilinear_tensor_product", {"X": [f(3, 4)], "Y": [f(3, 5)],
+                                     "Weight": [f(2, 4, 5)],
+                                     "Bias": [f(1, 2)]}, {}),
+        ("nce", {"Input": [f(6, 5)], "Label": [ints(40, 6, 1)],
+                 "Weight": [f(40, 5, scale=0.5)], "Bias": [f(40)]},
+         {"num_neg_samples": 7}),
+        ("hierarchical_sigmoid", {"X": [f(6, 5)], "W": [f(36, 5)],
+                                  "Bias": [f(36)],
+                                  "Label": [np.array([0, 36, 17, 31, 32, 3])]},
+         {"num_classes": 37}),
+        ("sample_logits", {"Logits": [f(6, 40)], "Labels": [labels]},
+         {"num_samples": 24}),
+        ("fc", {"Input": [f(2, 3, 4, 2)], "W": [f(8, 5)], "Bias": [f(5)]},
+         {"in_num_col_dims": 2}),
+        # optimizer_ops
+        ("proximal_gd", {"Param": [f(3, 4)], "Grad": [f(3, 4)],
+                         "LearningRate": [np.array([0.1])]},
+         {"l1": 0.2, "l2": 0.05}),
+        ("proximal_adagrad", {"Param": [f(3, 4)], "Grad": [f(3, 4)],
+                              "Moment": [np.abs(f(3, 4))],
+                              "LearningRate": [np.array([0.1])]},
+         {"l1": 0.1, "l2": 0.2}),
+    ]
+
+
+def slice_op_run(torch, np, op_type, ins, attrs, dev, seed):
+    """One op of 17a on ``dev``: ``op_and_grads`` (outputs and derived
+    gradients, one normal cotangent an output from ``seed``), or its
+    outputs alone for an op without a gradient; a random op receives the
+    op seed ``seed`` (``needs_rng``) or a generator seeded with it
+    (``host_rng``)."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    opdef = get_op_def(op_type)
+    kw = {}
+    if opdef.needs_rng:
+        kw["seed"] = rng.SeedHandle(torch.full((), seed, dtype=torch.int64,
+                                               device=dev), 0)
+    if opdef.host_rng:
+        kw["generator"] = torch.Generator(device=dev).manual_seed(seed)
+    if not opdef.no_grad:
+        return op_and_grads(torch, np, op_type, ins, attrs, dev, seed,
+                            op_seed=kw.get("seed"))
+    t_ins = {k: [torch.from_numpy(np.asarray(v)).to(dev) for v in vs]
+             for k, vs in ins.items()}
+    outs = opdef.compute(t_ins, dict(attrs), dev, **kw)
+    return {k: v[0].cpu().numpy() for k, v in outs.items() if v}
+
+
+def _random_properties(torch, np, op_type, got, ins, dev):
+    """The random ops' properties on the card: the batch-size-like
+    uniform in range and uniform (chi-square, 20 bins, p 1e-3: 43.82);
+    the normal's and the truncated normal's moments within 5 standard
+    errors (the truncated normal within 2 sigma); sampling_id's ids in
+    range; sample_logits' own draws (Samples past the true labels) in
+    range and uniform over 4096 rows of 64 (chi-square, 40 classes, p
+    1e-3: 72.05). nce outputs no draw: its classes come from the same
+    ``rng.op_randint``, held by 17a's words check."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    def chi2(counts):
+        want = counts.sum() / len(counts)
+        return float(((counts - want) ** 2 / want).sum())
+
+    if op_type == "uniform_random_batch_size_like":
+        v = got["Out"].ravel()
+        c = chi2(np.histogram(v, 20, (-2.0, 3.0))[0])
+        assert v.min() >= -2.0 and v.max() <= 3.0 and c < 43.82, c
+        return {"chi2_20_bins": c}
+    if op_type == "gaussian_random_batch_size_like":
+        v = got["Out"].ravel().astype(np.float64)
+        se = 0.5 / np.sqrt(v.size)
+        assert abs(v.mean() - 1.5) < 5 * se and abs(v.std() - 0.5) < 5 * se
+        return {"mean": float(v.mean()), "std": float(v.std())}
+    if op_type == "truncated_gaussian_random":
+        v = got["Out"].ravel().astype(np.float64)
+        phi, z = np.exp(-2.0) / np.sqrt(2 * np.pi), 0.9544997361036416
+        sd = 2.0 * np.sqrt(1 - 4 * phi / z)
+        assert v.min() >= 0.5 - 4.0 and v.max() <= 0.5 + 4.0
+        assert abs(v.mean() - 0.5) < 5 * sd / np.sqrt(v.size)
+        assert abs(v.std() - sd) < 5 * sd / np.sqrt(2 * v.size), v.std()
+        return {"mean": float(v.mean()), "std": float(v.std()),
+                "truncated_std": sd}
+    if op_type == "sampling_id":
+        ids = got["Out"]
+        assert ids.min() >= 0 and ids.max() < ins["X"][0].shape[1]
+        return {"ids": len(ids)}
+    if op_type == "nce":
+        return {"draws": "held by the words check"}
+    assert op_type == "sample_logits", op_type
+    r = np.random.RandomState(SEED)
+    big = {"Logits": [torch.from_numpy(r.normal(0, 1, (4096, 40))).to(dev)],
+           "Labels": [torch.from_numpy(r.randint(0, 40, (4096, 1))).to(dev)]}
+    seed = rng.SeedHandle(torch.full((), SEED, dtype=torch.int64,
+                                     device=dev), 0)
+    samples = get_op_def(op_type).compute(big, {"num_samples": 64}, dev,
+                                          seed=seed)["Samples"][0]
+    draws = samples[:, 1:].cpu().numpy()
+    c = chi2(np.bincount(draws.ravel(), minlength=40))
+    assert draws.min() >= 0 and draws.max() < 40 and c < 72.05, c
+    return {"chi2_40_classes": c, "draws": int(draws.size)}
+
+
+_DRAW_OPS = ("uniform_random_batch_size_like",
+             "gaussian_random_batch_size_like", "sampling_id")
+
+
+def ops_vs_cpu_17a(torch, np):
+    """17a: every op type of the slice on the card against the CPU (the
+    port's own plain ops on both; f64 inputs, one normal f64 cotangent an
+    output): f64 values and gradients within TOL_SLICE_F64_REL of their
+    largest element, f32 values within TOL_SLICE_F32_REL; integers and
+    bools exactly; the random ops that draw from the op seed bit for bit
+    (their words too), the host-seeded initializer by its properties
+    (the card's generator is not the CPU's), and each random op held to
+    its properties on the card."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    gpu_dev, cpu_dev = torch.device("cuda", 0), torch.device("cpu")
+    rows, types = {}, set()
+    for op, ins, attrs in slice_op_cases(np):
+        opdef = get_op_def(op)
+        gpu, cpu = (slice_op_run(torch, np, op, ins, attrs, d, SEED)
+                    for d in (gpu_dev, cpu_dev))
+        assert sorted(gpu) == sorted(cpu), (op, sorted(gpu), sorted(cpu))
+        # the draws themselves bit for bit; nce's and sample_logits'
+        # arithmetic over them as any op's (their words held below)
+        errs, exact = {}, op in _DRAW_OPS
+        for k, c in cpu.items():
+            g = gpu[k]
+            assert g.shape == c.shape and g.dtype == c.dtype, (op, k)
+            if opdef.host_rng:
+                continue
+            if exact or not np.issubdtype(c.dtype, np.floating):
+                assert np.array_equal(g, c, equal_nan=True), (op, k)
+                errs[k] = 0.0
+                continue
+            tol = (TOL_SLICE_F64_REL if c.dtype == np.float64
+                   else TOL_SLICE_F32_REL)
+            finite = np.isfinite(c)
+            assert np.array_equal(finite, np.isfinite(g)), (op, k)
+            errs[k] = (_rel_err(np, g[finite], c[finite]) if finite.any()
+                       else 0.0)
+            assert errs[k] <= tol, (op, k, errs[k], tol)
+        row = {"max_rel_err": max(errs.values(), default=None),
+               "values": len(cpu), "bit_equal": exact}
+        if opdef.needs_rng or opdef.host_rng:
+            if opdef.needs_rng:
+                words = [rng.op_words(rng.SeedHandle(torch.full(
+                    (), SEED, dtype=torch.int64, device=d), 0), (64, 64), d)
+                    .cpu() for d in (gpu_dev, cpu_dev)]
+                assert torch.equal(*words), op
+            row["properties"] = _random_properties(torch, np, op, gpu, ins,
+                                                   gpu_dev)
+        rows[op] = row
+        types.add(op)
+    assert len(types) == 88, len(types)
+    return {"op_types": len(types), "tol_f64_rel": TOL_SLICE_F64_REL,
+            "tol_f32_rel": TOL_SLICE_F32_REL, "ops": rows}
+
+
+def _falls(np, name, row):
+    """The loss of ``train_family``'s captured sequence (its bit check's
+    step-runner run) falls: every step's finite, the mean of the last
+    five below the first. Adds ``losses``: the first, middle and last."""
+    losses = row["captured_vs_eager"]["first_fetch"][2]
+    assert np.isfinite(losses).all(), (name, losses)
+    assert np.mean(losses[-5:]) < losses[0], (name, losses)
+    row["losses"] = [losses[0], losses[len(losses) // 2], losses[-1]]
+
+
+def op_launches(torch, np, op_type, ins, attrs):
+    """Kernels one op launches on the card, alone and in its derived grad
+    op (which re-runs the forward under autograd), from the traces of two
+    calls each (``_device_times``); float outputs take ones as their
+    cotangents."""
+    from paddle_tpu_torch.core import autodiff, rng
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    dev = torch.device("cuda", 0)
+    opdef = get_op_def(op_type)
+    t_ins = {k: [torch.from_numpy(np.asarray(v)).to(dev) for v in vs]
+             for k, vs in ins.items()}
+    kw = {}
+    if opdef.needs_rng:
+        kw["seed"] = rng.SeedHandle(torch.full((), SEED, dtype=torch.int64,
+                                               device=dev), 0)
+    outs = opdef.compute(t_ins, dict(attrs), dev, **kw)
+    g_ins = dict(t_ins, **outs)
+    g_ins.update({"GRAD::" + k: [torch.ones_like(v[0])]
+                  for k, v in outs.items() if v and v[0].is_floating_point()})
+    g_attrs = dict(attrs, fwd_input_slots=list(ins),
+                   fwd_output_slots=list(outs))
+    grad = autodiff.make_grad_compute(opdef)
+    fwd_counts, grad_counts = {}, {}
+    _device_times(lambda: opdef.compute(t_ins, dict(attrs), dev, **kw),
+                  iters=2, counts=fwd_counts)
+    _device_times(lambda: grad(g_ins, g_attrs, dev, **kw), iters=2,
+                  counts=grad_counts)
+    return {"forward": sum(fwd_counts.values()),
+            "derived_grad": sum(grad_counts.values())}
+
+
+def _head_op_case(np, head):
+    """(op type, inputs, attrs) of a 17b head's op at the phase's shapes."""
+    r = np.random.RandomState(SEED)
+    v, b, h = NGRAM_VOCAB, NGRAM_B, NGRAM_HIDDEN
+    x = r.normal(0, 1, (b, h)).astype(np.float32)
+    label = r.randint(0, v, (b, 1)).astype(np.int64)
+    if head == "hsigmoid":
+        return ("hierarchical_sigmoid",
+                {"X": [x], "W": [r.normal(0, 0.02, (v - 1, h))
+                                 .astype(np.float32)],
+                 "Bias": [np.zeros(v - 1, np.float32)], "Label": [label]},
+                {"num_classes": v})
+    if head == "nce":
+        return ("nce", {"Input": [x], "Label": [label],
+                        "Weight": [r.normal(0, 0.02, (v, h))
+                                   .astype(np.float32)],
+                        "Bias": [np.zeros(v, np.float32)]},
+                {"num_neg_samples": NGRAM_NEG})
+    return ("sample_logits",
+            {"Logits": [r.normal(0, 1, (b, v)).astype(np.float32)],
+             "Labels": [label]}, {"num_samples": NGRAM_SAMPLES})
+
+
+def heads_17b(torch, np, fluid, fa):
+    """17b: the N-gram model at a 10,000-word vocabulary with each of the
+    four heads, Adam(1e-3), trained by ``train_family``: NGRAM_STEPS
+    steps eager, through the step runner and through a run_steps window,
+    equal bit for bit, the loss falling (``_falls``), then the captured
+    step timed; two f32 steps on the card against the CPU
+    (``family_vs_cpu``, TF32 off: every gradient and the Adam moments);
+    and the launches of the head's own op (``op_launches``: the path
+    walk of hierarchical_sigmoid, nce's and sample_logits' draws)."""
+    feeds = ngram_feeds(np, NGRAM_VOCAB, NGRAM_CTX, NGRAM_B, NGRAM_STEPS,
+                        SEED)
+    out = {}
+    for head in NGRAM_HEADS:
+        def build(head=head):
+            return ngram_head_model(fluid, head)
+
+        def make_opt():
+            return fluid.optimizer.Adam(NGRAM_LR)
+
+        row, _ = train_family(torch, np, fluid, fa, head, build, make_opt,
+                              feeds, amp=False, items=NGRAM_B,
+                              unit="examples", window=20,
+                              equal_steps=NGRAM_STEPS)
+        _falls(np, head, row)
+        torch.cuda.empty_cache()
+        main_prog = _family_program(fluid, build, make_opt, False)[0]
+        names = [p.name + "@GRAD" for p in main_prog.all_parameters()
+                 if p.trainable]
+        row["vs_cpu"] = family_vs_cpu(torch, np, fluid, head, build,
+                                      make_opt, feeds[:2], names)
+        if head != "cross_entropy":
+            op, ins, attrs = _head_op_case(np, head)
+            row["head_op"] = op
+            row["head_op_launches"] = op_launches(torch, np, op, ins, attrs)
+        out[head] = row
+    return out
+
+
+def conv_transpose_ops_f32(torch, np):
+    """17c's conv2d_transpose op at each of the generator's four layers'
+    shapes (batch DCGAN_CPU_B, the smoke's cuDNN settings): f32 on the
+    card against f64 on the CPU, the output and the derived gradients
+    (``op_and_grads``) within TOL_SLICE_F32_REL of their largest element.
+    Returns each layer's errors."""
+    r = np.random.RandomState(SEED + 3)
+    attrs = {"strides": [2, 2], "paddings": [1, 1]}
+    rows, cin, side = {}, DCGAN_BASE, 4
+    for i, cout in enumerate(DCGAN_WIDTHS):
+        ins = {"Input": [r.normal(0, 1, (DCGAN_CPU_B, cin, side, side))],
+               "Filter": [r.normal(0, 0.02, (cin, cout, 4, 4))]}
+        want = op_and_grads(torch, np, "conv2d_transpose", ins, attrs,
+                            torch.device("cpu"), SEED)
+        got = op_and_grads(torch, np, "conv2d_transpose",
+                           {k: [v.astype(np.float32) for v in vs]
+                            for k, vs in ins.items()}, attrs,
+                           torch.device("cuda", 0), SEED)
+        assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+        assert all(v.dtype == np.float32 for v in got.values()), i
+        errs = {k: _rel_err(np, got[k], want[k]) for k in want}
+        assert max(errs.values()) <= TOL_SLICE_F32_REL, (i, errs)
+        rows[f"conv2d_transpose_{i}"] = errs
+        cin, side = cout, 2 * side
+    return rows
+
+
+def dcgan_17c(torch, np, fluid, fa):
+    """17c: the DCGAN generator at its published widths, batch 128, f32
+    and bf16 AMP, Adam(2e-4, beta1 0.5), trained by ``train_family``
+    (DCGAN_STEPS steps, captured = eager bit for bit under cuDNN's
+    deterministic algorithms, the loss falling, the timed turns on its
+    defaults). Then at the same widths and batch DCGAN_CPU_B against the
+    CPU's f64 step from the card's startup state: the card's f64 step
+    (every gradient), its f32 and its bf16 AMP steps (``hold_vs_f64``:
+    the loss, every relu gate's pre-activation, the gradients no flipped
+    gate reaches), and each conv2d_transpose op in f32 (see
+    TOL_DCGAN_F64)."""
+    feeds = dcgan_feeds(np, DCGAN_B, DCGAN_STEPS, SEED)
+
+    def build():
+        return dcgan_generator(fluid)
+
+    def make_opt():
+        return fluid.optimizer.Adam(DCGAN_LR, beta1=DCGAN_BETA1)
+
+    out = {}
+    for amp in (False, True):
+        row, _ = train_family(torch, np, fluid, fa, "dcgan", build, make_opt,
+                              feeds, amp=amp, items=DCGAN_B, unit="images",
+                              window=10, equal_steps=DCGAN_STEPS)
+        _falls(np, "dcgan", row)
+        out["bf16" if amp else "f32"] = row
+        torch.cuda.empty_cache()
+    main_prog, startup, model, _ = _family_program(fluid, build, make_opt,
+                                                   amp=False)
+    amp_prog = _family_program(fluid, build, make_opt, amp=True)[0]
+    names = [p.name for p in main_prog.all_parameters() if p.trainable]
+    grads = [n + "@GRAD" for n in names]
+    loss = model["loss"].name
+    gates = [n for _, n in _relu_gates(main_prog)]
+    state = card_startup_state(fluid, startup)
+    feed = dcgan_feeds(np, DCGAN_CPU_B, 1, SEED + 1)[0]
+    cut = (f"batch {DCGAN_CPU_B}, not {DCGAN_B}: the CPU's part of the "
+           f"phase bound")
+    out["vs_cpu_f64"], _, ref = step_vs_cpu(
+        np, fluid, "dcgan", main_prog, state, loss, feed, names, names,
+        TOL_DCGAN_F64, double=True, extra=gates)
+    out["vs_cpu_f64"]["cut"] = cut
+    f32 = run_captured(fluid, main_prog, state, feed, [loss] + grads + gates)
+    out["f32_vs_cpu_f64"] = hold_vs_f64(np, main_prog, names, ref, f32)
+    amp_gates = [n for _, n in _relu_gates(amp_prog)]
+    bf16 = run_captured(fluid, amp_prog, state, feed,
+                        [loss] + grads + amp_gates)
+    out["bf16_vs_cpu_f64"] = hold_vs_f64(np, main_prog, names, ref, bf16,
+                                         tol=TOL_DCGAN_BF16)
+    out["f32_vs_cpu_f64"]["cut"] = out["bf16_vs_cpu_f64"]["cut"] = cut
+    out["conv_transpose_f32_ops"] = conv_transpose_ops_f32(torch, np)
+    return out
+
+
+def op_library(torch, np, fluid, fa):
+    """Phase 17: the slice's op types card against CPU (17a), the
+    N-gram model's four large-vocabulary heads (17b), the DCGAN generator
+    (17c). Returns {sub-phase: row}; a line names each sub-phase before
+    it runs, and its ``oplib_`` line follows."""
+    out = {"t0": time.perf_counter()}
+
+    def done(key, row):
+        row["at_s"] = time.perf_counter() - out["t0"]
+        out[key] = row
+        print(f"oplib_{key} " + json.dumps(row), flush=True)
+
+    print("phase 17a: the slice's 88 op types, card against CPU in f64",
+          flush=True)
+    done("17a", ops_vs_cpu_17a(torch, np))
+    print(f"phase 17b: N-gram model, vocabulary {NGRAM_VOCAB}, heads "
+          f"{', '.join(NGRAM_HEADS)}, batch {NGRAM_B}, {NGRAM_STEPS} steps",
+          flush=True)
+    done("17b", heads_17b(torch, np, fluid, fa))
+    print(f"phase 17c: DCGAN generator, batch {DCGAN_B}, f32 and bf16, "
+          f"{DCGAN_STEPS} steps; against the CPU at batch {DCGAN_CPU_B}",
+          flush=True)
+    done("17c", dcgan_17c(torch, np, fluid, fa))
+    out["seconds"] = time.perf_counter() - out.pop("t0")
+    return out
+
+
 def _study_entry(name, source, replaces, launches, first, rows):
     """A kernels-line entry for a kernel study: the times of the case
     ``first``, the largest error over all its cases ``rows``."""
@@ -6461,18 +7145,160 @@ def main() -> int:
 
     phase_done("card")
 
-    # 2. build every kernel source, one nvcc each, all started together
+    # 2. build every kernel source, one nvcc each, all started together.
+    # The attention sources take minutes; the phases that launch none of
+    # their kernels (17, 3c, 7, 8, 15) run on the card meanwhile, each
+    # after the sources it launches have built
     sources = [fa._FWD_SOURCE, fa._BWD_SOURCE, fa._MASK_SOURCE, cb.SOURCE,
                gc.SOURCE, aa.SOURCE]
-    with ThreadPoolExecutor(len(sources)) as pool:
-        builds = list(pool.map(kernels.build, sources))
-    for source, built in zip(sources, builds):
-        if built is None:
-            print(f"build {source}: cached", flush=True)
-        else:
-            log, seconds = built
-            print(f"build {source}: {seconds:.2f} s\n{_ptxas_report(log)}",
-                  flush=True)
+    build_pool = ThreadPoolExecutor(len(sources))
+    builds = {src: build_pool.submit(kernels.build, src) for src in sources}
+    reported = set()
+
+    def built(*names):
+        """Wait for ``names``' builds and print each one's line once."""
+        for source in names:
+            result = builds[source].result()
+            if source in reported:
+                continue
+            reported.add(source)
+            if result is None:
+                print(f"build {source}: cached", flush=True)
+            else:
+                log, seconds = result
+                print(f"build {source}: {seconds:.2f} s\n"
+                      f"{_ptxas_report(log)}", flush=True)
+
+    phase_done("build_started")
+
+    # 17. the op-library slice: its 88 op types card against CPU (17a),
+    # the N-gram model's four large-vocabulary heads at 10,000 words
+    # (17b), the DCGAN generator at its published widths (17c)
+    lib17 = op_library(torch, np, fluid, fa)
+    b17, c17 = lib17["17b"], lib17["17c"]
+    print(f"op library on {card}: {lib17['17a']['op_types']} op types card "
+          f"= CPU; N-gram heads at {NGRAM_VOCAB} words, batch {NGRAM_B}: "
+          + ", ".join(f"{h} {b17[h]['step_ms']:.2f} ms a step "
+                      f"({b17[h]['step_device_ms']:.2f} device, "
+                      f"{b17[h]['launches_per_step']:.0f} launches, "
+                      f"{b17[h]['examples_per_s']:.0f} examples/s)"
+                      for h in NGRAM_HEADS)
+          + f"; DCGAN generator b {DCGAN_B} "
+          f"{c17['f32']['step_ms']:.2f} / {c17['bf16']['step_ms']:.2f} ms a "
+          f"step f32 / bf16 ({c17['f32']['images_per_s']:.0f} / "
+          f"{c17['bf16']['images_per_s']:.0f} images/s); captured = eager "
+          f"bit for bit in all six; step 1 = CPU (DCGAN at batch "
+          f"{DCGAN_CPU_B}); phase 17 {lib17['seconds']:.1f} s", flush=True)
+
+    phase_done("17")
+
+    built(cb.SOURCE, gc.SOURCE, aa.SOURCE)
+    # 3c. the kernel studies against their plain versions, then each
+    # study's own entry point with its launch count read from that run
+    conv_rows = [check_conv1x1_bwd(cb, *shape) for shape in cb.SHAPES]
+    gconv_rows = [check_grouped_conv(gc, *shape) for shape in gc.SHAPES]
+    ablate_rows = [check_attn_ablate(aa, name, 64, h, 256, dh, variant)
+                   for name, (h, dh), variants in aa.head_shapes()
+                   for variant in variants]
+    for r in conv_rows + gconv_rows + ablate_rows:
+        print("study " + json.dumps(r), flush=True)
+        torch.cuda.empty_cache()
+    kernels.reset_counts()
+    for study in (cb, gc, aa):
+        study.main()
+    study_launches = {name: kernels.launch_counts[study.SOURCE]
+                      for name, study in (("conv_bwd", cb),
+                                          ("grouped_conv", gc),
+                                          ("attn_ablate", aa))}
+    assert min(study_launches.values()) > 0, study_launches
+    print("study_launches " + json.dumps(study_launches), flush=True)
+    torch.cuda.empty_cache()
+
+    phase_done("3c")
+
+    built(fa._MASK_SOURCE)  # the dropout op's kernel: 7 and 15 launch it
+    # 7. the vision training path: ResNet-50, (7b) SE-ResNeXt-50, and
+    # (7c) the studied shapes among their conv2d ops
+    shape = dict(data_shape=(3, 224, 224), class_dim=1000, depth=50)
+    vision_progs = {}
+    for name, build in (("resnet50", lambda: R.get_model(**shape)),
+                        ("se_resnext50", lambda: S.get_model(**shape))):
+        vision_progs[name], v = train_vision(
+            torch, np, fluid, imagenet, name, build, batch=VISION_BATCH,
+            lr=VISION_LR, fall_lr=VISION_FALL_LR,
+            check_equal=name == "resnet50")
+        print(f"train_{name} " + json.dumps(v), flush=True)
+        print(f"training {name} on {card}: step {v['step_ms']:.1f} ms wall, "
+              f"{v['step_device_ms']} ms device busy, "
+              f"{v['images_per_s']:.0f} images/s, peak "
+              f"{v['peak_mem_gib']:.2f} GiB", flush=True)
+        torch.cuda.empty_cache()
+    live = live_shapes(vision_progs["resnet50"], vision_progs["se_resnext50"],
+                       VISION_BATCH, cb.SHAPES, gc.SHAPES)
+    print("live_shapes " + json.dumps(live), flush=True)
+    print("top_k_ties " + json.dumps(check_top_k_ties(torch, np)),
+          flush=True)
+    del vision_progs
+
+    phase_done("7")
+
+    # 8. one f32 vision training step on the card against the CPU
+    small = dict(data_shape=(3, 64, 64), class_dim=1000)
+    for name, build, names, head in (
+            ("resnet50", lambda: R.get_model(depth=50, **small),
+             ["conv2d_0.w_0", "conv2d_1.w_0", "conv2d_3.w_0",
+              "conv2d_26.w_0", "conv2d_52.w_0", "batch_norm_0.w_0",
+              "batch_norm_52.b_0", "fc_0.w_0", "fc_0.b_0"],
+             ["fc_0.w_0", "fc_0.b_0"]),
+            ("se_resnext50 (no dropout)",
+             lambda: _se_resnext_no_dropout(fluid, S, **small),
+             ["stem_conv.w", "b0_0_c1_conv.w", "b0_0_se_sqz.w",
+              "b0_0_se_exc.b", "b1_0_sc_conv.w", "b2_3_c1_conv.w",
+              "b3_2_c2_conv.w", "stem_bn.scale", "b3_2_c2_bn.offset",
+              "fc_out.w", "fc_out.b"], ["fc_out.w", "fc_out.b"])):
+        main_prog, startup, model = _build_vision(fluid, build, VISION_LR,
+                                                  amp=False)
+        state = card_startup_state(fluid, startup)
+        r = np.random.RandomState(SEED)
+        feed = {"data": r.uniform(-1, 1, (4, 3, 64, 64)).astype(np.float32),
+                "label": r.randint(0, 1000, (4, 1)).astype(np.int64)}
+        # f32: the classifier head's gradients held (see TOL_VISION_F32)
+        for double in (False, True):
+            c8 = step_vs_cpu(np, fluid, name, main_prog, state,
+                             model["loss"], feed, names,
+                             names if double else head,
+                             TOL_VISION_F64 if double else TOL_VISION_F32,
+                             double=double)[0]
+            print("vision_vs_cpu " + json.dumps(c8), flush=True)
+        torch.cuda.empty_cache()
+
+    phase_done("8")
+
+    # 15. the recurrent family and the rest of the benchmark's zoo:
+    # stacked_dynamic_lstm (15a), machine_translation (15b), VGG-16 f32 and
+    # bf16 (15c), MNIST (15d) trained; VGG-16 served at mb 64 (15e); the
+    # rnn ops and each model small against the CPU (15f)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo15 = zoo(torch, np, fluid, fa, tmp)
+    a15, b15, e15 = zoo15["15a"], zoo15["15b"], zoo15["15e"]
+    print(f"benchmark zoo on {card}: stacked_dynamic_lstm "
+          f"{a15['examples_per_s']:.0f} examples/s ({a15['step_ms']:.2f} ms "
+          f"a step, {a15['launches_per_step']:.0f} launches); "
+          f"machine_translation {b15['examples_per_s']:.0f} examples/s "
+          f"({b15['step_ms']:.2f} ms, {b15['launches_per_step']:.0f} "
+          f"launches); VGG-16 {zoo15['15c_f32']['examples_per_s']:.1f} / "
+          f"{zoo15['15c_bf16']['examples_per_s']:.1f} images/s f32 / bf16; "
+          f"MNIST {zoo15['15d_conv']['examples_per_s']:.0f} / "
+          f"{zoo15['15d_mlp']['examples_per_s']:.0f} examples/s conv / "
+          f"MLP; VGG-16 Predictor at mb 64 "
+          f"{e15['float32']['ms_a_batch']:.2f} / "
+          f"{e15['bfloat16']['ms_a_batch']:.2f} ms a batch f32 / bf16; "
+          f"captured = eager bit for bit in all six", flush=True)
+
+    phase_done("15")
+
+    built(*sources)
+    build_pool.shutdown()
 
     phase_done("build")
 
@@ -6538,29 +7364,6 @@ def main() -> int:
             flush=True)
 
     phase_done("3")
-
-    # 3c. the kernel studies against their plain versions, then each
-    # study's own entry point with its launch count read from that run
-    conv_rows = [check_conv1x1_bwd(cb, *shape) for shape in cb.SHAPES]
-    gconv_rows = [check_grouped_conv(gc, *shape) for shape in gc.SHAPES]
-    ablate_rows = [check_attn_ablate(aa, name, 64, h, 256, dh, variant)
-                   for name, (h, dh), variants in aa.head_shapes()
-                   for variant in variants]
-    for r in conv_rows + gconv_rows + ablate_rows:
-        print("study " + json.dumps(r), flush=True)
-        torch.cuda.empty_cache()
-    kernels.reset_counts()
-    for study in (cb, gc, aa):
-        study.main()
-    study_launches = {name: kernels.launch_counts[study.SOURCE]
-                      for name, study in (("conv_bwd", cb),
-                                          ("grouped_conv", gc),
-                                          ("attn_ablate", aa))}
-    assert min(study_launches.values()) > 0, study_launches
-    print("study_launches " + json.dumps(study_launches), flush=True)
-    torch.cuda.empty_cache()
-
-    phase_done("3c")
 
     # 4. the serving path, at src_len 128 and (4b) 1024
     s = serve(torch, np, fluid, T, fa, serving, cfg=T.base(), slots=8,
@@ -6648,53 +7451,6 @@ def main() -> int:
         print(f"train_vs_cpu_t{seq} " + json.dumps(vs_cpu[seq]), flush=True)
 
     phase_done("6")
-
-    # 7. the vision training path: ResNet-50, (7b) SE-ResNeXt-50, and
-    # (7c) the studied shapes among their conv2d ops
-    shape = dict(data_shape=(3, 224, 224), class_dim=1000, depth=50)
-    vision_progs = {}
-    for name, build in (("resnet50", lambda: R.get_model(**shape)),
-                        ("se_resnext50", lambda: S.get_model(**shape))):
-        vision_progs[name], v = train_vision(
-            torch, np, fluid, imagenet, name, build, batch=VISION_BATCH,
-            lr=VISION_LR, fall_lr=VISION_FALL_LR,
-            check_equal=name == "resnet50")
-        print(f"train_{name} " + json.dumps(v), flush=True)
-        print(f"training {name} on {card}: step {v['step_ms']:.1f} ms wall, "
-              f"{v['step_device_ms']} ms device busy, "
-              f"{v['images_per_s']:.0f} images/s, peak "
-              f"{v['peak_mem_gib']:.2f} GiB", flush=True)
-        torch.cuda.empty_cache()
-    live = live_shapes(vision_progs["resnet50"], vision_progs["se_resnext50"],
-                       VISION_BATCH, cb.SHAPES, gc.SHAPES)
-    print("live_shapes " + json.dumps(live), flush=True)
-    print("top_k_ties " + json.dumps(check_top_k_ties(torch, np)),
-          flush=True)
-    del vision_progs
-
-    phase_done("7")
-
-    # 8. one f32 vision training step on the card against the CPU
-    small = dict(data_shape=(3, 64, 64), class_dim=1000)
-    for name, build, names, head in (
-            ("resnet50", lambda: R.get_model(depth=50, **small),
-             ["conv2d_0.w_0", "conv2d_1.w_0", "conv2d_3.w_0",
-              "conv2d_26.w_0", "conv2d_52.w_0", "batch_norm_0.w_0",
-              "batch_norm_52.b_0", "fc_0.w_0", "fc_0.b_0"],
-             ["fc_0.w_0", "fc_0.b_0"]),
-            ("se_resnext50 (no dropout)",
-             lambda: _se_resnext_no_dropout(fluid, S, **small),
-             ["stem_conv.w", "b0_0_c1_conv.w", "b0_0_se_sqz.w",
-              "b0_0_se_exc.b", "b1_0_sc_conv.w", "b2_3_c1_conv.w",
-              "b3_2_c2_conv.w", "stem_bn.scale", "b3_2_c2_bn.offset",
-              "fc_out.w", "fc_out.b"], ["fc_out.w", "fc_out.b"])):
-        for double in (False, True):
-            c8 = vision_vs_cpu(torch, np, fluid, name, build, names, head,
-                               double=double)
-            print("vision_vs_cpu " + json.dumps(c8), flush=True)
-        torch.cuda.empty_cache()
-
-    phase_done("8")
 
     # 9. export and deploy: the __model__ format and the Predictor, int8
     # post-training quantization served on the card, and QAT
@@ -6838,29 +7594,6 @@ def main() -> int:
 
     phase_done("14")
 
-    # 15. the recurrent family and the rest of the benchmark's zoo:
-    # stacked_dynamic_lstm (15a), machine_translation (15b), VGG-16 f32 and
-    # bf16 (15c), MNIST (15d) trained; VGG-16 served at mb 64 (15e); the
-    # rnn ops and each model small against the CPU (15f)
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo15 = zoo(torch, np, fluid, fa, tmp)
-    a15, b15, e15 = zoo15["15a"], zoo15["15b"], zoo15["15e"]
-    print(f"benchmark zoo on {card}: stacked_dynamic_lstm "
-          f"{a15['examples_per_s']:.0f} examples/s ({a15['step_ms']:.2f} ms "
-          f"a step, {a15['launches_per_step']:.0f} launches); "
-          f"machine_translation {b15['examples_per_s']:.0f} examples/s "
-          f"({b15['step_ms']:.2f} ms, {b15['launches_per_step']:.0f} "
-          f"launches); VGG-16 {zoo15['15c_f32']['examples_per_s']:.1f} / "
-          f"{zoo15['15c_bf16']['examples_per_s']:.1f} images/s f32 / bf16; "
-          f"MNIST {zoo15['15d_conv']['examples_per_s']:.0f} / "
-          f"{zoo15['15d_mlp']['examples_per_s']:.0f} examples/s conv / "
-          f"MLP; VGG-16 Predictor at mb 64 "
-          f"{e15['float32']['ms_a_batch']:.2f} / "
-          f"{e15['bfloat16']['ms_a_batch']:.2f} ms a batch f32 / bf16; "
-          f"captured = eager bit for bit in all six", flush=True)
-
-    phase_done("15")
-
     # 16. structured control flow, CRF / CTC and the label-semantic-roles
     # chapter: db_lstm trained at the book's widths (16a),
     # transformer.build_scan at Transformer-base (16b), the drills card
@@ -6879,6 +7612,7 @@ def main() -> int:
           f"{len(cf16['16c'])} drills card = CPU", flush=True)
 
     phase_done("16")
+
     print("phase_seconds " + json.dumps(phase_s), flush=True)
     assert phase_s["11"] < 150, phase_s["11"]
     assert phase_s["12"] < 120, phase_s["12"]
@@ -6886,6 +7620,7 @@ def main() -> int:
     assert phase_s["14"] < 150, phase_s["14"]
     assert phase_s["15"] < 150, phase_s["15"]
     assert phase_s["16"] < 120, phase_s["16"]
+    assert phase_s["17"] < 120, phase_s["17"]
 
     t1k, t4k = long_train[1024], long_train[4096]
     fwd_main = fwd_results["train bf16 pad drop"]

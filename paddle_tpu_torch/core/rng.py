@@ -186,3 +186,48 @@ def keep_threshold(p: float) -> int:
 def keep_scale(p: float) -> float:
     """1/(1 - p) rounded to f32: the scale of a kept value."""
     return float(np.float32(1.0) / np.float32(1.0 - p))
+
+
+# --- draws of the random ops inside a step (counter-based, on the device) ---
+#
+# A random op other than dropout draws 32-bit words from its op seed with
+# the dropout hash: word ``i`` (flat, row-major) of lane ``l`` is
+# ``row_hash(k_l, hi32(i), lo32(i))``, with ``k_0`` the op seed's stream key
+# and ``k_l = fmix32(k_0 ^ l)`` for the lanes l > 0 that a transform needing
+# several words per value takes. The words are integer arithmetic on
+# tensors, so the CPU and the card draw the same bits, and a captured step
+# draws afresh at each replay (the op seed is mixed from the step's seed
+# buffer). The float transforms below run in f64 before one rounding to the
+# op's dtype.
+
+
+def op_words(seed, shape, device, lane: int = 0) -> torch.Tensor:
+    """int64 tensor of ``shape`` holding one uint32 word an element."""
+    key = stream_key_tensor(op_seed_tensor(seed, device))
+    if lane:
+        key = fmix32(key ^ lane)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    i = torch.arange(n, device=device)
+    return row_hash(key, i >> 32, i & U32).reshape(tuple(shape))
+
+
+def op_randint(seed, shape, high: int, device, lane: int = 0):
+    """Integers in [0, high), one word each by multiply-shift
+    (``word * high >> 32``: bias at most high / 2**32); int64."""
+    return (op_words(seed, shape, device, lane) * int(high)) >> 32
+
+
+def op_uniform01(seed, shape, device, lane: int = 0):
+    """f64 values in the open interval (0, 1): ``(word + 0.5) / 2**32``."""
+    w = op_words(seed, shape, device, lane).to(torch.float64)
+    return (w + 0.5) * (1.0 / 4294967296.0)
+
+
+def op_normal(seed, shape, device):
+    """f64 standard normal values by Box-Muller from lanes 1 and 2."""
+    u1 = op_uniform01(seed, shape, device, lane=1)
+    u2 = op_uniform01(seed, shape, device, lane=2)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+        (2.0 * np.pi) * u2)

@@ -69,6 +69,24 @@ class NormalInitializer(Initializer):
         )
 
 
+class TruncatedNormalInitializer(NormalInitializer):
+    """N(loc, scale) truncated to loc +- 2 scale (the
+    ``truncated_gaussian_random`` op)."""
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random",
+            outputs={"Out": var.name},
+            attrs={
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                "mean": float(self.loc),
+                "std": float(self.scale),
+                "seed": self.seed,
+            },
+        )
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 2:
@@ -144,6 +162,7 @@ class NumpyArrayInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
 

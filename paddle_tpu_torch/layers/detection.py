@@ -24,6 +24,7 @@ from paddle_tpu_torch.layers import nn as _nn
 __all__ = [
     "iou_similarity", "box_coder", "prior_box", "bipartite_match",
     "target_assign", "ssd_loss", "detection_output", "multi_box_head",
+    "anchor_generator",
 ]
 
 
@@ -201,3 +202,20 @@ def multi_box_head(inputs, image, base_size, num_classes, aspect_ratios,
     boxes = _nn.concat(boxes_l, axis=0)
     variances = _nn.concat(vars_l, axis=0)
     return mbox_locs, mbox_confs, boxes, variances
+
+
+def anchor_generator(input, anchor_sizes=None, aspect_ratios=None,
+                     variance=(0.1, 0.1, 0.2, 0.2), stride=None, offset=0.5,
+                     name=None):
+    """RPN anchors and their variances per feature-map cell [H, W, A, 4]
+    (reference: detection.py:1753)."""
+    attrs = {
+        "anchor_sizes": list(anchor_sizes or [64.0, 128.0, 256.0, 512.0]),
+        "aspect_ratios": list(aspect_ratios or [0.5, 1.0, 2.0]),
+        "variances": list(variance),
+        "stride": list(stride or [16.0, 16.0]),
+        "offset": offset,
+    }
+    return _op("anchor_generator", {"Input": input}, attrs,
+               out_slots=("Anchors", "Variances"), name=name,
+               stop_gradient=True)

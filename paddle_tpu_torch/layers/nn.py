@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Union
 
+from paddle_tpu_torch import unique_name
 from paddle_tpu_torch.framework import Variable, convert_np_dtype_to_dtype_
 from paddle_tpu_torch.initializer import ConstantInitializer, NormalInitializer
 from paddle_tpu_torch.layer_helper import LayerHelper
@@ -31,6 +32,11 @@ __all__ = [
     "sequence_conv", "add_position_encoding", "linear_chain_crf",
     "crf_decoding", "warpctc", "edit_distance", "chunk_eval",
     "ctc_greedy_decoder", "py_func", "hash", "tree_conv",
+    "argmin", "bilinear_tensor_product", "conv2d_transpose",
+    "cross_entropy", "cumsum", "elementwise_mod", "expand_as", "gather",
+    "group_norm", "hsigmoid", "huber_loss", "l2_normalize", "logical_or",
+    "lookup_table", "maxout", "mean_iou", "mul", "nce", "pad", "prelu",
+    "sample_logits", "smooth_l1", "spectral_norm", "stack", "unstack",
 ]
 
 
@@ -1165,3 +1171,330 @@ def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
     if bias_attr is not False:
         out = helper.append_bias_op(out, dim_start=2)
     return helper.append_activation(out)
+
+
+# --- the op-library slice: the layers of the math / tensor / nn op types
+
+
+lookup_table = embedding
+
+
+def conv2d_transpose(
+    input, num_filters, output_size=None, filter_size=None, padding=0,
+    stride=1, dilation=1, groups=1, param_attr=None, bias_attr=None,
+    use_cudnn=True, act=None, name=None,
+):
+    """Transposed convolution, filter [C_in, num_filters / groups, kh,
+    kw]; ``output_size`` and ``use_cudnn`` ride along for the JAX
+    package's signature (as there, the size follows from the filter)."""
+    helper = LayerHelper("conv2d_transpose", name=name, bias_attr=bias_attr,
+                         act=act)
+    c_in = input.shape[1]
+    fs = (list(filter_size) if isinstance(filter_size, (list, tuple))
+          else [filter_size] * 2)
+    w = helper.create_parameter(
+        ParamAttr._to_attr(param_attr),
+        shape=[c_in, num_filters // (groups or 1)] + fs, dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "conv2d_transpose",
+        inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": [stride] * 2 if isinstance(stride, int)
+               else list(stride),
+               "paddings": [padding] * 2 if isinstance(padding, int)
+               else list(padding),
+               "dilations": [dilation] * 2 if isinstance(dilation, int)
+               else list(dilation)},
+    )
+    return helper.append_activation(_conv_bias(helper, out))
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of the label's probability (the older op over softmax
+    outputs)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        "cross_entropy", inputs={"X": input, "Label": label},
+        outputs={"Y": out},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    res = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op("huber_loss", inputs={"X": input, "Y": label},
+                     outputs={"Out": out, "Residual": res},
+                     attrs={"delta": delta})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    inputs = {"X": x, "Y": y}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = outside_weight
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": out, "Diff": diff},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("mul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    """``overwrite`` is taken for the JAX package's signature."""
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("gather", inputs={"X": input, "Index": index},
+                     outputs={"Out": out})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(max(sum(x^2 along axis), epsilon)), composed of ops."""
+    ssum = reduce_sum(square(x), dim=axis, keep_dim=True)
+    norm = sqrt(elementwise_max(ssum, fill_constant_like(ssum, epsilon)))
+    return elementwise_div(x, norm)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single_op("pad", x, attrs={"paddings": list(paddings),
+                                       "pad_value": float(pad_value)},
+                      name=name)
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op("stack", inputs={"X": list(x)}, outputs={"Out": out},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num or x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(dtype=x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": x}, outputs={"Y": outs},
+                     attrs={"axis": axis})
+    return outs
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("expand_as", inputs={"X": x, "Y": target_tensor},
+                     outputs={"Out": out})
+    return out
+
+
+def argmin(x, axis=0, name=None):
+    return _single_op("arg_min", x, attrs={"axis": axis}, dtype="int64",
+                      stop_gradient=True, name=name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _compare("logical_or", x, y, out)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    return _single_op("cumsum", x, attrs={"axis": axis,
+                                          "exclusive": exclusive,
+                                          "reverse": reverse}, name=name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mod", x, y, axis, act, name)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """Group normalization over NCHW input (scale 1, bias 0 at start)."""
+    if data_layout != "NCHW":
+        raise ValueError("group_norm supports NCHW layout")
+    helper = LayerHelper("group_norm", name=name, act=act)
+    c = input.shape[1]
+    scale = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=[c], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr), shape=[c], dtype=input.dtype,
+        is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    mean = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    stop_gradient=True)
+    helper.append_op("group_norm",
+                     inputs={"X": input, "Scale": scale, "Bias": bias},
+                     outputs={"Y": out, "Mean": mean, "Variance": var},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """max(x, 0) + alpha min(x, 0); alpha (0.25 at start) one value, one
+    a channel or one an element of a sample, by ``mode``."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        shape = [1]
+    elif mode == "channel":
+        shape = [x.shape[1]]
+    else:
+        shape = [int(math.prod(x.shape[1:]))]
+    alpha = helper.create_parameter(
+        ParamAttr._to_attr(param_attr), shape=shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("prelu", inputs={"X": x, "Alpha": alpha},
+                     outputs={"Out": out}, attrs={"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("maxout", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"groups": groups})
+    return out
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    out = helper.create_variable_for_type_inference(dtype="float32",
+                                                    stop_gradient=True)
+    helper.append_op("mean_iou",
+                     inputs={"Predictions": input, "Labels": label},
+                     outputs={"OutMeanIou": out},
+                     attrs={"num_classes": num_classes})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, param_attr=None,
+                            bias_attr=None, name=None):
+    """out_k = x^T W_k y + b_k, W [size, x dim, y dim]."""
+    helper = LayerHelper("bilinear_tensor_product", name=name, act=act)
+    w = helper.create_parameter(
+        ParamAttr._to_attr(param_attr),
+        shape=[size, x.shape[-1], y.shape[-1]], dtype=x.dtype)
+    b = helper.create_parameter(ParamAttr._to_attr(bias_attr), shape=[size],
+                                dtype=x.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": x, "Y": y, "Weight": w}
+    if b is not None:
+        inputs["Bias"] = b
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": out})
+    return helper.append_activation(out)
+
+
+def nce(input, label, num_total_classes, num_neg_samples=10,
+        param_attr=None, bias_attr=None, name=None):
+    """Noise-contrastive estimation over a [C, D] table: the cost [b, 1]
+    of each example's label against ``num_neg_samples`` uniform negatives
+    drawn on the device each step."""
+    helper = LayerHelper("nce", name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(ParamAttr._to_attr(param_attr),
+                                shape=[num_total_classes, d],
+                                dtype=input.dtype)
+    b = helper.create_parameter(ParamAttr._to_attr(bias_attr),
+                                shape=[num_total_classes], dtype=input.dtype,
+                                is_bias=True)
+    cost = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"Input": input, "Label": label, "Weight": w}
+    if b is not None:
+        inputs["Bias"] = b
+    helper.append_op("nce", inputs=inputs, outputs={"Cost": cost},
+                     attrs={"num_neg_samples": num_neg_samples})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over the complete binary tree of
+    ``num_classes`` leaves: W [C - 1, D], cost [b, 1]."""
+    helper = LayerHelper("hsigmoid", name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(ParamAttr._to_attr(param_attr),
+                                shape=[num_classes - 1, d],
+                                dtype=input.dtype)
+    b = helper.create_parameter(ParamAttr._to_attr(bias_attr),
+                                shape=[num_classes - 1], dtype=input.dtype,
+                                is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    pre = helper.create_variable_for_type_inference(dtype=input.dtype)
+    inputs = {"X": input, "W": w, "Label": label}
+    if b is not None:
+        inputs["Bias"] = b
+    helper.append_op("hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": out, "PreOut": pre},
+                     attrs={"num_classes": int(num_classes)})
+    return out
+
+
+def sample_logits(logits, label, num_samples, remove_accidental_hits=True,
+                  name=None):
+    """(sampled logits, sampled label) for softmax_with_cross_entropy: the
+    true labels' logits and ``num_samples`` uniform samples' logits, less
+    log(q), drawn on the device each step."""
+    helper = LayerHelper("sample_logits", name=name)
+    outs = {
+        s: helper.create_variable_for_type_inference(
+            dtype="int64" if s in ("Samples", "SampledLabel")
+            else logits.dtype,
+            stop_gradient=s != "SampledLogits")
+        for s in ("Samples", "Probabilities", "SampledLogits",
+                  "SampledLabel")
+    }
+    helper.append_op(
+        "sample_logits", inputs={"Logits": logits, "Labels": label},
+        outputs=outs,
+        attrs={"num_samples": int(num_samples),
+               "remove_accidental_hits": bool(remove_accidental_hits)})
+    return outs["SampledLogits"], outs["SampledLabel"]
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """``weight`` / its largest singular value, estimated by power
+    iteration from persistable vectors U [h], V [w / h] (N(0, 1) at
+    start) that the op's UOut / VOut write back under their own names,
+    so the estimate advances across steps (as batch_norm's moving
+    statistics)."""
+    helper = LayerHelper("spectral_norm", name=name)
+    h = int(weight.shape[dim])
+    w_dim = int(math.prod(int(s) for s in weight.shape)) // h
+    u = helper.create_parameter(
+        ParamAttr(name=unique_name.generate(f"{helper.name}.u"),
+                  trainable=False),
+        shape=[h], dtype=weight.dtype,
+        default_initializer=NormalInitializer(0.0, 1.0))
+    v = helper.create_parameter(
+        ParamAttr(name=unique_name.generate(f"{helper.name}.v"),
+                  trainable=False),
+        shape=[w_dim], dtype=weight.dtype,
+        default_initializer=NormalInitializer(0.0, 1.0))
+    out = helper.create_variable_for_type_inference(dtype=weight.dtype)
+    helper.append_op(
+        "spectral_norm", inputs={"Weight": weight, "U": u, "V": v},
+        outputs={"Out": out, "UOut": u.name, "VOut": v.name},
+        attrs={"dim": dim, "power_iters": power_iters, "eps": eps})
+    return out

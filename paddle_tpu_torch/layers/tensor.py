@@ -14,7 +14,9 @@ from paddle_tpu_torch.framework import (
 from paddle_tpu_torch.layer_helper import LayerHelper
 
 __all__ = ["create_global_var", "create_parameter", "fill_constant",
-           "assign", "zeros_like", "range_", "slice"]
+           "assign", "zeros_like", "range_", "slice", "create_tensor",
+           "zeros", "ones", "ones_like", "linspace", "uniform_random",
+           "gaussian_random", "shape"]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -116,4 +118,68 @@ def slice(input, axes, starts, ends):
         attrs={"axes": list(axes), "starts": list(starts),
                "ends": list(ends)},
     )
+    return out
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.block.create_var(
+        name=name or None, dtype=convert_np_dtype_to_dtype_(dtype),
+        persistable=persistable)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("fill_any_like")
+    out = out or helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op("fill_any_like", inputs={"X": x}, outputs={"Out": out},
+                     attrs={"value": 1.0})
+    return out
+
+
+def linspace(start, stop, num, dtype="float32"):
+    """``num`` values from start to stop as a ``range`` op over Python
+    numbers (the JAX layer's composition)."""
+    step = (stop - start) / max(num - 1, 1)
+    return range_(start, stop + step / 2, step, dtype)
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    """A ``uniform_random`` op (host-seeded: a block that holds one runs
+    eagerly, see ops/tensor_ops.py)."""
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        "uniform_random", outputs={"Out": out},
+        attrs={"shape": list(shape), "dtype": dtype, "min": float(min),
+               "max": float(max), "seed": seed})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """A ``gaussian_random`` op (host-seeded, as ``uniform_random``)."""
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype=dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        "gaussian_random", outputs={"Out": out},
+        attrs={"shape": list(shape), "dtype": dtype, "mean": float(mean),
+               "std": float(std), "seed": seed})
+    return out
+
+
+def shape(input):
+    """The shape of ``input`` as an int64 tensor on the device."""
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    helper.append_op("shape", inputs={"X": input}, outputs={"Out": out})
     return out

@@ -1,7 +1,8 @@
 """Optimizer update ops (reference kernels: paddle/fluid/operators/
 optimizers/{sgd_op.cc, momentum_op.cc, lars_momentum_op.cc, adam_op.cc,
 adagrad_op.cc, decayed_adagrad_op.cc, rmsprop_op.cc, lamb_op.cc,
-ftrl_op.cc, adamax_op.cc, adadelta_op.cc}). Updates are functional: the
+ftrl_op.cc, adamax_op.cc, adadelta_op.cc, proximal_gd_op.cc,
+proximal_adagrad_op.cc}). Updates are functional: the
 op returns the new parameter and accumulator values under the same
 variable names, and the executor commits them to the scope (in place
 into the Scope's tensors in a captured step, core/lowering.py). Each
@@ -234,3 +235,38 @@ def _adadelta(ins, attrs, device):
     edx2_new = rho * edx2 + (1 - rho) * torch.square(upd)
     return {"ParamOut": [p + upd], "AvgSquaredGradOut": [eg2_new],
             "AvgSquaredUpdateOut": [edx2_new]}
+
+
+def _l1_shrink(prox, lr, l1):
+    """sign(p) max(|p| - lr l1, 0): the l1 proximal step."""
+    if l1 > 0:
+        return torch.sign(prox) * torch.clamp_min(torch.abs(prox) - lr * l1,
+                                                  0.0)
+    return prox
+
+
+@register_op("proximal_gd", no_grad=True)
+def _proximal_gd(ins, attrs, device):
+    """Proximal gradient descent (proximal_gd_op.cc): p - lr g, shrunk by
+    lr l1, then / (1 + lr l2)."""
+    p, g = _g(ins, "Param"), _g(ins, "Grad")
+    lr = _g(ins, "LearningRate").reshape(()).to(p.dtype)
+    prox = _l1_shrink(p - lr * g.to(p.dtype), lr, attrs.get("l1", 0.0))
+    return {"ParamOut": [prox / (1.0 + lr * attrs.get("l2", 0.0))]}
+
+
+@register_op("proximal_adagrad", no_grad=True)
+def _proximal_adagrad(ins, attrs, device):
+    """Proximal Adagrad (proximal_adagrad_op.cc): m' = m + g^2; p - lr g /
+    sqrt(m') (0 where m' is 0), shrunk by the scalar lr l1, then / (1 +
+    lr l2)."""
+    p, g, m = _g(ins, "Param"), _g(ins, "Grad"), _g(ins, "Moment")
+    lr = _g(ins, "LearningRate").reshape(()).to(p.dtype)
+    g = g.to(p.dtype)
+    m_new = m + torch.square(g)
+    denom = torch.sqrt(m_new)
+    step = torch.where(denom > 0, lr * g / torch.clamp_min(denom, 1e-30),
+                       torch.zeros((), dtype=p.dtype, device=p.device))
+    prox = _l1_shrink(p - step, lr, attrs.get("l1", 0.0))
+    return {"ParamOut": [prox / (1.0 + lr * attrs.get("l2", 0.0))],
+            "MomentOut": [m_new]}

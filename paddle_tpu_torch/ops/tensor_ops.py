@@ -1,12 +1,14 @@
 """Tensor creation & manipulation ops.
 
-Random fills draw from the host-seeded ``torch.Generator`` the
-interpreter hands them (seeded per op from the run's step seed, see
-core/interp.py), so a seeded run is reproducible on one device; they are
+Random fills (the initializers ``gaussian_random``, ``uniform_random``
+and ``truncated_gaussian_random``) draw from the host-seeded
+``torch.Generator`` the interpreter hands them (seeded per op from the
+run's step seed, see core/interp.py), so a seeded run is reproducible on one device; they are
 ``host_rng`` ops, and a block that holds one (a startup program) runs
 eagerly, never as a CUDA graph. The streams differ from the JAX
 package's PRNG: weights carry across by name (io.scope_from_numpy), never
-by re-drawing them.
+by re-drawing them. ``sampling_id``, which a step runs, draws on the
+device from its op seed instead (core/rng.py ``op_uniform01``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.registry import get_op_def, register_op
 from paddle_tpu_torch.framework import torch_dtype
 from paddle_tpu_torch.ops.box_util import iou_xyxy
@@ -409,3 +413,339 @@ def _prior_box(ins, attrs, device):
         boxes = torch.clamp(boxes, 0.0, 1.0)
     var = _const(variances, torch.float32, feat.device).expand(h, w, p, 4)
     return {"Boxes": [boxes.to(torch.float32)], "Variances": [var]}
+
+
+@register_op("truncated_gaussian_random", no_grad=True, host_rng=True)
+def _truncated_gaussian_random(ins, attrs, device, generator=None):
+    """mean + std * a normal truncated to [-2, 2], by the inverse CDF of a
+    uniform draw from the host-seeded generator (an initializer, as
+    ``gaussian_random``): sqrt(2) erfinv(u), u uniform in (erf(-sqrt 2),
+    erf(sqrt 2)), drawn and transformed in f64."""
+    shape = tuple(attrs["shape"])
+    bound = math.erf(2.0 / math.sqrt(2.0))
+    u = torch.empty(shape, dtype=torch.float64, device=device).uniform_(
+        -bound, bound, generator=generator)
+    z = torch.clamp(math.sqrt(2.0) * torch.erfinv(u), -2.0, 2.0)
+    out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
+    return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register_op("shape", no_grad=True)
+def _shape(ins, attrs, device):
+    """X's shape as an int64 tensor on X's device (fills, no host read)."""
+    x = _x(ins)
+    return {"Out": [_const(list(x.shape), torch.int64, x.device)]}
+
+
+@register_op("stack")
+def _stack(ins, attrs, device):
+    return {"Out": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack")
+def _unstack(ins, attrs, device):
+    return {"Y": list(torch.unbind(_x(ins), dim=attrs.get("axis", 0)))}
+
+
+@register_op("expand_as")
+def _expand_as(ins, attrs, device):
+    """X broadcast to Y's shape (a copy: the executor may write it in
+    place)."""
+    return {"Out": [_x(ins).expand(_x(ins, "Y").shape).clone()]}
+
+
+@register_op("gather", diff_inputs=("X",))
+def _gather(ins, attrs, device):
+    """``jnp.take(x, index, axis)``: the index's shape replaces dim
+    ``axis``."""
+    x, index = _x(ins), _x(ins, "Index")
+    axis = attrs.get("axis", 0) % x.dim()
+    out = x.index_select(axis, index.reshape(-1).to(torch.int64))
+    return {"Out": [out.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
+                                + tuple(x.shape[axis + 1:]))]}
+
+
+@register_op("arg_min", no_grad=True)
+def _arg_min(ins, attrs, device):
+    """int64 index of the first minimum along ``axis``."""
+    return {"Out": [torch.argmin(_x(ins), dim=attrs.get("axis", -1))]}
+
+
+@register_op("cumsum")
+def _cumsum(ins, attrs, device):
+    """Cumulative sum along ``axis``; ``reverse`` sums from the end;
+    ``exclusive`` subtracts each element from its own sum, as the JAX op
+    does."""
+    x = _x(ins)
+    axis = attrs.get("axis", -1)
+    rev = attrs.get("reverse", False)
+    if rev:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - x
+    if rev:
+        out = torch.flip(out, (axis,))
+    return {"Out": [out]}
+
+
+def _torch_pads(pairs):
+    """[(before, after) a dim, first dim first] -> F.pad's flat list, last
+    dim first."""
+    flat = []
+    for b, a in reversed(pairs):
+        flat += [int(b), int(a)]
+    return flat
+
+
+@register_op("pad")
+def _pad(ins, attrs, device):
+    """Constant padding, ``paddings`` = [before0, after0, before1, ...]."""
+    x = _x(ins)
+    p = attrs["paddings"]
+    pairs = [(p[2 * i], p[2 * i + 1]) for i in range(x.dim())]
+    return {"Out": [F.pad(x, _torch_pads(pairs),
+                          value=attrs.get("pad_value", 0.0))]}
+
+
+@register_op("tile")
+def _tile(ins, attrs, device):
+    """``jnp.tile``: a shorter ``repeat_times`` counts from the last dim."""
+    x = _x(ins)
+    times = list(attrs["repeat_times"])
+    times = [1] * (x.dim() - len(times)) + times
+    return {"Out": [x.repeat(times)]}
+
+
+@register_op("reverse", diff_inputs=("X",))
+def _reverse(ins, attrs, device):
+    return {"Out": [torch.flip(_x(ins), tuple(attrs.get("axis", [0])))]}
+
+
+@register_op("argsort", no_grad=True)
+def _argsort(ins, attrs, device):
+    """Values and int64 indices sorted along ``axis``, equal keys in their
+    input order (the stable ``jnp.argsort``; descending sorts -x). The
+    keys add 0.0, so -0.0 and +0.0 tie on the card's radix sort as on
+    the CPU."""
+    x = _x(ins)
+    axis = attrs.get("axis", -1)
+    key = (-x if attrs.get("descending", False) else x) + 0.0
+    _, idx = torch.sort(key, dim=axis, stable=True)
+    return {"Out": [torch.gather(x, axis, idx)], "Indices": [idx]}
+
+
+@register_op("diag", no_grad=True)
+def _diag(ins, attrs, device):
+    return {"Out": [torch.diag(_x(ins, "Diagonal"))]}
+
+
+@register_op("linspace", no_grad=True)
+def _linspace(ins, attrs, device):
+    """``num`` evenly spaced values from Start to Stop (device scalars,
+    never read on the host): start + i * (stop - start) / (num - 1), the
+    last exactly Stop."""
+    start = _x(ins, "Start").reshape(())
+    stop = _x(ins, "Stop").reshape(())
+    num = int(attrs["num"])
+    dtype = torch_dtype(attrs.get("dtype", "float32"))
+    wide = torch.promote_types(dtype, start.dtype)
+    start, stop = start.to(wide), stop.to(wide)
+    if num == 1:
+        return {"Out": [start.reshape(1).to(dtype)]}
+    i = torch.arange(num, dtype=wide, device=start.device)
+    out = start + i * ((stop - start) / (num - 1))
+    out = torch.cat([out[:-1], stop.reshape(1)])
+    return {"Out": [out.to(dtype)]}
+
+
+def _nd_index(index):
+    return tuple(index.to(torch.int64).unbind(-1))
+
+
+@register_op("gather_nd", diff_inputs=("X",))
+def _gather_nd(ins, attrs, device):
+    """X at the coordinates of Index's last dim."""
+    return {"Out": [_x(ins)[_nd_index(_x(ins, "Index"))]]}
+
+
+@register_op("scatter_nd_add", diff_inputs=("X", "Updates"))
+def _scatter_nd_add(ins, attrs, device):
+    """X plus Updates added at the coordinates of Index's last dim
+    (repeated coordinates add up)."""
+    x = _x(ins)
+    return {"Out": [torch.index_put(x, _nd_index(_x(ins, "Index")),
+                                    _x(ins, "Updates").to(x.dtype),
+                                    accumulate=True)]}
+
+
+_PAD2D_MODES = {"constant": "constant", "reflect": "reflect",
+                "edge": "replicate"}
+
+
+@register_op("pad2d", diff_inputs=("X",))
+def _pad2d(ins, attrs, device):
+    """NCHW spatial padding, ``paddings`` = [top, bottom, left, right],
+    constant / reflect / edge."""
+    x = _x(ins)
+    t, b, l, r = attrs.get("paddings", [0, 0, 0, 0])
+    mode = _PAD2D_MODES[attrs.get("mode", "constant")]
+    if mode == "constant":
+        return {"Out": [F.pad(x, [l, r, t, b],
+                              value=attrs.get("pad_value", 0.0))]}
+    return {"Out": [F.pad(x, [l, r, t, b], mode=mode)]}
+
+
+@register_op("pad_constant_like", diff_inputs=("Y",))
+def _pad_constant_like(ins, attrs, device):
+    """Y padded at the end of each dim up to X's shape."""
+    x, y = _x(ins), _x(ins, "Y")
+    pairs = [(0, int(a) - int(b)) for a, b in zip(x.shape, y.shape)]
+    return {"Out": [F.pad(y, _torch_pads(pairs),
+                          value=attrs.get("pad_value", 0.0))]}
+
+
+@register_op("crop", diff_inputs=("X",))
+def _crop(ins, attrs, device):
+    """The static window ``shape`` at ``offsets``."""
+    x = _x(ins)
+    offsets = attrs.get("offsets", [0] * x.dim())
+    sl = tuple(slice(o, o + s) for o, s in zip(offsets, attrs["shape"]))
+    return {"Out": [x[sl]]}
+
+
+@register_op("shuffle_channel", diff_inputs=("X",))
+def _shuffle_channel(ins, attrs, device):
+    x = _x(ins)
+    g = int(attrs.get("group", 1))
+    n, c, h, w = x.shape
+    return {"Out": [x.reshape(n, g, c // g, h, w).transpose(1, 2)
+                    .reshape(n, c, h, w)]}
+
+
+@register_op("pixel_shuffle", diff_inputs=("X",))
+def _pixel_shuffle(ins, attrs, device):
+    """Depth to space: [n, c r^2, h, w] -> [n, c, h r, w r]."""
+    x = _x(ins)
+    r = int(attrs.get("upscale_factor", 1))
+    n, c, h, w = x.shape
+    out = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return {"Out": [out.reshape(n, c // (r * r), h * r, w * r)]}
+
+
+@register_op("space_to_depth", diff_inputs=("X",))
+def _space_to_depth(ins, attrs, device):
+    """[n, c, h, w] -> [n, c r^2, h / r, w / r], the block offsets
+    leading the channels."""
+    x = _x(ins)
+    r = int(attrs.get("blocksize", 1))
+    n, c, h, w = x.shape
+    out = x.reshape(n, c, h // r, r, w // r, r).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": [out.reshape(n, c * r * r, h // r, w // r)]}
+
+
+@register_op("multiplex", diff_inputs=("X",))
+def _multiplex(ins, attrs, device):
+    """Row i of the candidate Ids[i]."""
+    xs = torch.stack(ins["X"], dim=0)
+    ids = _x(ins, "Ids")
+    if ids.dim() > 1:
+        ids = ids.squeeze(-1)
+    rows = torch.arange(xs.shape[1], device=xs.device)
+    return {"Out": [xs[ids.to(torch.int64), rows]]}
+
+
+@register_op("sampling_id", no_grad=True, needs_rng=True)
+def _sampling_id(ins, attrs, device, seed=None):
+    """One column index a row of probability rows X, by the Gumbel-max
+    rule the JAX op's ``jax.random.categorical`` applies: argmax of
+    log(max(x, 1e-30)) + g, g = -log(-log(u)), u from the op seed
+    (``rng.op_uniform01``: the CPU and the card draw the same bits;
+    ``sampling_gumbel`` gives g). int64."""
+    x = _x(ins)
+    g = sampling_gumbel(0 if seed is None else seed, x.shape, x.device)
+    logits = torch.log(torch.clamp_min(x, 1e-30)).to(torch.float64)
+    return {"Out": [torch.argmax(logits + g, dim=-1)]}
+
+
+def sampling_gumbel(seed, shape, device):
+    """The standard Gumbel noise ``sampling_id`` adds (f64)."""
+    return -torch.log(-torch.log(rng.op_uniform01(seed, shape, device)))
+
+
+@register_op("shard_index", no_grad=True)
+def _shard_index(ins, attrs, device):
+    """Global ids to shard-local ids, ``ignore_value`` off the shard."""
+    x = _x(ins)
+    per = (attrs["index_num"] + attrs["nshards"] - 1) // attrs["nshards"]
+    in_shard = torch.div(x, per, rounding_mode="floor") == attrs["shard_id"]
+    ignore = torch.full((), attrs.get("ignore_value", -1), dtype=x.dtype,
+                        device=x.device)
+    return {"Out": [torch.where(in_shard, torch.remainder(x, per), ignore)]}
+
+
+@register_op("flatten")
+def _flatten(ins, attrs, device):
+    """flatten2 without its XShape output."""
+    return {"Out": _flatten2(ins, attrs, device)["Out"]}
+
+
+@register_op("anchor_generator", no_grad=True)
+def _anchor_generator(ins, attrs, device):
+    """RPN anchors per feature-map cell (reference:
+    operators/detection/anchor_generator_op.cc): Anchors / Variances [H,
+    W, A, 4] in input-image pixels, A = ratios x sizes (ratio-major),
+    computed in f64 and returned in f32 (as ``prior_box``)."""
+    feat = _x(ins, "Input")
+    h, w = feat.shape[2], feat.shape[3]
+    sizes = attrs.get("anchor_sizes", [64.0, 128.0, 256.0, 512.0])
+    ratios = attrs.get("aspect_ratios", [0.5, 1.0, 2.0])
+    stride = attrs.get("stride", [16.0, 16.0])
+    offset = attrs.get("offset", 0.5)
+    whs = []
+    for r in ratios:
+        for s in sizes:
+            aw = (s * s / r) ** 0.5
+            whs.append((aw, aw * r))
+    a = len(whs)
+    f64 = torch.float64
+    aw = _const([x for x, _ in whs], f64, feat.device)
+    ah = _const([y for _, y in whs], f64, feat.device)
+    cx = (torch.arange(w, dtype=f64, device=feat.device) + offset) * stride[0]
+    cy = (torch.arange(h, dtype=f64, device=feat.device) + offset) * stride[1]
+    cxg = cx[None, :, None].expand(h, w, a)
+    cyg = cy[:, None, None].expand(h, w, a)
+    anchors = torch.stack([cxg - aw / 2, cyg - ah / 2, cxg + aw / 2,
+                           cyg + ah / 2], dim=-1)
+    var = _const(attrs.get("variances", [0.1, 0.1, 0.2, 0.2]),
+                 torch.float32, feat.device).expand(h, w, a, 4)
+    return {"Anchors": [anchors.to(torch.float32)], "Variances": [var]}
+
+
+# --- the older op types of the *2 ops: no XShape output, and a derived
+# grad that needs X alone ---
+
+
+@register_op("reshape", diff_inputs=("X",))
+def _reshape_v1(ins, attrs, device):
+    x = _x(ins)
+    shape = [x.shape[i] if int(d) == 0 else int(d)
+             for i, d in enumerate(attrs["shape"])]
+    return {"Out": [x.reshape(shape)]}
+
+
+@register_op("transpose", diff_inputs=("X",))
+def _transpose_v1(ins, attrs, device):
+    return {"Out": [_x(ins).permute(*attrs["axis"])]}
+
+
+@register_op("squeeze", diff_inputs=("X",))
+def _squeeze_v1(ins, attrs, device):
+    x = _x(ins)
+    axes = tuple(attrs.get("axes", []))
+    return {"Out": [x.squeeze(axes) if axes else x.squeeze()]}
+
+
+@register_op("unsqueeze", diff_inputs=("X",))
+def _unsqueeze_v1(ins, attrs, device):
+    return {"Out": _unsqueeze2(ins, attrs, device)["Out"]}

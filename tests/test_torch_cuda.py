@@ -2431,3 +2431,151 @@ def test_hash_bits_on_the_card_equal_the_cpu(cuda, dtype, d):
         {"X": [torch.from_numpy(x).to(dev)]}, dict(attrs), dev)["Out"][0]
         for dev in (cuda, torch.device("cpu"))]
     assert torch.equal(outs[0].cpu(), outs[1])
+
+
+# --- the op-library slice: random ops and in-place state on the card ----
+
+_DRAWN = ("uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+          "sampling_id", "nce", "sample_logits")
+
+
+@pytest.mark.parametrize("op", _DRAWN)
+def test_random_op_draws_the_cpus_bits_on_the_card(cuda, op):
+    """The op's draws on the card equal the CPU's bit for bit for the same
+    op seed (the words, the batch-size-like values, sampling_id's ids,
+    sample_logits' samples); the rest of its outputs and gradients within
+    1e-10 in f64 (chip_smoke.slice_op_run, phase 17a's case)."""
+    import chip_smoke
+    from paddle_tpu_torch.core import rng
+
+    (case,) = [c for c in chip_smoke.slice_op_cases(np) if c[0] == op]
+    got, want = (chip_smoke.slice_op_run(torch, np, *case, dev, 31)
+                 for dev in (cuda, torch.device("cpu")))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        if op in chip_smoke._DRAW_OPS or not np.issubdtype(w.dtype,
+                                                           np.floating):
+            assert np.array_equal(got[k], w), (op, k)
+        else:
+            err = np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)
+            assert err <= 1e-10, (op, k, err)
+    words = [rng.op_words(rng.SeedHandle(torch.full(
+        (), 31, dtype=torch.int64, device=dev), 0), (128, 64), dev).cpu()
+        for dev in (cuda, torch.device("cpu"))]
+    assert torch.equal(*words)
+
+
+def _slice_program(fluid, kind):
+    layers = fluid.layers
+    x = layers.data("x", shape=[12], dtype="float32")
+    label = layers.data("label", shape=[1], dtype="int64")
+    h = layers.fc(x, 16, act="relu")
+    fetch = {}
+    if kind == "nce":
+        cost = layers.nce(h, label, 50, num_neg_samples=6)
+    elif kind == "sampled":
+        cost = layers.sampled_softmax_with_cross_entropy(
+            layers.fc(h, 50), label, 20)
+    else:
+        w = layers.create_parameter([16, 50], "float32", name="sn.w")
+        cost = layers.softmax_with_cross_entropy(
+            layers.matmul(h, layers.spectral_norm(w, power_iters=1)),
+            label)
+    noise = layers.uniform_random_batch_size_like(x, [0, 3])
+    fetch["noise"] = noise
+    loss = layers.mean(cost)
+    fluid.optimizer.Adam(1e-2).minimize(loss)
+    return loss, fetch
+
+
+@pytest.mark.parametrize("kind", ["nce", "sampled", "spectral_norm"])
+def test_slice_step_captured_equals_eager_and_draws_afresh(cuda, kind):
+    """Four Adam steps of a program holding the kind's op and a
+    batch-size-like random fill, uncached (eager) and cached (the second
+    captured, the rest replays) from one startup: every loss, every
+    draw and every state tensor (spectral_norm's U and V, written back in
+    place, included) bit for bit equal; the draws differ from step to
+    step, and spectral_norm's U moves every step."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, fetch = _slice_program(fluid, kind)
+    startup.random_seed = main.random_seed = 3
+    r = np.random.RandomState(0)
+    feeds = [{"x": r.randn(8, 12).astype(np.float32),
+              "label": r.randint(0, 50, (8, 1)).astype(np.int64)}
+             for _ in range(4)]
+    runs = []
+    for cached in (False, True):
+        scope, exe = fluid.Scope(), fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            steps, us = [], []
+            for f in feeds:
+                steps.append(exe.run(main, feed=f,
+                                     fetch_list=[loss, fetch["noise"]],
+                                     use_program_cache=cached))
+                if kind == "spectral_norm":
+                    us.append(scope.find_var("spectral_norm_0.u_0").clone())
+            state = {n: scope.find_var(n).clone() for n in scope.var_names()}
+        runs.append((steps, state, us))
+        exe.close()
+    (se, ste, ue), (sc, stc, uc) = runs
+    for a, b in zip(se, sc):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    for n in ste:
+        assert torch.equal(ste[n], stc[n]), n
+    for a, b in zip(sc, sc[1:]):
+        assert not np.array_equal(a[1], b[1])
+    if kind == "spectral_norm":
+        assert all(not torch.equal(a, b) for a, b in zip(uc, uc[1:]))
+        for a, b in zip(ue, uc):
+            assert torch.equal(a, b)
+
+
+def test_auc_and_mean_iou_in_a_captured_step_equal_eager(cuda):
+    """The batch-local metrics (the JAX ops keep no accumulator) in a
+    cached step on the card equal the uncached step's every step, and
+    the CPU's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.layer_helper import LayerHelper
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        p = fluid.layers.data("p", shape=[2], dtype="float32")
+        lbl = fluid.layers.data("label", shape=[1], dtype="int64")
+        pred = fluid.layers.data("pred", shape=[6], dtype="int32")
+        truth = fluid.layers.data("truth", shape=[6], dtype="int32")
+        auc = LayerHelper("auc").create_variable_for_type_inference(
+            "float32")
+        main.global_block().append_op(
+            "auc", inputs={"Predict": [p], "Label": [lbl]},
+            outputs={"AUC": [auc]}, attrs={"num_thresholds": 200})
+        miou = fluid.layers.mean_iou(pred, truth, 5)
+    r = np.random.RandomState(1)
+    feeds = []
+    for _ in range(4):
+        q = r.uniform(0, 1, (64, 1)).astype(np.float32)
+        feeds.append({"p": np.concatenate([1 - q, q], 1),
+                      "label": (r.uniform(0, 1, (64, 1)) < q)
+                      .astype(np.int64),
+                      "pred": r.randint(0, 5, (64, 6)).astype(np.int32),
+                      "truth": r.randint(0, 5, (64, 6)).astype(np.int32)})
+    got = []
+    for place, cached in ((fluid.CUDAPlace(0), False),
+                          (fluid.CUDAPlace(0), True),
+                          (fluid.CPUPlace(), False)):
+        exe = fluid.Executor(place)
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            got.append([
+                [float(v) for v in exe.run(main, feed=f,
+                                           fetch_list=[auc, miou],
+                                           use_program_cache=cached)]
+                for f in feeds])
+        exe.close()
+    eager, captured, cpu = got
+    assert eager == captured
+    np.testing.assert_allclose(np.array(eager), np.array(cpu), atol=1e-6)
+    assert len({tuple(s) for s in eager}) == 4

@@ -348,6 +348,127 @@ def test_shared_layers_take_the_jax_parameters_in_order():
         assert got[:len(want)] == want, (name, want, got)
 
 
+# the layers of the op-library slice, by module: each takes exactly the
+# JAX twin's parameters in its order
+_SLICE_LAYERS = {
+    "nn": ["argmin", "bilinear_tensor_product", "conv2d_transpose",
+           "cross_entropy", "cumsum", "elementwise_mod", "expand_as",
+           "gather", "group_norm", "hsigmoid", "huber_loss", "l2_normalize",
+           "logical_or", "lookup_table", "maxout", "mean_iou", "mul", "nce",
+           "pad", "prelu", "sample_logits", "smooth_l1", "spectral_norm",
+           "stack", "unstack"],
+    "tensor": ["create_tensor", "gaussian_random", "linspace", "ones",
+               "ones_like", "shape", "uniform_random", "zeros"],
+    "more": ["affine_channel", "argsort", "array_length",
+             "autoincreased_step_counter", "beam_search",
+             "beam_search_decode", "bpr_loss", "continuous_value_model",
+             "cos_sim", "crop", "data_norm", "diag", "dice_loss",
+             "fill_constant_batch_size_like", "fsp_matrix",
+             "gaussian_random_batch_size_like", "grid_sampler", "has_inf",
+             "has_nan", "hinge_loss", "image_resize", "image_resize_short",
+             "is_empty", "kldiv_loss", "less_equal", "lod_reset", "log_loss",
+             "logical_xor", "lstm", "margin_rank_loss", "multiplex",
+             "not_equal", "npair_loss", "pad2d", "pad_constant_like",
+             "pixel_shuffle", "range", "rank", "rank_loss", "reduce_all",
+             "reduce_any", "resize_bilinear", "resize_nearest", "reverse",
+             "row_conv", "sampled_softmax_with_cross_entropy", "sampling_id",
+             "sequence_concat", "sequence_enumerate", "sequence_expand_as",
+             "sequence_first_step", "sequence_last_step", "sequence_pad",
+             "sequence_reshape", "sequence_scatter", "sequence_slice",
+             "sequence_unpad", "shuffle_channel", "sign", "space_to_depth",
+             "sum", "teacher_student_sigmoid_loss", "temporal_shift",
+             "tensor_array_to_tensor", "uniform_random_batch_size_like"],
+    "detection": ["anchor_generator"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(_SLICE_LAYERS))
+def test_slice_layers_take_exactly_the_jax_parameters(module):
+    """Every layer the op-library slice added is in the port's module
+    and its ``layers`` namespace, with the JAX twin's parameter names in
+    the JAX order (defaults included)."""
+    import importlib
+
+    jm = importlib.import_module(f"paddle_tpu.layers.{module}")
+    tm = importlib.import_module(f"paddle_tpu_torch.layers.{module}")
+    for name in _SLICE_LAYERS[module]:
+        want = inspect.signature(getattr(jm, name)).parameters
+        got = inspect.signature(getattr(tm, name)).parameters
+        assert list(got) == list(want), (name, list(want), list(got))
+        assert [p.default for p in got.values()] == [
+            p.default for p in want.values()], name
+        assert getattr(tlayers, name) is getattr(tm, name), name
+
+
+def test_truncated_normal_initializer_builds_the_jax_op():
+    """initializer.TruncatedNormal(Initializer) appends
+    truncated_gaussian_random with the JAX package's attrs."""
+    ops = []
+    for fluid in (pfluid, tfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            fluid.layers.fc(fluid.layers.data("x", shape=[3]), 4,
+                            param_attr=fluid.ParamAttr(
+                                name="tn.w",
+                                initializer=fluid.initializer.TruncatedNormal(
+                                    0.5, 0.02, seed=3)))
+        op = startup.global_block().ops[0]
+        ops.append((op.type, sorted(op.attrs.items())))
+    assert ops[0] == ops[1]
+    assert ops[1][0] == "truncated_gaussian_random"
+    assert tfluid.initializer.TruncatedNormal is \
+        tfluid.initializer.TruncatedNormalInitializer
+
+
+def test_registry_lacks_exactly_the_vision_detection_moe_and_dgc_ops():
+    """The JAX forward op types the port does not register are the 22
+    vision ops, the 9 detection ops, switch_moe and dgc_momentum; the
+    port registers no forward op type the JAX package lacks."""
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+
+    j = {o for o in jreg.registered_ops() if not o.endswith("_grad")}
+    t = {o for o in treg.registered_ops() if not o.endswith("_grad")}
+    vision = {"adaptive_pool2d", "adaptive_pool3d", "affine_grid",
+              "box_clip", "conv3d", "conv3d_transpose", "density_prior_box",
+              "depthwise_conv2d_transpose", "lrn", "max_pool2d_with_index",
+              "max_pool3d_with_index", "polygon_box_transform", "pool3d",
+              "psroi_pool", "random_crop", "roi_align",
+              "roi_perspective_transform", "roi_pool", "similarity_focus",
+              "spp", "unpool", "yolo_box"}
+    detection = {"box_decoder_and_assign", "collect_fpn_proposals",
+                 "detection_map", "distribute_fpn_proposals",
+                 "generate_mask_labels", "generate_proposal_labels",
+                 "generate_proposals", "rpn_target_assign", "yolov3_loss"}
+    assert len(vision) == 22 and len(detection) == 9
+    assert j - t == vision | detection | {"switch_moe", "dgc_momentum"}
+    assert len(j & t) == 275 and not t - j
+
+
+_SLICE_FLAGS = ("diff_inputs", "no_grad", "needs_rng")
+
+
+def test_slice_ops_register_the_jax_flags():
+    """Each op of the slice declares the JAX registration's diff_inputs,
+    no_grad and needs_rng, except the initializer
+    truncated_gaussian_random, which is host_rng as gaussian_random is."""
+    from paddle_tpu.core import registry as jreg
+    from paddle_tpu_torch.core import registry as treg
+
+    ops = [o for o in jreg.registered_ops() if treg.has_op(o)]
+    for op in ops:
+        jd, td = jreg.get_op_def(op), treg.get_op_def(op)
+        if op in ("truncated_gaussian_random", "gaussian_random",
+                  "uniform_random"):
+            assert td.host_rng and td.no_grad and not td.needs_rng, op
+            continue
+        for flag in _SLICE_FLAGS:
+            want, got = getattr(jd, flag), getattr(td, flag)
+            if flag == "diff_inputs" and want is not None:
+                want = tuple(want)
+            assert got == want, (op, flag, want, got)
+
+
 # (layer call with the JAX keywords, feeds): each builds one output
 _KEYWORD_CALLS = {
     "fc(is_test)": (lambda L, fluid, v: L.fc(

@@ -375,6 +375,33 @@ SLICE20_OP_TYPES = [
     "positive_negative_pair"]
 
 
+# the plain op files: the math, tensor, nn and proximal-optimizer op types
+# of slice 21 (tests/test_torch_{math,tensor,nn}_ops_more.py,
+# tests/test_torch_vocab_heads.py hold their cases)
+SLICE21_OP_TYPES = [
+    "affine_channel", "anchor_generator", "arg_min", "argsort", "auc",
+    "bilinear_interp", "bilinear_tensor_product", "bpr_loss",
+    "conv2d_transpose", "cos_sim", "crop", "cross_entropy",
+    "cross_entropy2", "cumsum", "cvm", "data_norm", "diag",
+    "elementwise_mod", "expand_as", "fc", "fill", "fill_zeros_like2",
+    "flatten", "fsp", "gather", "gather_nd",
+    "gaussian_random_batch_size_like", "grid_sampler", "group_norm",
+    "has_inf", "has_nan", "hierarchical_sigmoid", "hinge_loss",
+    "huber_loss", "is_empty", "kldiv_loss", "l1_norm", "less_equal",
+    "linspace", "log_loss", "logical_or", "logical_xor",
+    "margin_rank_loss", "maxout", "mean_iou", "minus",
+    "modified_huber_loss", "multiplex", "nce", "nearest_interp", "norm",
+    "not_equal", "p_norm", "pad", "pad2d", "pad_constant_like",
+    "pixel_shuffle", "prelu", "proximal_adagrad", "proximal_gd",
+    "rank_loss", "reduce_all", "reduce_any", "reshape", "reverse",
+    "row_conv", "sample_logits", "sampling_id", "scatter_nd_add",
+    "shape", "shard_index", "shuffle_channel", "sign", "smooth_l1_loss",
+    "space_to_depth", "spectral_norm", "squared_l2_distance", "squeeze",
+    "stack", "sync_batch_norm", "teacher_student_sigmoid_loss",
+    "temporal_shift", "tile", "transpose", "truncated_gaussian_random",
+    "uniform_random_batch_size_like", "unsqueeze", "unstack"]
+
+
 def test_cases_cover_exactly_the_path_op_types():
     assert sorted({c[0] for c in CASES}) == sorted(
         PATH_OP_TYPES + RECIPE_OP_TYPES + DEPLOY_OP_TYPES)
@@ -383,7 +410,7 @@ def test_cases_cover_exactly_the_path_op_types():
                                       + QUANT_OP_TYPES + PLANES_OP_TYPES
                                       + DECODE_OP_TYPES + FAMILY_OP_TYPES
                                       + SCHEDULE_OP_TYPES + ZOO_OP_TYPES
-                                      + SLICE20_OP_TYPES)
+                                      + SLICE20_OP_TYPES + SLICE21_OP_TYPES)
 
 
 def _run_jax(op_type, ins, attrs):

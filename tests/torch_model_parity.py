@@ -63,8 +63,11 @@ def train_both(model_fn, opt_fn, feeds, fetch_fn):
 
 
 def rel(got, want):
-    """Largest |got - want| relative to the largest |want|."""
+    """Largest |got - want| relative to the largest |want| (0 for empty
+    arrays)."""
     want = np.asarray(want, np.float64)
+    if want.size == 0:
+        return 0.0
     return float(np.abs(np.asarray(got, np.float64) - want).max()
                  / max(np.abs(want).max(), 1e-30))
 
@@ -86,17 +89,20 @@ def _grad_attrs(op_type, ins, outs, attrs):
                 fwd_output_slots=list(outs))
 
 
-def run_both(op_type, ins, attrs, seed=99):
+def run_both(op_type, ins, attrs, seed=99, rngs=None):
     """One op in both packages on the same numpy inputs: (JAX outputs,
     port outputs, JAX input grads, port input grads) as numpy, the grads
     from each package's derived grad op (``make_grad_compute``) for one
-    random cotangent an output; no grads for a no_grad op."""
+    random cotangent an output; no grads for a no_grad op. ``rngs``: a
+    random op's (port seed, JAX key), passed to its forward and to its
+    derived grad op."""
     j_ins = {k: [jnp.asarray(v) for v in vs] for k, vs in ins.items()}
     t_ins = {k: [torch.from_numpy(np.array(v)) for v in vs]
              for k, vs in ins.items()}
     jdef, tdef = jax_op_def(op_type), get_op_def(op_type)
-    j_outs = jdef.compute(j_ins, dict(attrs))
-    t_outs = tdef.compute(t_ins, dict(attrs), torch.device("cpu"))
+    t_kw, j_kw = ({"seed": rngs[0]}, {"rng": rngs[1]}) if rngs else ({}, {})
+    j_outs = jdef.compute(j_ins, dict(attrs), **j_kw)
+    t_outs = tdef.compute(t_ins, dict(attrs), torch.device("cpu"), **t_kw)
     jo = {k: [np.asarray(v) for v in vs] for k, vs in j_outs.items()}
     to = {k: [v.numpy() for v in vs] for k, vs in t_outs.items()}
     if jdef.no_grad:
@@ -113,9 +119,9 @@ def run_both(op_type, ins, attrs, seed=99):
     tg_ins = dict(t_ins, **t_outs)
     tg_ins.update({"GRAD::" + k: [torch.from_numpy(v) for v in vs]
                    for k, vs in cots.items()})
-    jg = jautodiff.make_grad_compute(jdef)(jg_ins, g_attrs)
+    jg = jautodiff.make_grad_compute(jdef)(jg_ins, g_attrs, **j_kw)
     tg = tautodiff.make_grad_compute(tdef)(tg_ins, g_attrs,
-                                           torch.device("cpu"))
+                                           torch.device("cpu"), **t_kw)
     jg = {k: [None if v is None else np.asarray(v) for v in vs]
           for k, vs in jg.items()}
     tg = {k: [None if v is None else v.numpy() for v in vs]
