@@ -302,14 +302,16 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     (vision_ops' 22, detection_ops' 9) at small shapes in f64 on the card
     against the CPU, outputs and derived gradients (``op_and_grads``), the
     three sampling ops' selections bit for bit from one op seed and held
-    to their properties; nms_sweep_kernel against its plain version bit
-    for bit at m = 64, 400, 1000 and 2000 (ties, zero-width, inverted,
+    to their properties; the NMS sweep (nms_sweep_mask_kernel and
+    nms_sweep_scan_kernel) against its plain version bit for bit at m =
+    64, 400, 1000, 2000 and 12,000 (ties, zero-width, inverted,
     duplicate, NaN and infinite boxes; the case's threshold and -0.1; in
     vision_ops' IoU and, through detection_ops' RPN sweep, in
-    box_util's), timed by events and from
-    the trace beside the plain loop's time and launches and the bound of
-    the IoU tests the data needs; SSD-300's multiclass_nms through the
-    kernel equal to the plain sweep's bit for bit; (18b) FPN Faster
+    box_util's), the mask kernel's words equal to the plain words, timed
+    by events and from the trace (both kernels, each) beside the plain
+    loop's time and launches and the bound of the IoU tests the data
+    needs; SSD-300's multiclass_nms through the kernels equal to the
+    plain sweep's bit for bit; (18b) FPN Faster
     R-CNN's heads at Detectron's R-50-FPN_1x widths (2 images of 800 x
     1344, P2-P6 at 256 channels from fed lateral sums, 268,569 anchors an
     image, rpn_target_assign, generate_proposals a level, collect /
@@ -324,7 +326,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
     toy steps against the CPU; (18d) SSD-300's VOC evaluation
     (detection_output, DetectionMAP 11-point with difficult gts) over 4
     batches of 32 and a reset, every mAP and binned state equal to the
-    metric's on the CPU over the same detections; bounded to 120 s;
+    metric's on the CPU over the same detections, the batch's device ms
+    and the sweep's in it; bounded to 120 s;
 19. print the kernels' JSON line, the card line, and the result line.
 
 Every executor is closed after its phase (its graphs and their pools
@@ -4262,10 +4265,10 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
     their Adam moments) must keep their startup bits. ``rerun``: the
     device ms an eager step spends in the forwards that derived grad ops
     re-run (``rerun_share``). ``watch``: {launch-count key: kernel name
-    part}: each key's counted launches a step in every turn (the counts
-    set to 0 at the turn's start), and the traced launches and device ms a
-    captured step of the kernels whose names hold the part. The first
-    turn of each mode also traces a
+    part, or a tuple of them}: each key's counted launches a step in every
+    turn (the counts set to 0 at the turn's start), and the traced launches
+    and device ms a captured step of the kernels whose names hold a part.
+    The first turn of each mode also traces a
     step's device time (one a mode: a trace of a recurrent model's ~10^4
     launches a step takes seconds to read). Returns (row, the captured step's traced launches by kernel name)."""
     from paddle_tpu_torch import kernels
@@ -4408,8 +4411,9 @@ def train_family(torch, np, fluid, fa, name, build, make_opt, feeds, *,
                                          for r in rows]
                                   for mode, rows in turns.items()},
             "traced_launches_per_step": sum(
-                n for k, n in counts.items() if part in k),
-            "device_ms": sum(ms for k, ms in times.items() if part in k)}
+                n for k, n in counts.items() if _matches(k, part)),
+            "device_ms": sum(ms for k, ms in times.items()
+                             if _matches(k, part))}
             for key, part in watch.items()}
     if rerun_ms is not None:
         row["derived_grad_rerun_device_ms"], row["eager_profile_device_ms"] \
@@ -7023,12 +7027,19 @@ def op_library(torch, np, fluid, fa):
 # --- phase 18: the vision and detection ops, FPN Faster R-CNN's heads,
 # YOLOv3's loss and SSD-300's VOC evaluation ---
 
-# 18a: card against CPU in f64, as 17a (TOL_SLICE_*); the NMS sweep kernel
-# against its plain version bit for bit, at these candidate counts and set
-# counts (m = 400: SSD-300's eval, 32 images x 20 classes; m = 1000:
-# YOLOv3's, 8 images x 80 classes; m = 2000: an FPN level's proposals, 2
-# images)
-NMS_CASES = ((64, 64), (400, 640), (1000, 640), (2000, 2))
+# 18a: card against CPU in f64, as 17a (TOL_SLICE_*); the NMS sweep's
+# kernels against its plain version bit for bit, at these candidate counts
+# and set counts (m = 400: SSD-300's eval, 32 images x 20 classes; m =
+# 1000: YOLOv3's, 8 images x 80 classes; m = 2000: an FPN level's
+# proposals, 2 images; m = 12,000: the RPN's pre-NMS top-n of Detectron's
+# C4 training configs, lib/core/config.py TRAIN.RPN_PRE_NMS_TOP_N)
+NMS_CASES = ((64, 64), (400, 640), (1000, 640), (2000, 2), (12000, 2))
+# the sweep's two kernels, as the trace names them (a call launches each
+# once)
+NMS_KERNELS = ("nms_sweep_mask_kernel", "nms_sweep_scan_kernel")
+# the largest m whose plain loop (~5 launches a candidate) is traced for
+# its launches; above it the loop is timed once and not traced
+NMS_TRACE_PLAIN_M = 2000
 # floating-point operations of one IoU test of the sweep (4 max / min, 2
 # clamps, 3 subtractions, 2 products, 1 add, 1 max, 1 divide, 1 compare)
 NMS_IOU_FLOPS = 15
@@ -7445,18 +7456,22 @@ def nms_tests_needed(torch, over, keep0, keep):
 
 
 def check_nms_sweep(torch, np, vision_ops, sets, m):
-    """``nms_sweep_kernel`` against ``nms_sweep_plain`` on the card at one
-    shape, bit for bit, at the case's threshold and at -0.1 (where every
-    pair but one with a NaN IoU suppresses), and a second launch equal to
-    the first; in the RPN's convention too: detection_ops' ``_nms_mask``
-    (the kernel at the case's threshold; its own rule below 0) against
-    the plain sweep over box_util.iou_xyxy at both thresholds;
+    """The NMS sweep's kernels (``vision_ops.nms_sweep``) against
+    ``nms_sweep_plain`` on the card at one shape, bit for bit, at the
+    case's threshold and at -0.1 (where every pair but one with a NaN IoU
+    suppresses), and a second launch equal to the first; in the RPN's
+    convention too: detection_ops' ``_nms_mask`` (the kernels at the
+    case's threshold; its own rule below 0) against the plain sweep over
+    box_util.iou_xyxy at both thresholds; the mask kernel's words
+    (``nms_mask_words``) equal to ``nms_mask_words_plain``'s;
     ``max_abs_err`` the largest |kernel - plain| of the masks as 0 / 1.
-    The kernel timed by events and from the trace, the plain loop by
-    events and its launches traced; the bound: the sorted boxes, keep0
-    and keep moved once, and the IoU tests this data needs
-    (``nms_tests_needed``) at NMS_IOU_FLOPS each on the f32 CUDA
-    cores."""
+    The sweep timed by events and from the trace (both kernels, and each),
+    the plain loop by events and, up to NMS_TRACE_PLAIN_M, its launches
+    traced; the bound: the sorted boxes, keep0 and keep moved once, and
+    the IoU tests this data needs of a sequential sweep
+    (``nms_tests_needed``) at NMS_IOU_FLOPS each on the f32 CUDA cores
+    (the mask kernel does every upper-triangle test,
+    ``upper_triangle_tests``)."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.ops import detection_ops
     from paddle_tpu_torch.ops.box_util import iou_xyxy
@@ -7464,13 +7479,20 @@ def check_nms_sweep(torch, np, vision_ops, sets, m):
     boxes, keep0 = nms_sets(torch, np, sets, m, SEED + m)
     thr = 0.45 if m <= 1000 else 0.7
     before = kernels.launch_counts["nms_sweep"]
+    before_mask = kernels.launch_counts["nms_sweep_mask"]
     got = vision_ops.nms_sweep(boxes, keep0, thr)
     again = vision_ops.nms_sweep(boxes, keep0, thr)
     got_neg = vision_ops.nms_sweep(boxes, keep0, -0.1)
     got_rpn = detection_ops._nms_mask(boxes, keep0, thr)
     got_rpn_neg = detection_ops._nms_mask(boxes, keep0, -0.1)
+    words = vision_ops.nms_mask_words(boxes, thr)
     torch.cuda.synchronize()
     assert kernels.launch_counts["nms_sweep"] == before + 4
+    assert kernels.launch_counts["nms_sweep_mask"] == before_mask + 1
+    words_mismatched = int((words != vision_ops.nms_mask_words_plain(
+        boxes, thr)).sum())
+    assert words_mismatched == 0, (sets, m, words_mismatched)
+    del words
     want = vision_ops.nms_sweep_plain(boxes, keep0, thr)
     want_neg = vision_ops.nms_sweep_plain(boxes, keep0, -0.1)
     iou = iou_xyxy(boxes, boxes)
@@ -7485,12 +7507,14 @@ def check_nms_sweep(torch, np, vision_ops, sets, m):
     assert mismatched == 0, (sets, m, mismatched)
     tests = nms_tests_needed(torch, vision_ops._iou_matrix(boxes) > thr,
                              keep0, want)
+    torch.cuda.empty_cache()
     # the plain loop (warm from ``want``) timed once, its launches traced
     plain_ms = _time_ms(lambda: vision_ops.nms_sweep_plain(
         boxes, keep0, thr), iters=1, warmup=0)
     plain_counts = {}
-    _device_times(lambda: vision_ops.nms_sweep_plain(boxes, keep0, thr),
-                  iters=1, counts=plain_counts)
+    if m <= NMS_TRACE_PLAIN_M:
+        _device_times(lambda: vision_ops.nms_sweep_plain(boxes, keep0, thr),
+                      iters=1, counts=plain_counts)
     # the IoU tests run on the CUDA cores (no tensor-core route)
     op_ms = tests * NMS_IOU_FLOPS / PEAK_FLOPS["float32"]["f32 CUDA cores"] \
         * 1e3
@@ -7498,25 +7522,33 @@ def check_nms_sweep(torch, np, vision_ops, sets, m):
         * 1e3
     bound = {"bound_ms": max(op_ms, byte_ms),
              "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    times = _device_times(lambda: vision_ops.nms_sweep(boxes, keep0, thr),
+                          20, expect={NMS_KERNELS: 2})
+    device_ms = _device_ms(None, NMS_KERNELS, times=times)
     torch.cuda.empty_cache()
     return {"case": f"nms_sweep {sets} x {m}", "sets": sets, "m": m,
             "threshold": thr, "mismatched": mismatched,
+            "words_mismatched": words_mismatched,
             "kept": int(want.sum()), "candidates": int(keep0.sum()),
             "kept_at_minus_0.1": int(want_neg.sum()),
             "kept_rpn_convention": int(want_rpn.sum()),
-            "iou_tests_needed": tests, "max_abs_err": err,
+            "iou_tests_needed": tests,
+            "upper_triangle_tests": sets * m * (m - 1) // 2,
+            "max_abs_err": err,
             "ms": _time_ms(lambda: vision_ops.nms_sweep(boxes, keep0, thr),
                            iters=20),
-            "device_ms": _device_ms(lambda: vision_ops.nms_sweep(
-                boxes, keep0, thr), "nms_sweep_kernel", per_call=1),
+            "device_ms": device_ms,
+            "mask_device_ms": _device_ms(None, NMS_KERNELS[0], times=times),
+            "scan_device_ms": _device_ms(None, NMS_KERNELS[1], times=times),
+            "share_of_bound": bound["bound_ms"] / device_ms,
             "plain_ms": plain_ms,
-            "plain_launches": sum(plain_counts.values()),
+            "plain_launches": sum(plain_counts.values()) or None,
             "library_ms": None, **bound}
 
 
 def multiclass_nms_kernel_vs_plain(torch, np, vision_ops, n, classes, priors,
                                    nms_top_k, keep_top_k, seed):
-    """The multiclass_nms op on the card through the sweep kernel against
+    """The multiclass_nms op on the card through the sweep's kernels against
     the same op through the plain sweep, bit for bit, at SSD-300's
     evaluation shape (phase 13's detection_output): decoded boxes [n,
     priors, 4] and softmax scores [n, classes, priors]."""
@@ -7551,7 +7583,7 @@ def multiclass_nms_kernel_vs_plain(torch, np, vision_ops, n, classes, priors,
 
 def nms_18a(torch, np):
     """18a's kernel check: ``check_nms_sweep`` at every NMS_CASES shape,
-    and SSD-300's multiclass_nms through the kernel equal to the plain
+    and SSD-300's multiclass_nms through the kernels equal to the plain
     sweep's."""
     from paddle_tpu_torch.ops import vision_ops
 
@@ -7802,14 +7834,15 @@ def fpn_18b(torch, np, fluid, fa):
                           make_opt, feeds, amp=False, items=FPN["images"],
                           unit="images", window=window,
                           equal_steps=FPN_STEPS,
-                          watch={"nms_sweep": "nms_sweep_kernel"})
+                          watch={"nms_sweep": NMS_KERNELS})
     _falls(np, "fpn_rcnn_heads", row)
     torch.cuda.empty_cache()
     w = row["watch"]["nms_sweep"]
-    # one launch a level a step, counted in every turn and traced
+    # one call a level a step, counted in every turn; its two kernels
+    # traced
     assert all(n == len(FPN["strides"]) for mode in w["launches_per_step"]
                .values() for n in mode), w
-    assert w["traced_launches_per_step"] == len(FPN["strides"]), w
+    assert w["traced_launches_per_step"] == 2 * len(FPN["strides"]), w
     row["nms"] = {"nms_launches_per_step": w["traced_launches_per_step"],
                   "nms_device_ms": w["device_ms"],
                   "nms_share": w["device_ms"] / row["step_device_ms"]}
@@ -7971,7 +8004,7 @@ def yolo_18c(torch, np, fluid, fa):
             main_prog, feed=feed, fetch_list=[model["nmsed"]]), iters=2,
             replay=True)
     exe.close()
-    nms_ms = sum(ms for k, ms in times.items() if "nms_sweep_kernel" in k)
+    nms_ms = _device_ms(None, NMS_KERNELS, times=times)
     row["eval"] = {
         "batch": YOLO["batch"], "candidate_sets": sets,
         "nms_top_k": YOLO["nms_top_k"], "keep_top_k": YOLO["keep_top_k"],
@@ -8066,7 +8099,8 @@ def ssd_eval_18d(torch, np, fluid):
     the first batch again; each batch's current and accumulated mAP and
     the metric's binned states equal, bit for bit, to the metric's program
     on the CPU fed the card's detections; ms a batch (a second pass, each
-    batch a replay of the captured program). Returns (row, the sweep's
+    batch a replay of the captured program), and a replayed batch's device
+    ms traced, the sweep's kernels' part of it. Returns (row, the sweep's
     launches)."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import ssd as SSD
@@ -8102,6 +8136,10 @@ def ssd_eval_18d(torch, np, fluid):
                                                    v["accum"]])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / len(gpu_feeds) * 1e3
+        # a batch's device time and the sweep's share of it (replays)
+        times = _device_times(lambda: exe.run(
+            main_prog, feed=gpu_feeds[0], fetch_list=[
+                v["nmsed"], v["cur"], v["accum"]]), iters=2, replay=True)
     exe.close()
     torch.cuda.empty_cache()
     assert launches == len(order), launches
@@ -8130,14 +8168,16 @@ def ssd_eval_18d(torch, np, fluid):
     cpu_exe.close()
     return {"batch": b, "batches": rows, "card_equals_cpu": True,
             "state_vars": sorted(card[0][3]), "ms_a_batch": ms,
+            "device_ms_a_batch": sum(times.values()),
+            "nms_device_ms": _device_ms(None, NMS_KERNELS, times=times),
             "nms_launches": launches, "ap_version": SSD_EVAL["ap_version"],
             "reduced": "random SSD-300 weights from a seed, synthetic VOC-"
                        "shaped batches (bench_family.py's)"}, launches
 
 
 def vision_detection(torch, np, fluid, fa):
-    """Phase 18: the slice's op types card against CPU and the NMS sweep
-    kernel against its plain version (18a), FPN Faster R-CNN's heads
+    """Phase 18: the slice's op types card against CPU and the NMS sweep's
+    kernels against its plain version (18a), FPN Faster R-CNN's heads
     (18b), YOLOv3 (18c), SSD-300's VOC evaluation (18d). Returns
     ({sub-phase: row}, the sweep's launches on the main paths 18b-18d); a
     line names each sub-phase before it runs, and its ``vision_`` line
@@ -8150,7 +8190,7 @@ def vision_detection(torch, np, fluid, fa):
         print(f"vision_{key} " + json.dumps(row), flush=True)
 
     print("phase 18a: the slice's 31 op types card against CPU in f64; "
-          "nms_sweep_kernel against its plain version at m "
+          "the NMS sweep's kernels against its plain version at m "
           f"{[m for m, _ in NMS_CASES]}",
           flush=True)
     row = vision_ops_vs_cpu_18a(torch, np)
@@ -8397,12 +8437,12 @@ def main() -> int:
 
     built(vision_ops.NMS_SOURCE)
     # 18. the vision and detection slice: its 31 op types card against CPU
-    # and the NMS sweep kernel against its plain version (18a), FPN Faster
+    # and the NMS sweep's kernels against its plain version (18a), FPN Faster
     # R-CNN's heads (18b), YOLOv3 (18c), SSD-300's VOC evaluation (18d)
     vis18, nms_launches = vision_detection(torch, np, fluid, fa)
     b18, c18, d18 = vis18["18b"], vis18["18c"], vis18["18d"]
     print(f"vision and detection on {card}: {vis18['18a']['op_types']} op "
-          f"types card = CPU, nms_sweep_kernel = plain bit for bit at "
+          f"types card = CPU, the NMS sweep = plain bit for bit at "
           f"{len(vis18['18a']['nms']['cases'])} shapes; FPN heads "
           f"{b18['step_ms']:.1f} ms a step ({b18['step_device_ms']:.1f} "
           f"device, {b18['images_per_s']:.1f} images/s, NMS "
@@ -8410,7 +8450,8 @@ def main() -> int:
           f"{c18['step_ms']:.1f} ms a step, eval "
           f"{min(c18['eval']['turns']['ms_a_batch']['captured']):.1f} ms a "
           f"batch of {YOLO['batch']}; SSD-300 eval "
-          f"{d18['ms_a_batch']:.1f} ms a batch, mAP card = CPU; captured = "
+          f"{d18['ms_a_batch']:.1f} ms a batch (NMS "
+          f"{d18['nms_device_ms']:.3f}), mAP card = CPU; captured = "
           f"eager bit for bit in both trainings; phase 18 "
           f"{vis18['seconds']:.1f} s", flush=True)
 
@@ -8987,8 +9028,9 @@ def main() -> int:
             "benchmarks/grouped_conv_pallas.py:42",
             study_launches["grouped_conv"], gconv_rows[0], gconv_rows),
         _kernel_entry(
-            "nms_sweep_kernel (the greedy NMS sweep; YOLOv3 eval's 640 sets "
-            "of 1000)", "paddle_tpu_torch/csrc/nms_sweep.cu",
+            "nms_sweep_mask_kernel + nms_sweep_scan_kernel (the greedy NMS "
+            "sweep, one call launching both; YOLOv3 eval's 640 sets of "
+            "1000)", "paddle_tpu_torch/csrc/nms_sweep.cu",
             "no Pallas source: the JAX package sweeps in jax.lax.fori_loop, "
             "paddle_tpu/ops/vision_ops.py:228 and "
             "paddle_tpu/ops/detection_ops.py:455",

@@ -17,7 +17,7 @@ op reads a value on the host, so a captured step holds them. The ops
 that sample (``rpn_target_assign``, ``generate_proposal_labels``) draw on
 the device from the op seed (core/rng.py), as the other random ops; their
 bits differ from the JAX package's ``jax.random``. ``generate_proposals``
-runs the NMS sweep kernel on the card (vision_ops.nms_sweep).
+runs the NMS sweep's kernels on the card (vision_ops.nms_sweep).
 """
 
 from __future__ import annotations
@@ -329,7 +329,7 @@ def _nms_mask(boxes, keep0, thresh):
     """The greedy NMS keep mask of score-sorted sets, boxes [B, m, 4] and
     keep0 [B, m], with box_util's IoU: the JAX package's ``_nms_mask``
     without its top_k. At thresholds >= 0 that is ``nms_sweep``'s mask
-    (csrc/nms_sweep.cu says why; the kernel on the card). Below 0 every
+    (csrc/nms_sweep.cu says why; the kernels on the card). Below 0 every
     earlier kept box suppresses, since box_util's IoU is never NaN: the
     first of keep0 stays alone."""
     if thresh >= 0:
@@ -344,7 +344,7 @@ def _generate_proposals(ins, attrs, device):
     [H, W, A, 4], Variances like Anchors. Per image: the ``pre_nms_topN``
     best scores (equal scores in index order, as ``jax.lax.top_k``),
     decoded, clipped, those under ``min_size`` dropped, greedy NMS
-    (``_nms_mask``, box_util's IoU: the kernel on the card), the first
+    (``_nms_mask``, box_util's IoU: the kernels on the card), the first
     ``post_nms_topN`` survivors. Dense outputs: RpnRois [N, post, 4]
     (rows beyond RpnRoisNum zero), RpnRoiProbs [N, post, 1], RpnRoisNum
     [N] int32."""

@@ -10,10 +10,13 @@ detection/roi_perspective_transform_op.cc}). Static shapes, as there:
 NMS emits fixed-capacity outputs padded with -1 labels instead of the
 reference's variable-length LoD results.
 
-The greedy NMS sweep is a kernel written by hand (``nms_sweep``:
-``nms_sweep_kernel`` in csrc/nms_sweep.cu on CUDA tensors, the plain
-host loop ``nms_sweep_plain`` on the CPU); ``multiclass_nms`` and the
-detection ops' ``generate_proposals`` run it.
+The greedy NMS sweep is written by hand (``nms_sweep``: on CUDA
+tensors ``nms_sweep_mask_kernel``, the pairwise tests packed into a
+bitmask across the card, and ``nms_sweep_scan_kernel``, a warp a set
+walking it, both in csrc/nms_sweep.cu; on the CPU the plain host loop
+``nms_sweep_plain``); ``multiclass_nms`` and the detection ops'
+``generate_proposals`` run it. ``nms_mask_words_plain`` and
+``nms_scan_plain`` are the plain versions of the two stages.
 
 Gradients that scatter into X (``roi_align``, ``roi_pool``,
 ``psroi_pool``, ``unpool``, ``max_pool*_with_index``,
@@ -44,12 +47,13 @@ from paddle_tpu_torch.ops.box_util import greedy_bipartite_match
 from paddle_tpu_torch.ops.tensor_ops import _const
 
 NMS_SOURCE = "nms_sweep"
-_NMS_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+_NMS_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
              + [ctypes.c_double, ctypes.c_void_p])
-# shared memory a block of the kernel may use (the H100's 227 KB)
-_NMS_SMEM = 232448
-# launches of nms_sweep_kernel: kernels.launch_counts["nms_sweep"], one per
-# call of ``nms_sweep`` on CUDA tensors
+# candidates a mask word (and a chunk of the scan)
+NMS_WORD_BITS = 64
+# launches: kernels.launch_counts["nms_sweep"], one per call of
+# ``nms_sweep`` on CUDA tensors (the mask kernel and the scan);
+# ["nms_sweep_mask"], one per call of ``nms_mask_words`` (the mask kernel)
 
 
 def _x(ins, slot="X", i=0):
@@ -111,43 +115,165 @@ def nms_sweep_plain(boxes, keep0, iou_threshold):
     kept j has ``_iou_matrix``'s IoU(i, j) > iou_threshold (at thresholds
     >= 0 box_util.iou_xyxy's gives the same mask: csrc/nms_sweep.cu says
     why). ``sweep_mask`` over the [B, m, m] IoU matrix: the plain version
-    of ``nms_sweep_kernel``."""
+    of ``nms_sweep``."""
     return sweep_mask(_iou_matrix(boxes) > iou_threshold, keep0)
 
 
-def nms_sweep(boxes, keep0, iou_threshold):
-    """``nms_sweep_plain``'s keep mask: on CUDA tensors from
-    ``nms_sweep_kernel`` (one block a set; no [B, m, m] tensor; f32 or
-    f64 boxes, each IoU in the plain version's order of IEEE operations,
-    so the mask is the same bits), on the CPU from the plain version."""
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
-            tuple(keep0.shape) != tuple(boxes.shape[:2]) or \
-            keep0.dtype != torch.bool or keep0.device != boxes.device:
+def nms_mask_words_plain(boxes, iou_threshold):
+    """The sweep's pairwise tests packed as ``nms_sweep_mask_kernel``
+    packs them: boxes [B, m, 4] -> int64 words [B, m, W], W = ceil(m /
+    64); bit jj of word (i, cb) is set when j = 64 cb + jj > i and
+    IoU(j, i) > iou_threshold (``_iou_matrix``'s, the later candidate
+    first: ``nms_sweep_plain``'s over[j, i]). Words below the diagonal
+    block (cb < i // 64) are 0."""
+    b, m = boxes.shape[0], boxes.shape[1]
+    w = _nms_words(m)[0]
+    later = torch.ones(m, m, dtype=torch.bool, device=boxes.device).triu(1)
+    over = torch.zeros(b, m, w * NMS_WORD_BITS, dtype=torch.bool,
+                       device=boxes.device)
+    over[..., :m] = (_iou_matrix(boxes) > iou_threshold).transpose(1, 2) \
+        & later
+    over = over.reshape(b, m, w, NMS_WORD_BITS)
+    words = torch.zeros(b, m, w, dtype=torch.int64, device=boxes.device)
+    for k in range(NMS_WORD_BITS):
+        words |= over[..., k].to(torch.int64) << k
+    return words
+
+
+def nms_scan_plain(words, keep0):
+    """The greedy sweep over packed tests, walked as
+    ``nms_sweep_scan_kernel`` walks it: words [B, m, W]
+    (``nms_mask_words_plain``'s), keep0 [B, m] bool -> keep [B, m]. The
+    chunks of 64 candidates in order. In chunk c the candidates ``live``
+    are those of keep0 whose bit in ``removed`` word c (the earlier
+    chunks' kept rows) is clear; the chunk keeps the fixpoint of K = live
+    and not overlapped by an earlier row of K in the chunk (the diagonal
+    block's words), which is the greedy keep: after t rounds K agrees with
+    it on the chunk's first t rows. The kept rows' later words then join
+    ``removed``."""
+    b, m, w = words.shape
+    keep = torch.zeros_like(keep0)
+    removed = torch.zeros(b, w, dtype=torch.int64, device=words.device)
+    zero = torch.zeros((), dtype=torch.int64, device=words.device)
+    for c in range(w):
+        lo = c * NMS_WORD_BITS
+        rows = words[:, lo:lo + NMS_WORD_BITS]                 # [B, n, W]
+        pos = torch.arange(rows.shape[1], device=words.device)
+        # over[b, ii, jj]: row ii of the chunk overlaps its later row jj
+        over = (rows[:, :, c, None] >> pos) & 1 == 1
+        live = keep0[:, lo:lo + rows.shape[1]] & (
+            (removed[:, c, None] >> pos) & 1 == 0)
+        kept = live
+        while True:
+            k = live & ~(over & kept[:, :, None]).any(1)
+            if torch.equal(k, kept):
+                break
+            kept = k
+        keep[:, lo:lo + rows.shape[1]] = kept
+        for ii in range(rows.shape[1]):
+            removed[:, c + 1:] |= torch.where(kept[:, ii, None],
+                                              rows[:, ii, c + 1:], zero)
+    return keep
+
+
+def _nms_check(boxes, keep0=None):
+    """Raise on what the sweep does not take: boxes [B, m, 4] (f32 or f64
+    on the card) and, where given, a bool keep0 [B, m] on their device."""
+    got = f"{tuple(boxes.shape)}"
+    ok = boxes.dim() == 3 and boxes.shape[-1] == 4
+    if keep0 is not None:
+        got += f" and {keep0.dtype} {tuple(keep0.shape)}"
+        ok = ok and tuple(keep0.shape) == tuple(boxes.shape[:2]) and \
+            keep0.dtype == torch.bool and keep0.device == boxes.device
+    if not ok:
         raise ValueError(f"nms_sweep: boxes [B, m, 4] and a bool keep0 "
-                         f"[B, m] on one device, got {tuple(boxes.shape)} "
-                         f"and {keep0.dtype} {tuple(keep0.shape)}")
-    if boxes.device.type != "cuda":
-        return nms_sweep_plain(boxes, keep0, iou_threshold)
-    if boxes.dtype not in (torch.float32, torch.float64):
+                         f"[B, m] on one device, got {got}")
+    if boxes.device.type == "cuda" and \
+            boxes.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"nms_sweep kernel: dtype {boxes.dtype} (takes "
                         f"float32 or float64)")
+
+
+def _nms_boxes(boxes):
+    """``boxes`` contiguous, each box's four values aligned as one vector
+    load (the kernels read a box at once)."""
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % (4 * boxes.element_size()):
+        boxes = boxes.clone()
+    return boxes
+
+
+def _nms_words(m):
+    """(W, Wp): the words a row of the mask holds, ceil(m / 64), and its
+    stride, W rounded up to even (the kernels copy rows in 16 bytes)."""
+    w = -(-m // NMS_WORD_BITS)
+    return w, w + w % 2
+
+
+def _nms_work(boxes, fill):
+    """The kernels' scratch: sets * m * (Wp + 1) int64 words, the mask
+    [B, m, Wp] and then each candidate's column word of its diagonal
+    block [B, m] (``torch.zeros`` where ``fill``, else ``torch.empty``)."""
     sets, m = boxes.shape[0], boxes.shape[1]
-    size = boxes.element_size()
-    if m * (5 * size + 1) > _NMS_SMEM:
-        raise ValueError(f"nms_sweep kernel: {m} candidates of "
-                         f"{boxes.dtype} exceed a block's shared memory")
-    boxes, keep0 = boxes.contiguous(), keep0.contiguous()
-    keep = torch.empty_like(keep0)
-    if sets == 0 or m == 0:
-        return keep
+    make = torch.zeros if fill else torch.empty
+    return make(sets * m * (_nms_words(m)[1] + 1), dtype=torch.int64,
+                device=boxes.device)
+
+
+def _nms_launch(boxes, keep0, keep, work, iou_threshold):
+    """``pt_nms_sweep`` on the current stream: the mask kernel into
+    ``work``, then (``keep`` given) the scan into ``keep``."""
     # the threshold rounded to the boxes' dtype, as the plain comparison
     # rounds a Python float against an f32 tensor
     thr = float(torch.tensor(iou_threshold, dtype=boxes.dtype))
     entry = kernels.function(NMS_SOURCE, "pt_nms_sweep", _NMS_ARGS)
-    rc = entry(boxes.data_ptr(), keep0.data_ptr(), keep.data_ptr(), sets, m,
+    rc = entry(boxes.data_ptr(), None if keep0 is None else keep0.data_ptr(),
+               None if keep is None else keep.data_ptr(), work.data_ptr(),
+               boxes.shape[0], boxes.shape[1],
                1 if boxes.dtype == torch.float64 else 0, thr,
                torch.cuda.current_stream(boxes.device).cuda_stream)
     kernels.check(NMS_SOURCE, rc, "nms_sweep")
+
+
+def nms_mask_words(boxes, iou_threshold):
+    """``nms_mask_words_plain``'s words: on CUDA tensors from
+    ``nms_sweep_mask_kernel`` alone (a view of its [B, m, Wp] mask; the
+    words below the diagonal block, which it never writes, zeroed
+    first), on the CPU from the plain version."""
+    _nms_check(boxes)
+    if boxes.device.type != "cuda":
+        return nms_mask_words_plain(boxes, iou_threshold)
+    sets, m = boxes.shape[0], boxes.shape[1]
+    boxes = _nms_boxes(boxes)
+    work = _nms_work(boxes, fill=True)
+    w, wp = _nms_words(m)
+    words = work[:sets * m * wp].view(sets, m, wp)[..., :w]
+    if sets == 0 or m == 0:
+        return words
+    _nms_launch(boxes, None, None, work, iou_threshold)
+    kernels.count("nms_sweep_mask")
+    return words
+
+
+def nms_sweep(boxes, keep0, iou_threshold):
+    """``nms_sweep_plain``'s keep mask: on CUDA tensors from
+    ``nms_sweep_mask_kernel`` and ``nms_sweep_scan_kernel`` (the tests of
+    every later against every earlier candidate packed into a [B, m,
+    ceil(m / 64)] bitmask across the card, then a warp a set walking it;
+    no [B, m, m] tensor; f32 or f64 boxes, each IoU in the plain
+    version's order of IEEE operations, so the mask is the same bits), on
+    the CPU from the plain version."""
+    _nms_check(boxes, keep0)
+    if boxes.device.type != "cuda":
+        return nms_sweep_plain(boxes, keep0, iou_threshold)
+    boxes, keep0 = _nms_boxes(boxes), keep0.contiguous()
+    keep = torch.empty_like(keep0)
+    if boxes.shape[0] == 0 or boxes.shape[1] == 0:
+        return keep
+    # the mask kernel writes the words the scan reads (cb >= i // 64) and
+    # no others
+    _nms_launch(boxes, keep0, keep, _nms_work(boxes, fill=False),
+                iou_threshold)
     kernels.count("nms_sweep")
     return keep
 
@@ -175,7 +301,7 @@ def _multiclass_nms(ins, attrs, device):
     """BBoxes [n, m, 4]; Scores [n, cls, m]. Out [n, keep_top_k, 6] rows
     (label, score, x1, y1, x2, y2), label -1 padding. Each class of each
     image keeps its NMS survivors among its top ``nms_top_k`` scores above
-    ``score_threshold`` (``nms_sweep``: the kernel on the card); the
+    ``score_threshold`` (``nms_sweep``: the kernels on the card); the
     image's rows are the ``keep_top_k`` best of all classes (a stable sort
     over the classes in order)."""
     bboxes = _x(ins, "BBoxes").to(torch.float32)

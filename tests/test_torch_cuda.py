@@ -2581,18 +2581,22 @@ def test_auc_and_mean_iou_in_a_captured_step_equal_eager(cuda):
     assert len({tuple(s) for s in eager}) == 4
 
 
-# --- the NMS sweep kernel (csrc/nms_sweep.cu) and the vision slice ---
+# --- the NMS sweep's kernels (csrc/nms_sweep.cu) and the vision slice ---
 
 
 @pytest.mark.parametrize("m,sets,thr", [(64, 8, 0.5), (64, 8, -0.1),
                                         (400, 32, 0.5), (1000, 4, 0.0),
-                                        (2000, 2, 0.7)])
+                                        (2000, 2, 0.7), (12000, 2, 0.7),
+                                        (12000, 2, -0.1), (20000, 1, 0.7)])
 def test_nms_sweep_kernel_equals_the_plain_keep(cuda, m, sets, thr):
-    """nms_sweep_kernel against the plain sweep (``_nms_keep``'s) bit for
-    bit, ties, zero-width, inverted, duplicate, NaN and infinite boxes
-    included; one launch a call; a second launch gives the same bits; the
-    RPN's sweep (detection_ops' ``_nms_mask``: the kernel at thresholds >=
-    0) against the plain sweep over box_util.iou_xyxy."""
+    """The sweep's kernels (nms_sweep_mask_kernel, nms_sweep_scan_kernel)
+    against the plain sweep (``_nms_keep``'s) bit for bit, ties,
+    zero-width, inverted, duplicate, NaN and infinite boxes included, at m
+    up to 12,000 (past the first design's shared-memory cap of 11,068 f32
+    candidates) and 20,000 (the scan's removed set in two windows); one
+    count a call; a second launch gives the same bits; the RPN's sweep
+    (detection_ops' ``_nms_mask``: the kernels at thresholds >= 0) against
+    the plain sweep over box_util.iou_xyxy."""
     from chip_smoke import nms_sets
     from paddle_tpu_torch.ops import detection_ops, vision_ops
     from paddle_tpu_torch.ops.box_util import iou_xyxy
@@ -2609,6 +2613,69 @@ def test_nms_sweep_kernel_equals_the_plain_keep(cuda, m, sets, thr):
     want_rpn = vision_ops.sweep_mask(iou_xyxy(boxes, boxes) > thr, keep0)
     assert torch.equal(got_rpn, want_rpn)
     assert 0 < int(got.sum()) < int(keep0.sum())
+
+
+@pytest.mark.parametrize("m,sets,thr", [(64, 64, 0.45), (400, 640, 0.45),
+                                        (2000, 2, 0.7), (2000, 2, -0.1)])
+def test_nms_mask_words_equal_the_plain_words(cuda, m, sets, thr):
+    """nms_sweep_mask_kernel's packed tests (``nms_mask_words``: the mask
+    kernel alone, one count a call) equal ``nms_mask_words_plain``'s bit
+    for bit: bit 63, the last partial word, the diagonal block and the
+    zero words below it."""
+    from chip_smoke import nms_sets
+    from paddle_tpu_torch.ops import vision_ops
+
+    boxes, _ = nms_sets(torch, np, sets, m, m + sets + 1)
+    kernels.reset_counts()
+    got = vision_ops.nms_mask_words(boxes, thr)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["nms_sweep_mask"] == 1
+    assert torch.equal(got, vision_ops.nms_mask_words_plain(boxes, thr))
+
+
+def test_generate_proposals_at_12000_candidates_equals_the_cpu(cuda):
+    """generate_proposals at Detectron's C4 training setting
+    (lib/core/config.py: TRAIN.RPN_PRE_NMS_TOP_N 12,000, POST_NMS_TOP_N
+    2,000, NMS 0.7) on a stride-16 map of 38 x 63 with 15 anchors (35,910
+    a image): the sweep's kernels over 12,000 candidates (the first
+    design refused more than 11,068) give the CPU's proposals, bit for
+    bit. The deltas move the anchors' centres only (dw = dh = 0: exp(0)
+    is exact on both devices)."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    n, a, h, w, stride = 2, 15, 38, 63, 16.0
+    r = np.random.RandomState(12)
+    size = np.array([32.0, 64.0, 128.0, 256.0, 512.0])
+    ratio = np.array([0.5, 1.0, 2.0])
+    aw = (size[:, None] / np.sqrt(ratio)[None, :]).reshape(-1)
+    ah = (size[:, None] * np.sqrt(ratio)[None, :]).reshape(-1)
+    cy, cx = np.meshgrid((np.arange(h) + 0.5) * stride,
+                         (np.arange(w) + 0.5) * stride, indexing="ij")
+    anchors = np.stack([cx[..., None] - aw / 2, cy[..., None] - ah / 2,
+                        cx[..., None] + aw / 2, cy[..., None] + ah / 2],
+                       -1).astype(np.float32)                # [h, w, a, 4]
+    deltas = np.zeros((n, a, 4, h, w), np.float32)
+    deltas[:, :, :2] = r.normal(0, 0.2, (n, a, 2, h, w))
+    ins = {"Scores": np.round(r.uniform(0, 1, (n, a, h, w)), 3)
+           .astype(np.float32),
+           "BboxDeltas": deltas.reshape(n, 4 * a, h, w),
+           "ImInfo": np.array([[600.0, 1000.0, 1.0]] * n, np.float32),
+           "Anchors": anchors, "Variances": np.ones_like(anchors)}
+    attrs = {"pre_nms_topN": 12000, "post_nms_topN": 2000,
+             "nms_thresh": 0.7, "min_size": 0.0}
+    op = get_op_def("generate_proposals")
+    cpu = torch.device("cpu")
+    want = op.compute({k: [torch.from_numpy(v)] for k, v in ins.items()},
+                      dict(attrs), cpu)
+    kernels.reset_counts()
+    got = op.compute({k: [torch.from_numpy(v).to(cuda)]
+                      for k, v in ins.items()}, dict(attrs), cuda)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["nms_sweep"] == 1
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k][0].cpu(), want[k][0]), k
+    assert (want["RpnRoisNum"][0] == 2000).all()
 
 
 def test_nms_keep_on_the_card_equals_the_cpu(cuda):
